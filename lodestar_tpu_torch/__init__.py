@@ -1,0 +1,9 @@
+"""lodestar_tpu_torch: the BLS12-381 batch verifier in PyTorch and CUDA.
+
+The port of `lodestar_tpu`'s device tier to an NVIDIA H100: the same
+int32 limb layout and the same functions, as plain PyTorch, with the
+Montgomery multiply as a hand-written sm_90a kernel (`ops/cuda_fp.py`).
+It imports neither JAX nor `lodestar_tpu`. The entry point is
+`parallel.verifier.TorchBlsVerifier`; it runs on the GPU unless the
+caller passes `device="cpu"`.
+"""

@@ -1,0 +1,92 @@
+"""Carrying the JAX package's arrays across to the port.
+
+This system has no learned weights: what plays their part is the
+constant tables the kernels close over and the arrays a verdict is
+computed from. Both packages keep the same int32 (..., 32) limb layout, so
+a conversion is a dtype- and shape-checked copy onto a device.
+
+- `port_tables()` — the port's own constant tables (built from its own
+  copy of the oracle), under the names `constants_from_jax` takes.
+- `constants_from_jax(tables)` — the JAX package's tables, as numpy
+  arrays under those names, → torch tensors.
+- `grouped_inputs_from_jax(g, sig_raw, a_bits, b_bits)` — a JAX
+  `GroupedArrays` plus its raw signatures and random bits → the
+  arguments of `parallel.verifier.grouped_verify_kernel_raw`.
+
+The port never imports the JAX package; callers (the tests) pass its
+arrays in.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops import fp, fp12, g2_decompress, limbs, points
+
+def port_tables() -> dict[str, np.ndarray]:
+    """The port's constant tables, named after the JAX package's arrays
+    (`ops/limbs.py` *_LIMBS, `ops/fp.py` *_P2_COLS, `ops/points.py`
+    b3 / generators / −[2^b]g1 / ψ, `ops/fp12.py` γ, `ops/g2_decompress.py`
+    1/2 and (p+1)/2)."""
+    return {
+        "P": limbs.P_LIMBS,
+        "TWO_P": limbs.TWO_P_LIMBS,
+        "R2": limbs.R2_LIMBS,
+        "ONE_MONT": limbs.ONE_MONT_LIMBS,
+        "FOUR_P2_COLS": fp.FOUR_P2_COLS,
+        "EIGHT_P2_COLS": fp.EIGHT_P2_COLS,
+        "G1_B3": points.g1.b3_np,
+        "G2_B3": points.g2.b3_np,
+        "G1_GEN_X": points.G1_GEN_X,
+        "G1_GEN_Y": points.G1_GEN_Y,
+        "NEG_G1_POW2_X": points.NEG_G1_POW2_X,
+        "NEG_G1_POW2_Y": points.NEG_G1_POW2_Y,
+        "PSI_CX": points.PSI_CX_L,
+        "PSI_CY": points.PSI_CY_L,
+        "FROB_GAMMA": fp12.GAMMA,
+        "INV2": g2_decompress.INV2,
+        "HALF_P1": g2_decompress.HALF_P1,
+    }
+
+
+def _to_tensor(name: str, arr, shape, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype != np.int32:
+        raise TypeError(f"{name}: expected int32 limbs, got {arr.dtype}")
+    if shape is not None and arr.shape != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {arr.shape}")
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def constants_from_jax(tables: dict, device="cpu") -> dict[str, torch.Tensor]:
+    """The JAX package's constant tables (numpy arrays under the names of
+    `port_tables`) → int32 tensors on `device`, each checked against the
+    shape of the port's own table of that name."""
+    own = port_tables()
+    unknown = set(tables) - set(own)
+    if unknown:
+        raise KeyError(f"unknown tables: {sorted(unknown)}")
+    return {k: _to_tensor(k, v, own[k].shape, device) for k, v in tables.items()}
+
+
+def grouped_inputs_from_jax(g, sig_raw, a_bits, b_bits, device="cpu") -> tuple:
+    """A JAX `GroupedArrays` (R rows × L lanes) with its raw signatures
+    (R, L, 96) and GLS bits (R, L, 32) → the argument tuple of
+    `grouped_verify_kernel_raw`: (pk_x, pk_y, msg_x, msg_y, sig_raw,
+    a_bits, b_bits, valid) as tensors on `device`."""
+    rows, lanes = np.asarray(g.valid).shape
+    out = [
+        _to_tensor("pk_x", g.pk_x, (rows, lanes, 32), device),
+        _to_tensor("pk_y", g.pk_y, (rows, lanes, 32), device),
+        _to_tensor("msg_x", g.msg_x, (rows, 2, 32), device),
+        _to_tensor("msg_y", g.msg_y, (rows, 2, 32), device),
+    ]
+    raw = np.asarray(sig_raw)
+    if raw.dtype != np.uint8 or raw.shape != (rows, lanes, 96):
+        raise ValueError(f"sig_raw: expected ({rows}, {lanes}, 96) uint8")
+    out.append(torch.from_numpy(raw.copy()).to(device))
+    out.append(_to_tensor("a_bits", a_bits, (rows, lanes, 32), device))
+    out.append(_to_tensor("b_bits", b_bits, (rows, lanes, 32), device))
+    out.append(torch.from_numpy(np.asarray(g.valid, bool).copy()).to(device))
+    return tuple(out)
