@@ -12,6 +12,10 @@ with `ctypes` (no Python or PyTorch headers, so a build takes seconds).
 - `mont_mul_host()`: the K1 arithmetic header built for the host with
   `c++`, for the CPU tests.
 - `mont_mul_cuda()`: kernel K1 for sm_90a with `nvcc`.
+- `tower_host()`: the K2/K3 arithmetic header (`tower.cuh`) built for the
+  host with `c++`, for the CPU tests and the kernels' operation count.
+- `tower_cuda()`: kernels K2 and K3 (`tower.cu`) for sm_90a with `nvcc`;
+  `BUILD_LOG["tower"]` keeps ptxas's registers, stack and spills.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -127,3 +132,51 @@ def mont_mul_cuda() -> ctypes.CDLL:
     return _load("mont_mul", lambda: build_shared(
         "mont_mul", find_nvcc(), NVCC_FLAGS, ["mont_mul.cu"], ["fp_mont.cuh"],
     ))
+
+
+TOWER_HEADERS = ["tower.cuh", "tower_consts.cuh", "fp_mont.cuh"]
+
+
+def tower_host() -> ctypes.CDLL:
+    return _load("tower_host", lambda: build_shared(
+        "tower_host", find_compiler("c++", "g++", "clang++"),
+        ["-O2", "-std=c++17", "-shared", "-fPIC"],
+        ["tower_host.cpp"], TOWER_HEADERS,
+    ))
+
+
+def tower_cuda() -> ctypes.CDLL:
+    return _load("tower", lambda: build_shared(
+        "tower", find_nvcc(), NVCC_FLAGS, ["tower.cu"], TOWER_HEADERS,
+    ))
+
+
+def ptxas_summary(text: str) -> dict[str, dict[str, int]]:
+    """Per-function figures from `nvcc -Xptxas -v` output: registers (entry
+    functions), stack frame, cumulative stack (entries that make calls),
+    spill stores and loads, in bytes. Keys are the mangled names."""
+    out: dict[str, dict[str, int]] = {}
+    current = entry = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})["entry"] = 1
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            out.setdefault(current, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            out[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+            c = re.search(r"(\d+) bytes cumulative stack size", line)
+            if c:
+                out[entry]["cumulative_stack"] = int(c.group(1))
+    return out

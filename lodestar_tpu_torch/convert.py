@@ -12,6 +12,10 @@ a conversion is a dtype- and shape-checked copy onto a device.
 - `grouped_inputs_from_jax(g, sig_raw, a_bits, b_bits)` — a JAX
   `GroupedArrays` plus its raw signatures and random bits → the
   arguments of `parallel.verifier.grouped_verify_kernel_raw`.
+- `set_inputs_from_jax(arrs, r_bits)` — a JAX `SetArrays` (the per-set
+  bucket) plus its random bits → the arguments of
+  `parallel.verifier.bisect_tree_kernel`; without the bits, those of
+  `individual_verify_kernel`.
 
 The port never imports the JAX package; callers (the tests) pass its
 arrays in.
@@ -89,4 +93,25 @@ def grouped_inputs_from_jax(g, sig_raw, a_bits, b_bits, device="cpu") -> tuple:
     out.append(_to_tensor("a_bits", a_bits, (rows, lanes, 32), device))
     out.append(_to_tensor("b_bits", b_bits, (rows, lanes, 32), device))
     out.append(torch.from_numpy(np.asarray(g.valid, bool).copy()).to(device))
+    return tuple(out)
+
+
+def set_inputs_from_jax(arrs, r_bits=None, device="cpu") -> tuple:
+    """A JAX `SetArrays` (N lanes) and its random bits (N, 64), MSB first →
+    the argument tuple of `bisect_tree_kernel`: (pk_x, pk_y, msg_x, msg_y,
+    sig_x, sig_y, r_bits, valid) as tensors on `device`. With r_bits None
+    the tuple omits them and is the argument tuple of
+    `individual_verify_kernel`."""
+    lanes = np.asarray(arrs.valid).shape[0]
+    out = [
+        _to_tensor("pk_x", arrs.pk_x, (lanes, 32), device),
+        _to_tensor("pk_y", arrs.pk_y, (lanes, 32), device),
+        _to_tensor("msg_x", arrs.msg_x, (lanes, 2, 32), device),
+        _to_tensor("msg_y", arrs.msg_y, (lanes, 2, 32), device),
+        _to_tensor("sig_x", arrs.sig_x, (lanes, 2, 32), device),
+        _to_tensor("sig_y", arrs.sig_y, (lanes, 2, 32), device),
+    ]
+    if r_bits is not None:
+        out.append(_to_tensor("r_bits", r_bits, (lanes, 64), device))
+    out.append(torch.from_numpy(np.asarray(arrs.valid, bool).copy()).to(device))
     return tuple(out)

@@ -32,6 +32,8 @@ def _lib():
             "lodestar_bls_sign": [_VP, _VP, _SZ, _VP, _SZ, _VP],
             "lodestar_bls_sk_to_pk": [_VP, _VP],
             "lodestar_bls_verify_sets": [_SZ, _VP, _VP, _VP, _VP, _VP, _SZ, _VP, _VP, _VP],
+            "lodestar_bls_marshal_sets": [_SZ, _VP, _VP, _VP, _VP, _SZ, _INT, _INT, _INT,
+                                          _INT] + [_VP] * 7,
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -85,6 +87,36 @@ def sk_to_pk(sk_be: bytes):
     out = ctypes.create_string_buffer(48)
     rc = _lib().lodestar_bls_sk_to_pk(_buf(sk_be), out)
     return rc, out.raw
+
+
+def bls_marshal_sets(pks: bytes, msgs: bytes, sigs: bytes, dst: bytes,
+                     check_pk_subgroup: bool = False,
+                     check_sig_subgroup: bool = True,
+                     do_hash: bool = True, do_pk: bool = True):
+    """Marshal n signature sets into limb arrays in one C call.
+
+    pks n×48 B, msgs n×32 B signing roots, sigs n×96 B →
+    (pk_x (n, 32), pk_y (n, 32), msg_x (n, 2, 32), msg_y, sig_x, sig_y,
+    ok (n,) bool). A set whose decompression or subgroup check fails, or
+    whose pubkey or signature is infinity, gets ok False. Pubkey subgroup
+    checks default off (keys were validated when they were made),
+    signature subgroup checks on. do_hash=False skips hash-to-curve and
+    do_pk=False pubkey decompression (the caller fills those arrays from
+    its caches); the skipped arrays stay zero."""
+    n = len(pks) // 48
+    if len(pks) % 48 or len(msgs) != 32 * n or len(sigs) != 96 * n:
+        raise ValueError("need n*48 pubkey, n*32 message, n*96 signature bytes")
+    pk = np.zeros((2, n, 32), np.int32)
+    msg = np.zeros((2, n, 2, 32), np.int32)
+    sig = np.zeros((2, n, 2, 32), np.int32)
+    ok = np.zeros(n, np.uint8)
+    if n:
+        _lib().lodestar_bls_marshal_sets(
+            n, _buf(pks), _buf(msgs), _buf(sigs), _buf(dst), len(dst),
+            int(check_pk_subgroup), int(check_sig_subgroup), int(do_hash), int(do_pk),
+            _ptr(pk[0]), _ptr(pk[1]), _ptr(msg[0]), _ptr(msg[1]), _ptr(sig[0]),
+            _ptr(sig[1]), _ptr(ok))
+    return pk[0], pk[1], msg[0], msg[1], sig[0], sig[1], ok.astype(bool)
 
 
 def _verify_chunk(pks: bytes, msgs: list[bytes], sigs: bytes, dst: bytes) -> list[bool]:

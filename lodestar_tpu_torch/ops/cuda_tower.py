@@ -1,0 +1,256 @@
+"""K2 and K3, the Miller loop and the fused per-set pairing: the CUDA
+kernels, their plain versions and their host builds.
+
+- `miller_loop_kernel` replaces the JAX package's Pallas kernel
+  `ops/pallas_tower.py::_miller_tiles` (reached through `pairing.miller_loop`
+  when `LODESTAR_TPU_PALLAS_MILLER` resolves on, as it does on a TPU: the
+  port hard-codes that default). On CUDA tensors it launches `miller_kernel`
+  of `csrc/tower.cu` (built at first use by `build.tower_cuda`) or raises;
+  on CPU tensors it runs `miller_loop_plain`, `pairing._miller_loop_impl`
+  on affine P and Q.
+- `pairing_fused` replaces `ops/pallas_tower.py::_pairing_tiles` (reached
+  through `individual_verify_kernel` when `LODESTAR_TPU_PALLAS_PAIRING`
+  resolves on, as it does on a TPU). On CUDA tensors it launches
+  `pairing_kernel` or raises; on CPU tensors it runs `pairing_fused_plain`:
+  `individual_pairing_terms` (2n plain Miller lanes, the per-set Fp12
+  product) and `final_exponentiation_batch`.
+
+Both kernels return canonical limbs (every value below p); the plain
+versions return lazy limbs in [0, 2p). They agree by canonical value:
+K2 follows the plain version's formulas, and K3 inverts per thread where
+the plain version shares one inversion across the batch, which gives the
+same field element. `MILLER_LAUNCHES` and `PAIRING_LAUNCHES` count kernel
+launches (not plain calls), so a run can show that its path went through
+the kernels.
+
+The `*_host` functions run the kernels' own arithmetic (`csrc/tower.cuh`)
+built for the CPU (`build.tower_host`), for the tests and for the
+operation count of the kernels' bound (`fp_muls_per_lane`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import fp, fp12
+from .limbs import N_LIMBS
+from .points import G1_GEN_X, G1_GEN_Y
+
+MILLER_LAUNCHES = 0
+PAIRING_LAUNCHES = 0
+
+FP12_SHAPE = (2, 3, 2, N_LIMBS)
+
+
+# --- plain versions -----------------------------------------------------------
+
+def miller_loop_plain(xp, yp, xq, yq):
+    """conj(f_{|x|,Q}(P)) for affine P (n, 32) and Q (n, 2, 32), in PyTorch."""
+    from .pairing import _miller_loop_impl
+
+    return _miller_loop_impl(xp, yp, None, xq, yq, None)
+
+
+def pairing_lanes(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y):
+    """The 2n affine Miller lanes of n signature sets: (pk_i, H_i) for the
+    first n, (−g1, sig_i) for the next n."""
+    n = pk_x.shape[0]
+    gx = fp.const(G1_GEN_X, pk_x.device).expand(n, N_LIMBS)
+    neg_gy = fp.neg(fp.const(G1_GEN_Y, pk_x.device)).expand(n, N_LIMBS)
+    return (
+        torch.cat([pk_x, gx], 0),
+        torch.cat([pk_y, neg_gy], 0),
+        torch.cat([msg_x, sig_x], 0),
+        torch.cat([msg_y, sig_y], 0),
+    )
+
+
+def individual_pairing_terms(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y):
+    """(n,) per-set products ML(pk_i, H_i)·ML(−g1, sig_i) before the final
+    exponentiation, in PyTorch (the JAX package's
+    `parallel/verifier.py::_individual_pairing_terms`)."""
+    n = pk_x.shape[0]
+    fs = miller_loop_plain(*pairing_lanes(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y))
+    return fp12.mul(fs[:n], fs[n:])
+
+
+def pairing_fused_plain(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y):
+    """final_exp(ML(pk_i, H_i)·ML(−g1, sig_i)) per set, in PyTorch, the
+    easy part's inversion shared by the batch."""
+    from .pairing import final_exponentiation_batch
+
+    return final_exponentiation_batch(
+        individual_pairing_terms(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y))
+
+
+# --- CUDA kernels -------------------------------------------------------------
+
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+
+
+def _kernels():
+    from ..build import tower_cuda
+
+    lib = tower_cuda()
+    if lib.lodestar_miller.argtypes is None:
+        lib.lodestar_miller.argtypes = [_VP] * 5 + [_LL, _VP]
+        lib.lodestar_miller.restype = ctypes.c_int
+        lib.lodestar_pairing.argtypes = [_VP] * 7 + [_LL, _VP]
+        lib.lodestar_pairing.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, x: torch.Tensor, shape: tuple) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors")
+    if x.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 limbs, got {x.dtype}")
+    if tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {shape}, got {tuple(x.shape)}")
+
+
+def miller_loop_cuda(xp, yp, xq, yq):
+    """Launch K2 on contiguous int32 CUDA tensors xp, yp (n, 32) and xq, yq
+    (n, 2, 32) → (n, 2, 3, 2, 32) canonical limbs."""
+    global MILLER_LAUNCHES
+    n = xp.shape[0]
+    for name, x, shape in (("xp", xp, (n, N_LIMBS)), ("yp", yp, (n, N_LIMBS)),
+                           ("xq", xq, (n, 2, N_LIMBS)), ("yq", yq, (n, 2, N_LIMBS))):
+        _check(name, x, shape)
+    out = torch.empty((n,) + FP12_SHAPE, dtype=torch.int32, device=xp.device)
+    if n == 0:
+        return out
+    lib = _kernels()
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = lib.lodestar_miller(xp.data_ptr(), yp.data_ptr(), xq.data_ptr(), yq.data_ptr(),
+                             out.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"miller kernel launch failed: CUDA error {rc}")
+    MILLER_LAUNCHES += 1
+    return out
+
+
+def pairing_fused_cuda(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y):
+    """Launch K3 on contiguous int32 CUDA tensors pk (n, 32) and msg, sig
+    (n, 2, 32) → (n, 2, 3, 2, 32) canonical final-exponentiated limbs."""
+    global PAIRING_LAUNCHES
+    n = pk_x.shape[0]
+    p, q = (n, N_LIMBS), (n, 2, N_LIMBS)
+    for name, x, shape in (("pk_x", pk_x, p), ("pk_y", pk_y, p), ("msg_x", msg_x, q),
+                           ("msg_y", msg_y, q), ("sig_x", sig_x, q), ("sig_y", sig_y, q)):
+        _check(name, x, shape)
+    out = torch.empty((n,) + FP12_SHAPE, dtype=torch.int32, device=pk_x.device)
+    if n == 0:
+        return out
+    lib = _kernels()
+    stream = torch.cuda.current_stream(pk_x.device).cuda_stream
+    rc = lib.lodestar_pairing(pk_x.data_ptr(), pk_y.data_ptr(), msg_x.data_ptr(),
+                              msg_y.data_ptr(), sig_x.data_ptr(), sig_y.data_ptr(),
+                              out.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"pairing kernel launch failed: CUDA error {rc}")
+    PAIRING_LAUNCHES += 1
+    return out
+
+
+# --- entries: the kernel for CUDA tensors, the plain version for CPU ones ----
+
+def _on_cpu(*xs) -> bool:
+    return all(x.device.type == "cpu" for x in xs)
+
+
+def miller_loop_kernel(p_aff, q_aff):
+    """The affine Miller loop over broadcast leading axes: P (xp, yp)
+    (..., 32), Q (xq, yq) (..., 2, 32) → (..., 2, 3, 2, 32). A scalar call
+    gets a unit batch axis, as `pallas_tower.miller_loop_pallas` gives it."""
+    xp, yp = p_aff
+    xq, yq = q_aff
+    batch = fp.broadcast_shapes(xp.shape[:-1], yp.shape[:-1], xq.shape[:-2], yq.shape[:-2])
+    if batch == ():
+        return miller_loop_kernel((xp[None], yp[None]), (xq[None], yq[None]))[0]
+    flat = [
+        torch.broadcast_to(xp, batch + (N_LIMBS,)).reshape(-1, N_LIMBS),
+        torch.broadcast_to(yp, batch + (N_LIMBS,)).reshape(-1, N_LIMBS),
+        torch.broadcast_to(xq, batch + (2, N_LIMBS)).reshape(-1, 2, N_LIMBS),
+        torch.broadcast_to(yq, batch + (2, N_LIMBS)).reshape(-1, 2, N_LIMBS),
+    ]
+    if _on_cpu(*flat):
+        out = miller_loop_plain(*flat)
+    else:
+        out = miller_loop_cuda(*(x.contiguous() for x in flat))
+    return out.reshape(batch + FP12_SHAPE)
+
+
+def pairing_fused(pk_aff, msg_aff, sig_aff):
+    """Per-set final_exp(ML(pk_i, H_i)·ML(−g1, sig_i)): pk (n, 32), msg and
+    sig (n, 2, 32) → (n, 2, 3, 2, 32); callers finish with
+    `fp12.is_one(...) & valid`."""
+    args = (*pk_aff, *msg_aff, *sig_aff)
+    if _on_cpu(*args):
+        return pairing_fused_plain(*args)
+    return pairing_fused_cuda(*(x.contiguous() for x in args))
+
+
+# --- the kernels' arithmetic built for the host -------------------------------
+
+def _host():
+    from ..build import tower_host
+
+    lib = tower_host()
+    if lib.lodestar_tower_fp_muls.argtypes is None:
+        for name, n_ptr in (("lodestar_miller_host", 5), ("lodestar_pairing_host", 7),
+                            ("lodestar_final_exp_host", 2)):
+            fn = getattr(lib, name)
+            fn.argtypes = [_VP] * n_ptr + [_LL]
+            fn.restype = None
+        lib.lodestar_tower_fp_muls.argtypes = [ctypes.c_int]
+        lib.lodestar_tower_fp_muls.restype = ctypes.c_ulonglong
+    return lib
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.ascontiguousarray(x, dtype=np.int32)
+
+
+def _run_host(name: str, ins: list, n: int) -> np.ndarray:
+    arrs = [_np(x) for x in ins]
+    out = np.zeros((n,) + FP12_SHAPE, np.int32)
+    getattr(_host(), name)(*(a.ctypes.data for a in arrs), out.ctypes.data, n)
+    return out
+
+
+def miller_loop_host(xp, yp, xq, yq) -> np.ndarray:
+    """K2's arithmetic on the CPU: (n, 32) ×2, (n, 2, 32) ×2 → (n, 2, 3, 2, 32)."""
+    return _run_host("lodestar_miller_host", [xp, yp, xq, yq], int(np.shape(xp)[0]))
+
+
+def pairing_fused_host(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y) -> np.ndarray:
+    """K3's arithmetic on the CPU: n sets → (n, 2, 3, 2, 32)."""
+    return _run_host("lodestar_pairing_host", [pk_x, pk_y, msg_x, msg_y, sig_x, sig_y],
+                     int(np.shape(pk_x)[0]))
+
+
+def final_exp_host(fs) -> np.ndarray:
+    """The kernels' final exponentiation on the CPU, per lane."""
+    return _run_host("lodestar_final_exp_host", [fs], int(np.shape(fs)[0]))
+
+
+def fp_muls_per_lane() -> dict[str, int]:
+    """Fp multiplies one lane of each kernel runs (data-independent: the
+    loops follow the fixed bits of |x| and of p − 2), counted on the host
+    build over one all-zero lane."""
+    lib = _host()
+    zp = np.zeros((1, N_LIMBS), np.int32)
+    zq = np.zeros((1, 2, N_LIMBS), np.int32)
+    lib.lodestar_tower_fp_muls(1)
+    miller_loop_host(zp, zp, zq, zq)
+    miller = int(lib.lodestar_tower_fp_muls(1))
+    pairing_fused_host(zp, zp, zq, zq, zq, zq)
+    pairing = int(lib.lodestar_tower_fp_muls(1))
+    return {"miller_loop": miller, "pairing_fused": pairing}

@@ -8,6 +8,11 @@ loop over the 63 bits of |x| after the leading one (the addition step
 runs on the 5 set bits); the final exponentiation is the easy part
 (p⁶−1)(p²+1) and the HHT hard part, and computes pairing³ like the oracle
 (harmless for == 1 checks since 3 ∤ r).
+
+`miller_loop` (affine P and Q) is the entry that the JAX package sends to
+its Pallas Miller kernel on a TPU; here it goes to K2
+(`cuda_tower.miller_loop_kernel`) for CUDA tensors and to the plain loop
+for CPU tensors. The projective forms always run the plain loop.
 """
 
 from __future__ import annotations
@@ -137,6 +142,24 @@ def _line_and_add(t, q_aff, xp_neg2, yp2, zp2, b3):
     return l0, l1, l2, (ox, oy, oz)
 
 
+def miller_loop(p_aff, q_aff):
+    """f = conj(f_{|x|,Q}(P)) for P ∈ G1 affine (xp, yp) (..., 32) and Q ∈ G2
+    affine (xq, yq) (..., 2, 32), batched over broadcast leading axes. Does
+    not handle infinity: callers mask (see `pairing_check`). CUDA tensors
+    run K2 (the JAX package's `LODESTAR_TPU_PALLAS_MILLER` resolves on on a
+    TPU; the port hard-codes that), CPU tensors `_miller_loop_impl`."""
+    from .cuda_tower import miller_loop_kernel
+
+    return miller_loop_kernel(p_aff, q_aff)
+
+
+def miller_loop_projective(p_proj, q_aff):
+    """`miller_loop` with P = (Xp, Yp, Zp) homogeneous projective: equal
+    after the final exponentiation up to the Zp subfield scale. Zp = 0
+    lanes give garbage; callers mask them."""
+    return _miller_loop_impl(p_proj[0], p_proj[1], p_proj[2], q_aff[0], q_aff[1], None)
+
+
 def miller_loop_proj_pq(p_proj, q_proj):
     """f = conj(f_{|x|,Q}(P)) for P = (Xp, Yp, Zp) ∈ G1 and Q = (Xq, Yq, Zq)
     ∈ G2, both homogeneous projective: equal after the final
@@ -204,6 +227,14 @@ def _hard_part(f):
     return fp12.mul(c, f3)
 
 
+def final_exponentiation(f):
+    """Per-lane final exponentiation: the easy part with each lane's own
+    Fp12 inversion, then the HHT hard part (computes pairing³)."""
+    f = fp12.mul(fp12.conj(f), fp12.inv(f))  # f^(p⁶−1)
+    f = fp12.mul(fp12.frobenius(f, 2), f)  # ^(p²+1): cyclotomic now
+    return _hard_part(f)
+
+
 def final_exponentiation_batch(fs):
     """Final exponentiation over axis 0 with the easy part's Fp12 inversion
     shared by the batch (`fp12.batch_inv`). Zero lanes are safe: they are
@@ -222,3 +253,19 @@ def final_exponentiation_one(f):
     """Final exponentiation of ONE product through the batched entry (for
     n = 1 `batch_inv` is `inv`)."""
     return final_exponentiation_batch(f[None])[0]
+
+
+def pairing(p_aff, q_aff):
+    """e(P, Q)³ for affine P and Q (the final exponentiation's cube)."""
+    return final_exponentiation(miller_loop(p_aff, q_aff))
+
+
+def pairing_check(p_affs, q_affs, valid_mask):
+    """Π_i e(P_i, Q_i) == 1 over batch axis 0, the multi-pairing check:
+    P (xp, yp) and Q (xq, yq) with a leading batch axis, `valid_mask`
+    (batch,) bool; False lanes contribute 1 (e(O, ·) = 1 for infinity)."""
+    if p_affs[0].shape[0] == 0:
+        return torch.tensor(True, device=p_affs[0].device)  # the empty product
+    fs = miller_loop(p_affs, q_affs)
+    fs = fp12.select(valid_mask, fs, fp12.one(tuple(fs.shape[:-4]), fs.device))
+    return fp12.is_one(final_exponentiation_one(fp12.product_tree(fs)))

@@ -128,8 +128,52 @@ class CurveOps:
         oy, ox = self._addstack([x3 + y3, xt + xt])
         return (ox, oy, z3)
 
+    def add_mixed(self, p, q_affine):
+        """RCB16 Algorithm 8 (a=0): complete mixed addition with Z2 = 1. The
+        affine operand cannot encode infinity; callers mask it."""
+        F = self.F
+        x1, y1, z1 = p
+        x2, y2 = q_affine
+        b3 = self.b3(x1.device)
+        TP = F.two_p(x1)
+        xy1, xy2 = self._addstack([x1 + y1, x2 + y2])
+        t0, t1, u, xz, yz, t2b = self._mulstack(
+            [x1, y1, xy1, x2, y2, b3], [x2, y2, xy2, z1, z1, z1]
+        )
+        s01, t00, y3p, t4, z3, t1m = self._addstack(
+            [t0 + t1, t0 + t0, xz + x1, yz + y1, t1 + t2b, t1 - t2b + TP]
+        )
+        t3, x3 = self._addstack([u - s01 + TP, t00 + t0])
+        y3 = F.mul(b3, y3p)
+        a, b, c, d, e, f = self._mulstack(
+            [t3, t4, y3, t1m, z3, x3], [t1m, y3, x3, z3, t4, t3]
+        )
+        ox, oy, oz = self._addstack([a - b + TP, c + d, e + f])
+        return (ox, oy, oz)
+
     def neg(self, p):
         return (p[0], self.F.neg(p[1]), p[2])
+
+    # -- scalar multiplication ----------------------------------------------
+
+    def scalar_mul_bits(self, bits, q_affine):
+        """[k]Q for affine Q, k as (..., nbits) int32 bits, MSB first:
+        double-and-add over every bit with the add taken by a select (the
+        JAX package's `lax.scan` as a Python loop), so the cost does not
+        depend on the scalars."""
+        nbits = bits.shape[-1]
+        cn = self.coord_ndim
+        xq, yq = q_affine
+        batch = fp.broadcast_shapes(bits.shape[:-1], xq.shape[: xq.ndim - cn])
+        xq = torch.broadcast_to(xq, batch + tuple(xq.shape[xq.ndim - cn:]))
+        yq = torch.broadcast_to(yq, batch + tuple(yq.shape[yq.ndim - cn:]))
+        bits = torch.broadcast_to(bits, batch + (nbits,))
+        acc = self.infinity(batch, xq.device)
+        for j in range(nbits):
+            acc = self.double(acc)
+            added = self.add_mixed(acc, (xq, yq))
+            acc = self.select(bits[..., j] != 0, added, acc)
+        return acc
 
 
 g1 = CurveOps(fp, fq_to_limbs(Fq(12)), coord_ndim=1)  # 3·4

@@ -1,9 +1,10 @@
 """`lodestar_tpu_torch.convert`: the JAX package's constant tables and a
-grouped batch's arrays carried into the port.
+grouped or per-set batch's arrays carried into the port.
 
 The port builds its tables from its own copy of the oracle; they must
 equal the JAX package's arrays exactly, and `constants_from_jax` /
-`grouped_inputs_from_jax` must round-trip the JAX arrays unchanged.
+`grouped_inputs_from_jax` / `set_inputs_from_jax` must round-trip the JAX
+arrays unchanged.
 """
 
 import numpy as np
@@ -14,11 +15,12 @@ from lodestar_tpu.ops import fp12 as jfp12
 from lodestar_tpu.ops import g2_decompress as jdec
 from lodestar_tpu.ops import limbs as jlimbs
 from lodestar_tpu.ops import points as jpoints
-from lodestar_tpu.parallel.verifier import GroupedArrays
+from lodestar_tpu.parallel.verifier import GroupedArrays, SetArrays
 from lodestar_tpu_torch.convert import (
     constants_from_jax,
     grouped_inputs_from_jax,
     port_tables,
+    set_inputs_from_jax,
 )
 
 
@@ -86,3 +88,26 @@ def test_grouped_inputs_from_jax_round_trip():
         np.testing.assert_array_equal(got.numpy(), arr)
     with pytest.raises(ValueError):
         grouped_inputs_from_jax(g, sig_raw[:, :3], a_bits, b_bits)
+
+
+def test_set_inputs_from_jax_round_trip():
+    rng = np.random.default_rng(4)
+    arrs = SetArrays(4)
+    names = ("pk_x", "pk_y", "msg_x", "msg_y", "sig_x", "sig_y")
+    for name in names:
+        arr = getattr(arrs, name)
+        arr[...] = rng.integers(0, 4096, size=arr.shape)
+    arrs.valid[:3] = True
+    r_bits = rng.integers(0, 2, size=(4, 64)).astype(np.int32)
+    out = set_inputs_from_jax(arrs, r_bits)
+    want = tuple(getattr(arrs, k) for k in names) + (r_bits, arrs.valid)
+    assert len(out) == len(want) == 8
+    for got, arr in zip(out, want):
+        np.testing.assert_array_equal(got.numpy(), arr)
+    short = set_inputs_from_jax(arrs)  # the arguments of individual_verify_kernel
+    assert len(short) == 7
+    np.testing.assert_array_equal(short[-1].numpy(), arrs.valid)
+    with pytest.raises(ValueError):
+        set_inputs_from_jax(arrs, r_bits[:, :32])
+    with pytest.raises(TypeError):
+        set_inputs_from_jax(arrs, r_bits.astype(np.int64))
