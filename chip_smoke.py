@@ -5,46 +5,69 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. env    the card's name and power limit, the torch and CUDA versions.
-2. build  K1 (`csrc/mont_mul.cu`), K2/K3 (`csrc/tower.cu`), both with nvcc
-          for sm_90a, the C host tier (`csrc/host/`, cc) and the K2/K3 host
-          harness (`csrc/tower_host.cpp`, c++) from the checkout, all at
-          once, into build/lodestar_tpu_torch/; ptxas's registers, stack
-          and spills of every kernel.
+2. build  K1 (`csrc/mont_mul.cu`), K2/K3 (`csrc/tower.cu`) and K4
+          (`csrc/mxu_mont.cu`), each with nvcc for sm_90a, the C host tier
+          (`csrc/host/`, cc) and the K2/K3 host harness (`csrc/tower_host.cpp`,
+          c++) from the checkout, all at once, into build/lodestar_tpu_torch/;
+          ptxas's registers, stack and spills of every kernel.
 3. k1     K1 against its plain PyTorch version on the card, limb for limb
           (tolerance 0), on random values in [0, 2p) plus the edges 0, 1,
           p−1, p and 2p−1, at the lane counts the main path uses; then
           CUDA-event timings of both beside the byte bound.
-4. k2     K2, the affine Miller loop, against `miller_loop_plain` on G1
+4. k4     K4, the integer-tensor-core multiply, against its plain version
+          and against K1, limb for limb, on the 25 edge pairs (padded to
+          4096 products) and at 4096, 4097 (a partial warp tile), 65,536
+          and 262,144 products; CUDA-event times of K4, K1 and the plain
+          version beside K4's bound.
+5. k2     K2, the affine Miller loop, against `miller_loop_plain` on G1
           pubkeys and H(m) points made with the host tier plus one all-zero
           lane, at 8 and 256 lanes (the 2 × 128 Miller lanes of a 128-set
           per-set batch): equal canonical values (tolerance 0), CUDA-event
           times of both, the operation bound (Fp multiplies per lane counted
           by the host harness); the device memory that K2's first launch
           takes for the raised per-thread stack limit.
-5. k3     K3, the fused per-set pairing, against `pairing_fused_plain` on 4
+6. k3     K3, the fused per-set pairing, against `pairing_fused_plain` on 4
           and 128 marshalled sets with three invalid sets and one zero lane:
           equal canonical values, verdicts equal to the host tier's, times,
           bound and first-launch memory as for K2.
-6. slice  4096 signature sets over 64 signing roots (one slot of mainnet
+7. slice  4096 signature sets over 64 signing roots (one slot of mainnet
           attestation gossip) made from a fixed seed with the host tier,
           verified by `TorchBlsVerifier` at the (64, 64) configuration:
           True on the valid batch, False on four tampered ones, each equal
           to the host tier's CPU verdict; the same for 128 sets over 16
-          roots, the (16, 8) configuration. K1's launch count is reset just
-          before the timed main-path verdict and read just after.
-7. per-set  128 sets over 128 signing roots (a block's attestations),
+          roots, the (16, 8) configuration.
+8. pk-grouped  4096 sets over 4096 unique roots signed by 128 keys (the
+          default (128, 32) configuration): the valid batch (first call, and
+          warm with the hash-to-G2 cache emptied, as a flood of unique roots
+          always finds it) and three tampered ones (a wrong message, two
+          signatures swapped, bad flag bits), each equal to the host tier's
+          verdict.
+9. flat   128 sets over 128 roots and 128 keys (valid, one wrong message)
+          and 200 such sets (two chunks).
+10. split 64 sets over 8 shared roots plus 64 sets over 64 unique roots,
+          from 2 keys (the rest goes pk-grouped) or from 64 keys (flat); each
+          valid and with one tampered set in the unique part.
+11. per-set  128 sets over 128 signing roots (a block's attestations),
           `verify_signature_sets_individual` on the card: (a) the valid
           batch, all True by the root alone; (b) three tampered sets,
           found by bisection; (c) `verify_individual` on the tampered
           bucket, one K3 launch; (d) 16 sets with one bad encoding, one
           set at a time (`_verify_one`). Every list equals the host tier's
-          per-set verdicts; launch counts are reset just before each call
-          and read just after.
-8. pairing-check  `pairing.pairing_check`, the multi-pairing primitive, over
+          per-set verdicts.
+12. pairing-check  `pairing.pairing_check`, the multi-pairing primitive, over
           the 2 × 128 affine pairs of the valid and of the tampered batch:
           the path that runs K2 (one launch per check).
-9. the `kernels` line, the card line, and the last line
-          {"ok": true, "device": {"platform": "gpu", ...}}.
+
+The main-path verdicts of phases 7-12 run with the launch counts of K1-K4
+reset just before and read just after, and fail if a kernel of their path
+was launched no time; every verdict of phases 8-10 is counted so and also
+checks which planner paths ran.
+
+13. the `kernels` line, the card line, and the last line
+          {"ok": true, "device": {"platform": "gpu", ...}}. K1's and K4's
+          entries give their times per launch over the product counts that
+          their main-path verdict gave them (the grouped (64, 64) verdict
+          for K1, the pk-grouped one for K4), each count timed anew.
 """
 
 from __future__ import annotations
@@ -54,7 +77,9 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -88,11 +113,12 @@ def phase_build():
     from lodestar_tpu_torch import build
 
     t0 = time.perf_counter()
-    builds = (build.mont_mul_cuda, build.tower_cuda, build.host_tier, build.tower_host)
+    builds = (build.mont_mul_cuda, build.tower_cuda, build.mxu_cuda, build.host_tier,
+              build.tower_host)
     with ThreadPoolExecutor(len(builds)) as pool:
         for job in [pool.submit(b) for b in builds]:
             job.result()
-    log(f"[build] K1, K2/K3, host tier and tower host harness built in "
+    log(f"[build] K1, K2/K3, K4, host tier and tower host harness built in "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = {}
     for name, (secs, text) in sorted(build.BUILD_LOG.items()):
@@ -154,7 +180,6 @@ def phase_k1(torch, np):
     dev = torch.device("cuda")
     sizes = (1, 68, 4096, 64 * 4096)
     max_err = 0
-    rows = []
     for n in sizes:
         a = torch.as_tensor(_random_limbs(rng, n)).to(dev)
         b = torch.as_tensor(_random_limbs(rng, n)[::-1].copy()).to(dev)
@@ -168,15 +193,19 @@ def phase_k1(torch, np):
         iters = 200 if n <= 4096 else 50
         ms = _time_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
         plain_ms = _time_ms(torch, lambda: cuda_fp.mont_mul_plain(a, b), max(5, iters // 10))
-        bytes_ms = 384 * n / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * 12 * 12 * 2 * n / INT32_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        rows.append(dict(lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, share_of_bound=bound_ms / ms))
+        bound_ms, bound_by = k1_bound(n)
         log(f"[k1] lanes={n} match=exact ms={ms:.6f} plain_ms={plain_ms:.6f} "
             f"bound_ms={bound_ms:.8f} ({bound_by}) share_of_bound={bound_ms / ms:.6f}")
-    return max_err, rows
+    return max_err
+
+
+def k1_bound(lanes: int):
+    """K1's (bound_ms, bound_by) at `lanes` products: 384 B moved and the
+    2·12² int32 products of its 12 × 12 digit schoolbook, each a mul.lo and
+    a mul.hi, per product."""
+    bytes_ms = 384 * lanes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * 12 * 12 * 2 * lanes / INT32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def _tampered(sets, per_root: int):
@@ -219,9 +248,8 @@ def _host_verdicts(sets):
 
 
 def phase_slice(torch, np, n_roots: int, per_root: int):
-    """Drive TorchBlsVerifier on one batch shape; returns K1 launches of
-    the main-path verdict and its wall time."""
-    from lodestar_tpu_torch.ops import cuda_fp
+    """Drive TorchBlsVerifier on one batch shape; returns the launch counts
+    of the main-path verdict and its wall time."""
     from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
     from lodestar_tpu_torch.profile_verdict import make_sets
 
@@ -248,22 +276,17 @@ def phase_slice(torch, np, n_roots: int, per_root: int):
         raise AssertionError("the port rejects the valid batch")
 
     # main path, warm caches: counts reset just before, read just after
-    v.stage_seconds.clear()
     torch.cuda.reset_peak_memory_stats()
-    cuda_fp.LAUNCHES = 0
-    t0 = time.perf_counter()
-    verdict = v.verify_signature_sets(sets)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = cuda_fp.LAUNCHES
+    with _products_per_launch() as products:
+        verdict, wall, counts = _run_counted(torch, lambda: v.verify_signature_sets(sets), v)
+    _check_products(products, counts, tag)
     stages = dict(v.stage_seconds)
     if verdict is not True:
         raise AssertionError("the port rejects the valid batch (warm)")
-    if launches <= 0:
-        raise AssertionError("the main path launched K1 no time")
+    _need(counts, f"{tag} main path", "K1")
     host_s = stages.get("marshal", 0.0) + stages.get("rand", 0.0)
     log(f"{tag} warm verdict True in {wall:.3f} s = {len(sets) / wall:.1f} sets/s; "
-        f"K1 launches {launches}; host marshal+rand share {host_s / wall:.6f} "
+        f"launches {json.dumps(counts)}; host marshal+rand share {host_s / wall:.6f} "
         f"(hash-to-curve {stages.get('hash_to_curve', 0.0):.6f} s); "
         f"stages {json.dumps(stages)}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -282,24 +305,79 @@ def phase_slice(torch, np, n_roots: int, per_root: int):
         log(f"{tag} {name}: port {got}, host tier {want} ({secs:.3f} s)")
         if got is not False or want is not False:
             raise AssertionError(f"{name}: the tampered batch was not rejected by both")
-    return launches, wall, len(sets)
+    return counts, wall, len(sets), products
 
 
-# K4 (ops/pallas_mxu.py::_mxu_kernel, not ported yet) computes K1's function
-# on the matrix unit: per product a (3, 1024) @ (1024, 64) column-select
-# product of 8-bit parts, then (2, 32) @ (32, 64) for m and (2, 32) @ (32, 128)
-# for m·p, as 8-bit multiply-adds
-K4_MACS_PER_PRODUCT = 3 * 1024 * 64 + 2 * 32 * 64 + 2 * 32 * 128
+# K4 computes K1's function, REDC(a·b), on the integer tensor cores. What
+# the function needs there: three 32 × 32 limb-product contractions (a·b,
+# t·N′, m·p), each limb product four u8 × u8 multiply-adds of its lo/hi
+# bytes. The TPU formulation that K4 follows issues far more (a dense
+# contraction with the 0/1 matrix S); that is the cost of the formulation,
+# not work the function needs, so the bound does not count it.
+K4_MACS_PER_PRODUCT = 3 * 4 * 32 * 32
 INT8_MMA_OPS_PER_S = 1979e12  # dense int8 tensor-core peak
 
 
 def k4_bound(lanes: int):
-    """K4's bound at `lanes` products from its shapes: (bound_ms, bound_by,
-    ops_ms, bytes_ms)."""
+    """K4's (bound_ms, bound_by) at `lanes` products: the larger of its
+    384 B moved and the multiply-adds REDC(a·b) needs."""
     ops_ms = 2 * K4_MACS_PER_PRODUCT * lanes / INT8_MMA_OPS_PER_S * 1e3
     bytes_ms = 384 * lanes / HBM_BYTES_PER_S * 1e3
-    by = "operations" if ops_ms >= bytes_ms else "bytes"
-    return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+K4_SIZES = (4096, 4097, 65536, 262144)  # products; 4097 leaves a partial warp tile
+
+
+def _edge_pairs(np, rng, n: int):
+    """The 25 pairs of the edges {0, 1, p−1, p, 2p−1}, padded with random
+    values in [0, 2p) to n products."""
+    from lodestar_tpu_torch.bls.fields import P
+    from lodestar_tpu_torch.ops.limbs import int_to_limbs
+
+    edges = [int_to_limbs(v) for v in (0, 1, P - 1, P, 2 * P - 1)]
+    a = _random_limbs(rng, n)
+    b = _random_limbs(rng, n)
+    a[:25] = [x for x in edges for _ in edges]
+    b[:25] = [y for _ in edges for y in edges]
+    return a, b
+
+
+def phase_k4(torch, np):
+    """K4 against its plain version and against K1, limb for limb, then
+    CUDA-event times of K4, K1 and the plain version beside K4's bound."""
+    from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu
+
+    rng = np.random.default_rng(SEED + 4)
+    dev = torch.device("cuda")
+    cases = [("edges", *_edge_pairs(np, rng, 4096))]
+    for n in K4_SIZES:
+        cases.append((str(n), _random_limbs(rng, n), _random_limbs(rng, n)[::-1].copy()))
+    max_err = 0
+    for name, a_np, b_np in cases:
+        a, b = torch.as_tensor(a_np).to(dev), torch.as_tensor(b_np).to(dev)
+        n = a.shape[0]
+        got = cuda_mxu.mont_mul_mxu_cuda(a, b)
+        plain = cuda_mxu.mont_mul_mxu_plain(a, b)
+        k1 = cuda_fp.mont_mul_cuda(a, b)
+        torch.cuda.synchronize()
+        err = max(int((got.long() - plain.long()).abs().max()),
+                  int((got.long() - k1.long()).abs().max()))
+        max_err = max(max_err, err)
+        if err != 0:
+            raise AssertionError(f"K4 differs from its plain version or K1 at {name} products")
+        if name == "edges":
+            log(f"[k4] the 25 edge pairs (padded to {n}): match=exact against plain and K1")
+            continue
+        iters = 100 if n <= 4097 else 20
+        ms = _time_ms(torch, lambda: cuda_mxu.mont_mul_mxu_cuda(a, b), iters)
+        k1_ms = _time_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
+        plain_ms = _time_ms(torch, lambda: cuda_mxu.mont_mul_mxu_plain(a, b), 3)
+        bound_ms, bound_by = k4_bound(n)
+        log(f"[k4] products={n} match=exact ms={ms:.6f} k1_ms={k1_ms:.6f} "
+            f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({bound_by}) "
+            f"share_of_bound={bound_ms / ms:.6f}")
+    return max_err
 
 
 PER_SET_N = 128  # the largest per-set bucket: a block's attestations
@@ -489,18 +567,19 @@ def phase_k3(torch, np, muls: int, bad, host_bad):
 
 
 def _counts():
-    from lodestar_tpu_torch.ops import cuda_fp, cuda_tower
+    from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu, cuda_tower
 
     return {"K1": cuda_fp.LAUNCHES, "K2": cuda_tower.MILLER_LAUNCHES,
-            "K3": cuda_tower.PAIRING_LAUNCHES}
+            "K3": cuda_tower.PAIRING_LAUNCHES, "K4": cuda_mxu.LAUNCHES}
 
 
 def _reset_counts():
-    from lodestar_tpu_torch.ops import cuda_fp, cuda_tower
+    from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu, cuda_tower
 
     cuda_fp.LAUNCHES = 0
     cuda_tower.MILLER_LAUNCHES = 0
     cuda_tower.PAIRING_LAUNCHES = 0
+    cuda_mxu.LAUNCHES = 0
 
 
 def _run_counted(torch, fn, verifier=None):
@@ -514,6 +593,67 @@ def _run_counted(torch, fn, verifier=None):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, _counts()
+
+
+@contextmanager
+def _products_per_launch():
+    """{"K1": Counter, "K4": Counter}: the products of every K1 and K4
+    launch made inside the block, seen by wrapping the two wrappers (which
+    still count the launches)."""
+    from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu
+
+    seen = {"K1": Counter(), "K4": Counter()}
+    wrapped = [(cuda_fp, "mont_mul_cuda", "K1"), (cuda_mxu, "mont_mul_mxu_cuda", "K4")]
+    saved = [getattr(mod, name) for mod, name, _ in wrapped]
+    for (mod, name, key), fn in zip(wrapped, saved):
+        def spy(a, b, _fn=fn, _seen=seen[key]):
+            out = _fn(a, b)
+            if a.numel():  # an empty call launches nothing
+                _seen[a.numel() // 32] += 1
+            return out
+
+        setattr(mod, name, spy)
+    try:
+        yield seen
+    finally:
+        for (mod, name, _), fn in zip(wrapped, saved):
+            setattr(mod, name, fn)
+
+
+def _check_products(products: dict, counts: dict, tag: str):
+    for k, seen in products.items():
+        if sum(seen.values()) != counts[k]:
+            raise AssertionError(f"{tag}: {counts[k]} {k} launches, {sum(seen.values())} seen")
+    log(f"{tag} products per launch -> launches: "
+        + "; ".join(f"{k} {json.dumps(dict(sorted(v.items())))}" for k, v in products.items()))
+
+
+def launch_mix(torch, np, name: str, mix: Counter, kernel, plain, bound):
+    """The times per launch of `kernel` and of its plain version, and its
+    bound, each the mean over the main path's launches (`mix`: products →
+    launches); every product count timed anew on random operands."""
+    rng = np.random.default_rng(SEED + 21)
+    dev = torch.device("cuda")
+    total = sum(mix.values())
+    ms = plain_ms = bound_ms = 0.0
+    bound_parts = Counter()  # the mean bound, split by what bounds each count
+    for n, k in sorted(mix.items()):
+        a = torch.as_tensor(_random_limbs(rng, n)).to(dev)
+        b = torch.as_tensor(_random_limbs(rng, n)[::-1].copy()).to(dev)
+        t = _time_ms(torch, lambda: kernel(a, b), 50)
+        tp = _time_ms(torch, lambda: plain(a, b), 3)
+        bd, by = bound(n)
+        log(f"[{name}] products={n} launches={k} ms={t:.6f} plain_ms={tp:.6f} "
+            f"bound_ms={bd:.8f} ({by})")
+        ms += k * t / total
+        plain_ms += k * tp / total
+        bound_ms += k * bd / total
+        bound_parts[by] += k * bd / total
+    by = max(bound_parts, key=bound_parts.get)
+    log(f"[{name}] per launch over {total} main-path launches: ms={ms:.6f} "
+        f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({by}) share_of_bound="
+        f"{bound_ms / ms:.6f}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
 
 
 def _need(counts: dict, route: str, *kernels):
@@ -609,6 +749,196 @@ def phase_pairing_check(torch, np, sets, host_ok, bad, host_bad):
     return result
 
 
+def make_key_sets(np, key_ids, roots, seed: int):
+    """Sets signed by key key_ids[i] over roots[i], with the secret keys
+    drawn from `seed`, signed by the host tier."""
+    from lodestar_tpu_torch import profile_verdict
+
+    sks = profile_verdict.secret_keys(np.random.default_rng(seed), max(key_ids) + 1)
+    return profile_verdict.make_key_sets(key_ids, roots, sks, threads=THREADS)
+
+
+def _wrong_message(sets, k: int, root: bytes):
+    """Set k's signing root replaced by a fresh one (its signature no longer
+    matches; every root of the batch keeps its count of sets)."""
+    from lodestar_tpu_torch.bls.api import SignatureSet
+
+    out = list(sets)
+    out[k] = SignatureSet(sets[k].pubkey, root, sets[k].signature)
+    return out
+
+
+def _swap_signatures(sets, i: int, j: int):
+    from lodestar_tpu_torch.bls.api import SignatureSet
+
+    out = list(sets)
+    out[i] = SignatureSet(sets[i].pubkey, sets[i].message, sets[j].signature)
+    out[j] = SignatureSet(sets[j].pubkey, sets[j].message, sets[i].signature)
+    return out
+
+
+def _bad_flags(sets, k: int):
+    """Set k's signature with its compression flag cleared: it does not
+    decode."""
+    from lodestar_tpu_torch.bls.api import SignatureSet
+
+    out = list(sets)
+    raw = bytearray(sets[k].signature)
+    raw[0] &= 0x7F
+    out[k] = SignatureSet(sets[k].pubkey, sets[k].message, bytes(raw))
+    return out
+
+
+def _host_after(host, bad, changed):
+    """The host tier's per-set verdicts of `bad`: the unchanged sets keep
+    those of `host`, the changed ones are verified anew."""
+    out = list(host)
+    for k, ok in zip(changed, _host_verdicts([bad[k] for k in changed])):
+        out[k] = ok
+    return out
+
+
+def _spy_routes(v):
+    """Record which submit paths the verifier takes (appended in order)."""
+    routes = []
+    for name in ("_submit_grouped", "_submit_pk_grouped", "_submit_flat"):
+        fn = getattr(v, name)
+
+        def spy(*args, _fn=fn, _name=name[len("_submit_"):]):
+            routes.append(_name)
+            return _fn(*args)
+
+        setattr(v, name, spy)
+    return routes
+
+
+def _verdict(torch, v, routes, tag, name, sets, want: bool, route: list):
+    """One counted verdict: equal to the host tier's, through `route`."""
+    routes.clear()
+    got, secs, counts = _run_counted(torch, lambda: v.verify_signature_sets(sets), v)
+    log(f"{tag} {name}: port {got}, host tier {want}, routes {routes}, {secs:.3f} s; "
+        f"launches {json.dumps(counts)}; stages {json.dumps(v.stage_seconds)}")
+    if got is not want:
+        raise AssertionError(f"{tag} {name}: the port says {got}, the host tier {want}")
+    if routes != route:
+        raise AssertionError(f"{tag} {name}: routes {routes}, expected {route}")
+    return secs, counts
+
+
+PK_KEYS, PK_ROOTS = 128, 32  # the default pk-grouped configuration (128, 32)
+
+
+def phase_pk_grouped(torch, np):
+    """4096 sets over 4096 unique roots from 128 keys: the valid batch and
+    three tampered ones through the pk-grouped verdict."""
+    from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
+
+    tag = "[pk-grouped]"
+    n = PK_KEYS * PK_ROOTS
+    rng = np.random.default_rng(SEED + 11)
+    t0 = time.perf_counter()
+    sets = make_key_sets(np, [i // PK_ROOTS for i in range(n)],
+                         [rng.bytes(32) for _ in range(n)], SEED + 12)
+    host = _host_verdicts(sets)
+    log(f"{tag} made {n} sets ({PK_KEYS} keys x {PK_ROOTS} unique roots each) and the host "
+        f"tier's verdicts in {time.perf_counter() - t0:.1f} s")
+    if not all(host):
+        raise AssertionError("the host tier rejects the valid pk-grouped batch")
+    v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED))
+    routes = _spy_routes(v)
+    out = {}
+    secs, counts = _verdict(torch, v, routes, tag, "(a) valid, first call", sets, True,
+                            ["pk_grouped"])
+    _need(counts, f"{tag} valid", "K1", "K4")
+    out["cold"] = dict(seconds=secs, counts=counts)
+    # a flood of unique roots never hits the hash-to-G2 cache: empty it,
+    # so that the warm verdict hashes its 4096 roots as the first did
+    v._h2c_cache.clear()
+    with _products_per_launch() as products:
+        secs, counts = _verdict(torch, v, routes, tag, "(a) valid, warm, hash cache emptied",
+                                sets, True, ["pk_grouped"])
+    _need(counts, f"{tag} valid (warm)", "K1", "K4")
+    _check_products(products, counts, tag)
+    out["warm"] = dict(seconds=secs, counts=counts, stages=dict(v.stage_seconds),
+                       products=products)
+    log(f"{tag} warm: {n / secs:.1f} sets/s")
+    i, j = 5, n // 2 + 3  # sets of two different keys
+    for name, bad, changed in (
+        ("(b) wrong message", _wrong_message(sets, i, rng.bytes(32)), (i,)),
+        ("(c) swapped signature", _swap_signatures(sets, i, j), (i, j)),
+        ("(d) bad flag bits", _bad_flags(sets, i), (i,)),
+    ):
+        want = all(_host_after(host, bad, changed))
+        if want:
+            raise AssertionError(f"{tag} {name}: the host tier accepts the tampered batch")
+        _verdict(torch, v, routes, tag, name, bad, False, ["pk_grouped"])
+    return out
+
+
+def phase_flat(torch, np):
+    """128 sets over 128 roots and 128 keys, valid and with one wrong
+    message, and 200 such sets (two chunks): the flat verdict."""
+    from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
+
+    tag = "[flat]"
+    rng = np.random.default_rng(SEED + 13)
+    t0 = time.perf_counter()
+    sets = make_key_sets(np, list(range(200)), [rng.bytes(32) for _ in range(200)], SEED + 14)
+    host = _host_verdicts(sets)
+    log(f"{tag} made 200 sets and the host tier's verdicts in {time.perf_counter() - t0:.1f} s")
+    if not all(host):
+        raise AssertionError("the host tier rejects the valid flat batch")
+    v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED))
+    routes = _spy_routes(v)
+    out = {}
+    head = sets[:PER_SET_N]
+    _verdict(torch, v, routes, tag, "128 valid, first call", head, True, ["flat"])
+    secs, counts = _verdict(torch, v, routes, tag, "128 valid, warm", head, True, ["flat"])
+    _need(counts, f"{tag} valid", "K1")
+    out["128"] = dict(seconds=secs, counts=counts)
+    bad = _wrong_message(head, 9, rng.bytes(32))
+    if all(_host_after(host[:PER_SET_N], bad, (9,))):
+        raise AssertionError(f"{tag} the host tier accepts the tampered batch")
+    _verdict(torch, v, routes, tag, "128, one wrong message", bad, False, ["flat"])
+    secs, counts = _verdict(torch, v, routes, tag, "200 valid (chunks of 128 and 72)", sets,
+                            True, ["flat"])
+    out["200"] = dict(seconds=secs, counts=counts)
+    return out
+
+
+def phase_split(torch, np):
+    """The two split compositions: 64 sets over 8 shared roots (64 keys)
+    plus 64 sets over 64 unique roots from 2 keys (pk-grouped rest) or
+    from 64 keys (flat rest); each valid and with one tampered unique-part
+    set."""
+    from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
+
+    tag = "[split]"
+    rng = np.random.default_rng(SEED + 15)
+    shared_roots = [rng.bytes(32) for _ in range(8)]
+    unique_roots = [rng.bytes(32) for _ in range(64)]
+    roots = [shared_roots[i // 8] for i in range(64)] + unique_roots
+    out = {}
+    for rest, keys, route in (("pk-grouped", [64 + i % 2 for i in range(64)], "pk_grouped"),
+                              ("flat", [64 + i for i in range(64)], "flat")):
+        sets = make_key_sets(np, list(range(64)) + keys, roots, SEED + 16)
+        host = _host_verdicts(sets)
+        if not all(host):
+            raise AssertionError(f"{tag} the host tier rejects the valid batch")
+        v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED))
+        routes = _spy_routes(v)
+        secs, counts = _verdict(torch, v, routes, tag, f"grouped + {rest}, valid", sets, True,
+                                ["grouped", route])
+        out[rest] = dict(seconds=secs, counts=counts)
+        k = 64 + 7  # a set of the unique part
+        bad = _wrong_message(sets, k, rng.bytes(32))
+        if all(_host_after(host, bad, (k,))):
+            raise AssertionError(f"{tag} the host tier accepts the tampered batch")
+        _verdict(torch, v, routes, tag, f"grouped + {rest}, one tampered unique set", bad, False,
+                 ["grouped", route])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -625,19 +955,25 @@ def main() -> int:
     ptxas = phase_build()
     muls = cuda_tower.fp_muls_per_lane()
     log(f"[build] Fp multiplies per lane (host harness): {json.dumps(muls)}")
-    max_err, rows = phase_k1(torch, np)
-    k4 = k4_bound(rows[-1]["lanes"])
-    log(f"[k4] not ported: its bound at {rows[-1]['lanes']} products, from its shapes: "
-        f"{k4[0]:.8f} ms ({k4[1]}; int8 MMA {k4[2]:.8f} ms, bytes {k4[3]:.8f} ms)")
+    max_err = phase_k1(torch, np)
+    k4_err = phase_k4(torch, np)
     k2_err, k2_row = phase_k2(torch, np, muls["miller_loop"])
     sets, host_ok, bad, host_bad = per_set_batches(np)
     k3_err, k3_row = phase_k3(torch, np, muls["pairing_fused"], bad, host_bad)
-    launches, wall, n_sets = phase_slice(torch, np, 64, 64)
+    grouped_counts, wall, n_sets, grouped_products = phase_slice(torch, np, 64, 64)
     log(f"[slice] main path (64, 64): {wall:.3f} s per {n_sets}-set verdict, "
-        f"{n_sets / wall:.1f} sets/s, {launches} K1 launches per verdict")
+        f"{n_sets / wall:.1f} sets/s, launches per verdict {json.dumps(grouped_counts)}")
     phase_slice(torch, np, 16, 8)
+    pk = phase_pk_grouped(torch, np)
+    flat = phase_flat(torch, np)
+    split = phase_split(torch, np)
     per_set = phase_per_set(torch, np, sets, host_ok, bad, host_bad)
     checks = phase_pairing_check(torch, np, sets, host_ok, bad, host_bad)
+    log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
+        f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
+        f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
+        f"{flat['200']['seconds']:.3f} s; split + pk-grouped {split['pk-grouped']['seconds']:.3f} s, "
+        f"split + flat {split['flat']['seconds']:.3f} s")
     log(f"[summary] per-set {PER_SET_N}: bisection valid {per_set['a']['seconds']:.3f} s, "
         f"bisection 3 invalid {per_set['b']['seconds']:.3f} s, K3 route "
         f"{per_set['c']['seconds']:.6f} s; script {time.perf_counter() - t_start:.1f} s")
@@ -647,19 +983,37 @@ def main() -> int:
         f"({stack / 2**30:.3f} GiB; K2 {k2_row['stack_bytes']} B, then K3 "
         f"{k3_row['stack_bytes']} B more)")
 
-    main_row = rows[-1]
+    from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu
+
+    k1_mix = launch_mix(torch, np, "k1 main path", grouped_products["K1"],
+                        cuda_fp.mont_mul_cuda, cuda_fp.mont_mul_plain, k1_bound)
+    k4_mix = launch_mix(torch, np, "k4 main path", pk["warm"]["products"]["K4"],
+                        cuda_mxu.mont_mul_mxu_cuda, cuda_mxu.mont_mul_mxu_plain, k4_bound)
     kernels = {"kernels": [
         {
             "name": "mont_mul",
             "route": "cuda",
             "source": "lodestar_tpu_torch/csrc/mont_mul.cu",
             "replaces": "lodestar_tpu/ops/pallas_fp.py:52",
-            "launches": launches,
+            "launches": grouped_counts["K1"],
             "max_abs_err": max_err,
-            "ms": main_row["ms"],
-            "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
+            "ms": k1_mix["ms"],
+            "plain_ms": k1_mix["plain_ms"],
+            "bound_ms": k1_mix["bound_ms"],
+            "bound_by": k1_mix["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "mont_mul_mxu",
+            "route": "cuda",
+            "source": "lodestar_tpu_torch/csrc/mxu_mont.cu",
+            "replaces": "lodestar_tpu/ops/pallas_mxu.py:124",
+            "launches": pk["warm"]["counts"]["K4"],
+            "max_abs_err": k4_err,
+            "ms": k4_mix["ms"],
+            "plain_ms": k4_mix["plain_ms"],
+            "bound_ms": k4_mix["bound_ms"],
+            "bound_by": k4_mix["bound_by"],
             "library_ms": None,
         },
         {

@@ -16,6 +16,10 @@ with `ctypes` (no Python or PyTorch headers, so a build takes seconds).
   host with `c++`, for the CPU tests and the kernels' operation count.
 - `tower_cuda()`: kernels K2 and K3 (`tower.cu`) for sm_90a with `nvcc`;
   `BUILD_LOG["tower"]` keeps ptxas's registers, stack and spills.
+- `mxu_host()`: the K4 arithmetic header (`mxu_mont.cuh`) built for the
+  host with `c++`, its MMA emulated, for the CPU tests.
+- `mxu_cuda()`: kernel K4 (`mxu_mont.cu`) for sm_90a with `nvcc`;
+  `BUILD_LOG["mxu_mont"]` keeps ptxas's figures.
 """
 
 from __future__ import annotations
@@ -151,6 +155,20 @@ def tower_cuda() -> ctypes.CDLL:
     ))
 
 
+def mxu_host() -> ctypes.CDLL:
+    return _load("mxu_mont_host", lambda: build_shared(
+        "mxu_mont_host", find_compiler("c++", "g++", "clang++"),
+        ["-O2", "-std=c++17", "-shared", "-fPIC"],
+        ["mxu_mont_host.cpp"], ["mxu_mont.cuh"],
+    ))
+
+
+def mxu_cuda() -> ctypes.CDLL:
+    return _load("mxu_mont", lambda: build_shared(
+        "mxu_mont", find_nvcc(), NVCC_FLAGS, ["mxu_mont.cu"], ["mxu_mont.cuh"],
+    ))
+
+
 def ptxas_summary(text: str) -> dict[str, dict[str, int]]:
     """Per-function figures from `nvcc -Xptxas -v` output: registers (entry
     functions), stack frame, cumulative stack (entries that make calls),
@@ -180,3 +198,4 @@ def ptxas_summary(text: str) -> dict[str, dict[str, int]]:
             if c:
                 out[entry]["cumulative_stack"] = int(c.group(1))
     return out
+

@@ -16,6 +16,12 @@ a conversion is a dtype- and shape-checked copy onto a device.
   bucket) plus its random bits → the arguments of
   `parallel.verifier.bisect_tree_kernel`; without the bits, those of
   `individual_verify_kernel`.
+- `pk_grouped_inputs_from_jax(g, sig_raw, a_bits, b_bits)` — a JAX
+  `PkGroupedArrays` plus its raw signatures and GLS bits → the arguments
+  of `parallel.verifier.pk_grouped_verify_kernel_raw`.
+- `flat_inputs_from_jax(arrs, sig_raw, r_bits)` — a JAX `SetArrays` plus
+  its raw signatures and random bits → the arguments of
+  `parallel.verifier.batch_verify_kernel_raw`.
 
 The port never imports the JAX package; callers (the tests) pass its
 arrays in.
@@ -31,8 +37,8 @@ from .ops import fp, fp12, g2_decompress, limbs, points
 def port_tables() -> dict[str, np.ndarray]:
     """The port's constant tables, named after the JAX package's arrays
     (`ops/limbs.py` *_LIMBS, `ops/fp.py` *_P2_COLS, `ops/points.py`
-    b3 / generators / −[2^b]g1 / ψ, `ops/fp12.py` γ, `ops/g2_decompress.py`
-    1/2 and (p+1)/2)."""
+    b3 / generators / −[2^b]g1 (32 and 64 entries) / ψ, `ops/fp12.py` γ,
+    `ops/g2_decompress.py` 1/2 and (p+1)/2)."""
     return {
         "P": limbs.P_LIMBS,
         "TWO_P": limbs.TWO_P_LIMBS,
@@ -46,6 +52,8 @@ def port_tables() -> dict[str, np.ndarray]:
         "G1_GEN_Y": points.G1_GEN_Y,
         "NEG_G1_POW2_X": points.NEG_G1_POW2_X,
         "NEG_G1_POW2_Y": points.NEG_G1_POW2_Y,
+        "NEG_G1_POW2_64_X": points.NEG_G1_POW2_64_X,
+        "NEG_G1_POW2_64_Y": points.NEG_G1_POW2_64_Y,
         "PSI_CX": points.PSI_CX_L,
         "PSI_CY": points.PSI_CY_L,
         "FROB_GAMMA": fp12.GAMMA,
@@ -61,6 +69,13 @@ def _to_tensor(name: str, arr, shape, device) -> torch.Tensor:
     if shape is not None and arr.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {arr.shape}")
     return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _raw_to_tensor(sig_raw, shape, device) -> torch.Tensor:
+    raw = np.asarray(sig_raw)
+    if raw.dtype != np.uint8 or raw.shape != tuple(shape):
+        raise ValueError(f"sig_raw: expected {tuple(shape)} uint8")
+    return torch.from_numpy(raw.copy()).to(device)
 
 
 def constants_from_jax(tables: dict, device="cpu") -> dict[str, torch.Tensor]:
@@ -86,10 +101,7 @@ def grouped_inputs_from_jax(g, sig_raw, a_bits, b_bits, device="cpu") -> tuple:
         _to_tensor("msg_x", g.msg_x, (rows, 2, 32), device),
         _to_tensor("msg_y", g.msg_y, (rows, 2, 32), device),
     ]
-    raw = np.asarray(sig_raw)
-    if raw.dtype != np.uint8 or raw.shape != (rows, lanes, 96):
-        raise ValueError(f"sig_raw: expected ({rows}, {lanes}, 96) uint8")
-    out.append(torch.from_numpy(raw.copy()).to(device))
+    out.append(_raw_to_tensor(sig_raw, (rows, lanes, 96), device))
     out.append(_to_tensor("a_bits", a_bits, (rows, lanes, 32), device))
     out.append(_to_tensor("b_bits", b_bits, (rows, lanes, 32), device))
     out.append(torch.from_numpy(np.asarray(g.valid, bool).copy()).to(device))
@@ -115,3 +127,38 @@ def set_inputs_from_jax(arrs, r_bits=None, device="cpu") -> tuple:
         out.append(_to_tensor("r_bits", r_bits, (lanes, 64), device))
     out.append(torch.from_numpy(np.asarray(arrs.valid, bool).copy()).to(device))
     return tuple(out)
+
+
+def pk_grouped_inputs_from_jax(g, sig_raw, a_bits, b_bits, device="cpu") -> tuple:
+    """A JAX `PkGroupedArrays` (R pubkey rows × L lanes) with its raw
+    signatures (R, L, 96) and GLS bits (R, L, 32) → the argument tuple of
+    `pk_grouped_verify_kernel_raw`: (pk_x, pk_y, msg_x, msg_y, sig_raw,
+    a_bits, b_bits, valid) as tensors on `device`."""
+    rows, lanes = np.asarray(g.valid).shape
+    return (
+        _to_tensor("pk_x", g.pk_x, (rows, 32), device),
+        _to_tensor("pk_y", g.pk_y, (rows, 32), device),
+        _to_tensor("msg_x", g.msg_x, (rows, lanes, 2, 32), device),
+        _to_tensor("msg_y", g.msg_y, (rows, lanes, 2, 32), device),
+        _raw_to_tensor(sig_raw, (rows, lanes, 96), device),
+        _to_tensor("a_bits", a_bits, (rows, lanes, 32), device),
+        _to_tensor("b_bits", b_bits, (rows, lanes, 32), device),
+        torch.from_numpy(np.asarray(g.valid, bool).copy()).to(device),
+    )
+
+
+def flat_inputs_from_jax(arrs, sig_raw, r_bits, device="cpu") -> tuple:
+    """A JAX `SetArrays` (N lanes) with its raw signatures (N, 96) and
+    random bits (N, 64), MSB first → the argument tuple of
+    `batch_verify_kernel_raw`: (pk_x, pk_y, msg_x, msg_y, sig_raw, r_bits,
+    valid) as tensors on `device`."""
+    lanes = np.asarray(arrs.valid).shape[0]
+    return (
+        _to_tensor("pk_x", arrs.pk_x, (lanes, 32), device),
+        _to_tensor("pk_y", arrs.pk_y, (lanes, 32), device),
+        _to_tensor("msg_x", arrs.msg_x, (lanes, 2, 32), device),
+        _to_tensor("msg_y", arrs.msg_y, (lanes, 2, 32), device),
+        _raw_to_tensor(sig_raw, (lanes, 96), device),
+        _to_tensor("r_bits", r_bits, (lanes, 64), device),
+        torch.from_numpy(np.asarray(arrs.valid, bool).copy()).to(device),
+    )

@@ -10,8 +10,9 @@ Every function here computes the same limbs as its namesake in the JAX
 package's `ops/fp.py`. Where that module runs a 32-step scan for a carry,
 this one uses fewer, wider tensor operations (folds plus a carry
 look-ahead), which give the same limbs and the same final carry for any
-input. The Montgomery product `mul` goes to `cuda_fp.mont_mul`: the
-hand-written kernel on a CUDA tensor, its plain version on a CPU tensor.
+input. The Montgomery product `mul` goes to `cuda_mxu.mont_mul`: a
+hand-written kernel on a CUDA tensor (K4 from 4096 products up, K1 below),
+its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -293,10 +294,14 @@ def redc_cols(t_cols: torch.Tensor) -> torch.Tensor:
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product REDC(a·b): inputs < 2p, output < 2p.
 
-    Always `cuda_fp.mont_mul`: the JAX package's default is its XLA scan,
-    and `LODESTAR_TPU_PALLAS_MUL=1` routes it through the Pallas kernel
-    this port's CUDA kernel replaces."""
-    from .cuda_fp import mont_mul
+    Always `cuda_mxu.mont_mul`, the JAX package's MXU configuration
+    (`LODESTAR_TPU_PALLAS_MXU=1`, which takes precedence over its
+    `LODESTAR_TPU_PALLAS_MUL` route): a call of at least 4096 flattened
+    products runs K4, the integer-tensor-core kernel, and a smaller one K1,
+    which stands in for the word-serial `_mul_scan` the JAX path gives way
+    to (limb for limb the same). On CPU tensors both are their plain
+    versions."""
+    from .cuda_mxu import mont_mul
 
     return mont_mul(a, b)
 

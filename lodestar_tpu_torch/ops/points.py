@@ -210,7 +210,8 @@ def g2_psi(p):
 
 def _neg_g1_pow2_table(nbits: int):
     """Affine limb table of −[2^b]·g1, b = 0..nbits−1 (host-computed): the
-    grouped verifier pairs each signature bit-plane against one entry."""
+    batch verifiers pair each signature bit-plane against one entry (32
+    planes per GLS half in the grouped verdicts, 64 in the flat one)."""
     xs, ys = [], []
     cur = _curve.PointG1.generator()
     for _ in range(nbits):
@@ -221,4 +222,5 @@ def _neg_g1_pow2_table(nbits: int):
     return np.stack(xs), np.stack(ys)
 
 
-NEG_G1_POW2_X, NEG_G1_POW2_Y = _neg_g1_pow2_table(32)
+NEG_G1_POW2_64_X, NEG_G1_POW2_64_Y = _neg_g1_pow2_table(64)
+NEG_G1_POW2_X, NEG_G1_POW2_Y = NEG_G1_POW2_64_X[:32], NEG_G1_POW2_64_Y[:32]

@@ -27,17 +27,35 @@ The port of the JAX package's two verdicts behind `IBlsVerifier`:
   2⁻⁶⁴ cancellation fallback and every set of a batch that does not
   marshal (`_verify_one`).
 
-The other verdict paths of the JAX package (flat, pk-grouped, split) are
-not ported yet: a batch the grouped planner refuses raises
-NotImplementedError instead of answering on the CPU.
+A batch the root-grouped planner refuses goes on down the JAX package's
+planner (`TpuBlsVerifier.verify_signature_sets_submit`), in its order:
+
+- pk-grouped (`_plan_pk_groups` → `_submit_pk_grouped` →
+  `_marshal_pk_grouped` → `pk_grouped_verify_kernel_raw`), the
+  dual layout for unique roots signed by a bounded set of keys: one pubkey
+  per row, Π_k e(pk_k, Σ_{i∈k} r_i·H_i)·e(−g1, Σ_i r_i·sig_i) == 1, R + 64
+  Miller lanes, the per-row message sums by G2 bit-plane MSM and Horner;
+- split (`_split_shared_unique`): the shared-root sets go root-grouped,
+  the singleton-root rest pk-grouped, else flat;
+- flat (`_submit_flat` → `_marshal(raw=True)` → `batch_verify_kernel_raw`),
+  in chunks of the largest bucket: per set r_i·pk_i by a 64-step G1
+  ladder, the signatures' 64 bit-planes against −[2^b]g1, N + 64 Miller
+  lanes; the resolver ANDs the chunks. A batch outside the 32 B root /
+  96 B signature shape takes this path with host-decoded signatures
+  (`batch_verify_kernel`).
+
+Every Fp multiply of these paths goes through `fp.mul`: K4 (the integer
+tensor-core multiply) from 4096 products up, K1 below.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import secrets
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -51,7 +69,17 @@ from ..ops.pairing import (
     final_exponentiation_one,
     miller_loop_proj_pq,
 )
-from ..ops.points import G1_GEN_X, G1_GEN_Y, NEG_G1_POW2_X, NEG_G1_POW2_Y, g1, g2, g2_psi
+from ..ops.points import (
+    G1_GEN_X,
+    G1_GEN_Y,
+    NEG_G1_POW2_64_X,
+    NEG_G1_POW2_64_Y,
+    NEG_G1_POW2_X,
+    NEG_G1_POW2_Y,
+    g1,
+    g2,
+    g2_psi,
+)
 
 N_LIMBS = 32
 R_BITS = 64  # the per-set random coefficients of the bisection tree
@@ -65,14 +93,19 @@ PK_CACHE_MAX = 1 << 21
 
 __all__ = [
     "GroupedArrays",
+    "PkGroupedArrays",
     "SetArrays",
     "TorchBlsVerifier",
+    "batch_verify_kernel",
+    "batch_verify_kernel_raw",
     "bisect_probe_kernel",
     "bisect_tree_kernel",
     "final_exp_batch_kernel",
     "grouped_verify_kernel",
     "grouped_verify_kernel_raw",
     "individual_verify_kernel",
+    "pk_grouped_verify_kernel",
+    "pk_grouped_verify_kernel_raw",
 ]
 
 
@@ -106,6 +139,53 @@ class GroupedArrays:
         self.sig_y = np.zeros((rows, lanes, 2, N_LIMBS), np.int32)
         self.valid = np.zeros((rows, lanes), bool)
         self.n = 0
+
+
+class PkGroupedArrays:
+    """Signature sets grouped by PUBKEY into (R rows × L lanes): one pubkey
+    per row, per-lane messages and signatures (the dual layout)."""
+
+    __slots__ = ("pk_x", "pk_y", "msg_x", "msg_y", "sig_x", "sig_y", "valid", "n")
+
+    def __init__(self, rows: int, lanes: int):
+        self.pk_x = np.zeros((rows, N_LIMBS), np.int32)
+        self.pk_y = np.zeros((rows, N_LIMBS), np.int32)
+        self.msg_x = np.zeros((rows, lanes, 2, N_LIMBS), np.int32)
+        self.msg_y = np.zeros((rows, lanes, 2, N_LIMBS), np.int32)
+        self.sig_x = np.zeros((rows, lanes, 2, N_LIMBS), np.int32)
+        self.sig_y = np.zeros((rows, lanes, 2, N_LIMBS), np.int32)
+        self.valid = np.zeros((rows, lanes), bool)
+        self.n = 0
+
+
+# --- host marshalling pool ---------------------------------------------------
+#
+# The C host tier's ctypes calls release the GIL, so a pool of threads as
+# large as the host's cores hashes many roots at once.
+
+_MARSHAL_CHUNK = 256  # sets per pool task
+_POOL = None
+_POOL_SIZE = 0
+
+
+def marshal_pool_size() -> int:
+    """The host's cores (the JAX package's default, without its
+    LODESTAR_TPU_MARSHAL_THREADS override)."""
+    return os.cpu_count() or 1
+
+
+def _marshal_pool():
+    """The shared ThreadPoolExecutor, or None on a one-core host."""
+    global _POOL, _POOL_SIZE
+    size = marshal_pool_size()
+    if size <= 1:
+        return None
+    if _POOL is None or _POOL_SIZE != size:
+        from concurrent.futures import ThreadPoolExecutor
+
+        _POOL = ThreadPoolExecutor(max_workers=size, thread_name_prefix="bls-marshal")
+        _POOL_SIZE = size
+    return _POOL
 
 
 def _rand_bits(lanes: int, rng=None) -> np.ndarray:
@@ -255,6 +335,160 @@ def _grouped_verify_impl(
     return verdict
 
 
+def pk_grouped_verify_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits, valid):
+    """The pk-grouped verdict on affine limb tensors (signatures decoded)."""
+    return _pk_grouped_verify_impl(
+        pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits, valid,
+        check_planes=False,
+    )
+
+
+def pk_grouped_verify_kernel_raw(
+    pk_x, pk_y, msg_x, msg_y, sig_raw, a_bits, b_bits, valid, stage=_no_stage
+):
+    """`pk_grouped_verify_kernel` on RAW 96-byte compressed signatures
+    (R, L, 96): device decompression plus the plane subgroup checks; a
+    valid lane whose signature does not decode makes the verdict False."""
+    with stage("g2_decompress"):
+        sig_x, sig_y, dec_ok = decompress(sig_raw)
+        decode_fail = torch.any(valid & ~dec_ok)
+    verdict = _pk_grouped_verify_impl(
+        pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits,
+        valid & dec_ok, check_planes=True, stage=stage,
+    )
+    return verdict & ~decode_fail
+
+
+def _pk_grouped_verify_impl(
+    pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits, valid, check_planes,
+    stage=_no_stage,
+):
+    """Batch verification grouped by PUBKEY, the dual of the root-grouped
+    verdict: for unique roots signed by a bounded set of keys,
+
+        Π_k e(pk_k, Σ_{i∈k} r_i·H_i) · e(−g1, Σ_i r_i·sig_i) == 1
+
+    with R + 64 Miller lanes. The per-row message sums are G2 bit-plane
+    MSMs (GLS-split coefficients, ψ on the b half, one 32-step Horner over
+    (2, R) lanes); the signature side is the grouped verdict's.
+
+    Shapes: pk_* (R, 32), one pubkey per row; msg_*, sig_* (R, L, 2, 32);
+    a_bits/b_bits (R, L, 32) LSB first; valid (R, L); L % 4 == 0. Returns
+    a 0-dim bool tensor."""
+    dev = pk_x.device
+    R, L = msg_x.shape[0], msg_x.shape[1]
+    n = R * L
+    msgs = (msg_x, msg_y, fp2.one((R, L), dev))
+    msgs = g2.select(valid, msgs, g2.infinity((R, L), dev))
+    bits = torch.cat([a_bits, b_bits], dim=-1)  # (R, L, 64)
+
+    # per-row message bit-plane sums (64, R), then Σ r_i·H_i per row
+    with stage("msm_msg"):
+        m_planes = msm.masked_plane_sums(g2, msgs, bits)
+        tp = tuple(c.reshape((2, HALF_BITS) + tuple(c.shape[1:])) for c in m_planes)
+        tp = tuple(torch.movedim(c, 1, 0) for c in tp)  # (32, 2, R, 2, 32)
+        ab = msm.horner_pow2(g2, tp)
+        q_row = g2.add(tuple(c[0] for c in ab), g2_psi(tuple(c[1] for c in ab)))
+
+    with stage("msm_g2"):
+        sig = (
+            sig_x.reshape((n, 2, N_LIMBS)),
+            sig_y.reshape((n, 2, N_LIMBS)),
+            fp2.one((n,), dev),
+        )
+        sig = g2.select(valid.reshape(n), sig, g2.infinity((n,), dev))
+        u_planes = msm.masked_plane_sums(g2, sig, bits.reshape(n, 2 * HALF_BITS))
+        u_a = tuple(c[:HALF_BITS] for c in u_planes)
+        u_b = g2_psi(tuple(c[HALF_BITS:] for c in u_planes))
+
+    # Miller lanes: (pk_k, Q_k), (−[2^b]g1, U_b), (−[2^b]g1, ψU'_b)
+    with stage("miller_loop"):
+        neg_x = fp.const(NEG_G1_POW2_X, dev)
+        neg_y = fp.const(NEG_G1_POW2_Y, dev)
+        px = torch.cat([pk_x, neg_x, neg_x], 0)
+        py = torch.cat([pk_y, neg_y, neg_y], 0)
+        pz = torch.cat([fp.one((R,), dev), fp.one((2 * HALF_BITS,), dev)], 0)
+        qx = torch.cat([q_row[0], u_a[0], u_b[0]], 0)
+        qy = torch.cat([q_row[1], u_a[1], u_b[1]], 0)
+        qz = torch.cat([q_row[2], u_a[2], u_b[2]], 0)
+        lane_ok = ~g1.is_infinity((px, py, pz)) & ~g2.is_infinity((qx, qy, qz))
+        fs = miller_loop_proj_pq((px, py, pz), (qx, qy, qz))
+        fs = fp12.select(lane_ok, fs, fp12.one((R + 2 * HALF_BITS,), dev))
+    with stage("product_tree"):
+        prod = fp12.product_tree(fs)
+    with stage("final_exp"):
+        verdict = fp12.is_one(final_exponentiation_one(prod))
+    if check_planes:
+        with stage("plane_subgroup"):
+            verdict = verdict & planes_in_subgroup(u_planes)
+    return verdict
+
+
+def batch_verify_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid):
+    """The flat verdict on affine limb tensors (signatures decoded)."""
+    return _batch_verify_impl(
+        pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid, check_planes=False,
+    )
+
+
+def batch_verify_kernel_raw(pk_x, pk_y, msg_x, msg_y, sig_raw, r_bits, valid,
+                            stage=_no_stage):
+    """`batch_verify_kernel` on RAW 96-byte compressed signatures (N, 96):
+    device decompression plus the plane subgroup checks; a valid lane whose
+    signature does not decode makes the verdict False."""
+    with stage("g2_decompress"):
+        sig_x, sig_y, dec_ok = decompress(sig_raw)
+        decode_fail = torch.any(valid & ~dec_ok)
+    verdict = _batch_verify_impl(
+        pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid & dec_ok,
+        check_planes=True, stage=stage,
+    )
+    return verdict & ~decode_fail
+
+
+def _batch_verify_impl(
+    pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid, check_planes,
+    stage=_no_stage,
+):
+    """All-or-nothing verification of N sets with nothing shared,
+
+        Π_i e(r_i·pk_i, H(m_i)) · e(−g1, Σ_i r_i·sig_i) == 1:
+
+    r_i·pk_i by a 64-step G1 ladder per set (projective), the signature
+    side as 64 bit-plane sums U_b paired against −[2^b]g1, N + 64 Miller
+    lanes, one product and one final exponentiation.
+
+    Shapes: pk_* (N, 32); msg_*, sig_* (N, 2, 32); r_bits (N, 64) MSB
+    first; valid (N,), False on padding lanes. Returns a 0-dim bool."""
+    dev = pk_x.device
+    n = pk_x.shape[0]
+    with stage("scalar_mul"):
+        rpk = g1.scalar_mul_bits(r_bits, (pk_x, pk_y))
+    with stage("msm_g2"):
+        sig = (sig_x, sig_y, fp2.one((n,), dev))
+        sig = g2.select(valid, sig, g2.infinity((n,), dev))
+        u_planes = msm.masked_plane_sums(g2, sig, torch.flip(r_bits, (-1,)))  # LSB first
+    # lanes: N (r_i·pk_i, H(m_i)) and 64 (−[2^b]g1, U_b)
+    with stage("miller_loop"):
+        px = torch.cat([rpk[0], fp.const(NEG_G1_POW2_64_X, dev)], 0)
+        py = torch.cat([rpk[1], fp.const(NEG_G1_POW2_64_Y, dev)], 0)
+        pz = torch.cat([rpk[2], fp.one((R_BITS,), dev)], 0)
+        qx = torch.cat([msg_x, u_planes[0]], 0)
+        qy = torch.cat([msg_y, u_planes[1]], 0)
+        qz = torch.cat([fp2.one((n,), dev), u_planes[2]], 0)
+        lane_ok = torch.cat([valid, ~g2.is_infinity(u_planes)], 0)
+        fs = miller_loop_proj_pq((px, py, pz), (qx, qy, qz))
+        fs = fp12.select(lane_ok, fs, fp12.one((n + R_BITS,), dev))
+    with stage("product_tree"):
+        prod = fp12.product_tree(fs)
+    with stage("final_exp"):
+        verdict = fp12.is_one(final_exponentiation_one(prod))
+    if check_planes:
+        with stage("plane_subgroup"):
+            verdict = verdict & planes_in_subgroup(u_planes)
+    return verdict
+
+
 # --- the per-set verdicts ------------------------------------------------------
 
 def individual_verify_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, valid):
@@ -321,25 +555,35 @@ final_exp_batch_kernel = bisect_probe_kernel
 class TorchBlsVerifier:
     """`IBlsVerifier`-shaped verifier.
 
-    verify_signature_sets(sets) → all-or-nothing verdict (root-grouped);
+    verify_signature_sets(sets) → all-or-nothing verdict (root-grouped,
+    pk-grouped, split or flat, as the planner decides);
     verify_signature_sets_individual(sets) → per-set verdicts (bisection).
     Infinity or malformed pubkeys and signatures, or failed subgroup
     checks, give False without raising. Runs on `device` (default: the
-    GPU; raises without one). `rng` (a numpy Generator or a callable
-    returning 64-bit words) replaces the CSPRNG draw of the random
+    GPU; raises without one). `grouped_configs` and `pk_grouped_configs`
+    are the (rows, lanes) shapes of the two grouped verdicts (lanes a
+    multiple of 4), tried smallest first. `rng` (a numpy Generator or a
+    callable returning 64-bit words) replaces the CSPRNG draw of the random
     coefficients, for tests and reproducible runs. `stage_seconds`
     accumulates host time per stage (marshal, hash_to_curve, rand,
-    dispatch, device_wait, bisect); `last_bisect` holds the rounds and
-    probes of the last per-set call."""
+    dispatch, device_wait, bisect; hash_to_curve sums the seconds of the
+    marshal pool's threads); `last_bisect` holds the rounds and probes of
+    the last per-set call."""
 
     def __init__(
         self,
         device=None,
         grouped_configs: tuple[tuple[int, int], ...] = ((16, 8), (64, 64)),
         rng=None,
+        pk_grouped_configs: tuple[tuple[int, int], ...] = ((128, 32),),
     ):
         self.device = resolve_device(device)
-        self.grouped_configs = tuple(grouped_configs)
+        self.grouped_configs = tuple(sorted(grouped_configs, key=lambda c: c[0] * c[1]))
+        self.pk_grouped_configs = tuple(sorted(pk_grouped_configs, key=lambda c: c[0] * c[1]))
+        for _, lanes in self.grouped_configs + self.pk_grouped_configs:
+            if lanes % 4 != 0:
+                # the bit-plane MSMs' subset tables take lanes in fours
+                raise ValueError("grouped lanes per row must be a multiple of 4")
         self._rng = rng
         self.last_bisect = {"rounds": 0, "probes": 0}
         # H(m) cache keyed by signing root (committee gossip shares roots)
@@ -352,9 +596,12 @@ class TorchBlsVerifier:
         self._pk_cache_max = PK_CACHE_MAX
         self._pk_lock = threading.Lock()
         self.stage_seconds: dict[str, float] = {}
+        self._stage_lock = threading.Lock()
 
     def _stage(self, name: str, t0: float) -> None:
-        self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        with self._stage_lock:  # the marshal pool's threads add hash_to_curve
+            self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + dt
 
     # -- host marshalling ---------------------------------------------------
 
@@ -443,6 +690,25 @@ class TorchBlsVerifier:
     def _plan_groups(self, sets):
         return self._plan_runs([s.message for s in sets], self.grouped_configs)
 
+    def _plan_pk_groups(self, sets):
+        """The pk-grouped plan: pays when pubkeys repeat while roots do not
+        (a flood of unique roots from a bounded set of keys); None when no
+        config fits or a pubkey is malformed (the flat path reports it)."""
+        try:
+            keys = [s.pubkey.to_bytes() for s in sets]
+        except ValueError:
+            return None
+        return self._plan_runs(keys, self.pk_grouped_configs)
+
+    @staticmethod
+    def _split_shared_unique(sets):
+        """(indices of sets whose root another set shares, indices of the
+        sets with a root of their own)."""
+        freq = Counter(s.message for s in sets)
+        shared = [i for i, s in enumerate(sets) if freq[s.message] >= 2]
+        unique = [i for i, s in enumerate(sets) if freq[s.message] < 2]
+        return shared, unique
+
     def _marshal_grouped(self, sets, plan):
         """Scatter sets into (rows × lanes) by signing root with the
         signatures kept as bytes → (GroupedArrays with sig_* zeroed,
@@ -470,6 +736,51 @@ class TorchBlsVerifier:
         g.n = len(sets)
         return g, sig_raw
 
+    def _hash_roots(self, sets) -> list:
+        """H(m) limbs of every set's root (None where the C tier rejects
+        one). Batches of at least two pool tasks hash through the marshal
+        pool, `_MARSHAL_CHUNK` sets per task."""
+        pool = _marshal_pool()
+        if pool is None or len(sets) < 2 * _MARSHAL_CHUNK:
+            return [self._hash_root(s.message) for s in sets]
+
+        def chunk(lo, hi):
+            return [self._hash_root(s.message) for s in sets[lo:hi]]
+
+        bounds = list(range(0, len(sets), _MARSHAL_CHUNK)) + [len(sets)]
+        futs = [pool.submit(chunk, lo, hi) for lo, hi in zip(bounds[:-1], bounds[1:])]
+        return [h for f in futs for h in f.result()]
+
+    def _marshal_pk_grouped(self, sets, plan):
+        """Scatter sets into (rows × lanes) by pubkey with the signatures
+        kept as bytes → (PkGroupedArrays with sig_* zeroed, sig_raw (R, L,
+        96) uint8); None if any set is invalid. The roots of this path are
+        mostly unique, so they are hashed through the marshal pool."""
+        rows_cap, lane_cap, runs = plan
+        pk_rows = self._pk_rows(sets)
+        if pk_rows is None:
+            return None
+        pk_x, pk_y = pk_rows
+        hits = self._hash_roots(sets)
+        if any(h is None for h in hits):
+            return None
+        hx = np.stack([h[0] for h in hits])
+        hy = np.stack([h[1] for h in hits])
+        sig_all = np.frombuffer(b"".join(s.signature for s in sets), np.uint8).reshape(
+            len(sets), 96
+        )
+        sig_raw = np.zeros((rows_cap, lane_cap, 96), np.uint8)
+        g = PkGroupedArrays(rows_cap, lane_cap)
+        for row, run in enumerate(runs):
+            idx = np.asarray(run)
+            k = len(run)
+            g.pk_x[row], g.pk_y[row] = pk_x[run[0]], pk_y[run[0]]
+            g.msg_x[row, :k], g.msg_y[row, :k] = hx[idx], hy[idx]
+            sig_raw[row, :k] = sig_all[idx]
+            g.valid[row, :k] = True
+        g.n = len(sets)
+        return g, sig_raw
+
     # -- submit / resolve ---------------------------------------------------
 
     def verify_signature_sets(self, sets) -> bool:
@@ -477,30 +788,53 @@ class TorchBlsVerifier:
 
     def verify_signature_sets_submit(self, sets):
         """Marshal and dispatch now, block later: returns a zero-argument
-        resolver for the verdict."""
-        if not sets:
-            return lambda: False  # the JAX package answers False, unbatched
-        if not all(len(s.message) == 32 and len(s.signature) == 96 for s in sets):
-            raise NotImplementedError(
-                "sets outside the 32 B root / 96 B signature shape take the "
-                "flat verdict path, which is not ported yet (ROADMAP Queue 1)"
-            )
-        plan = self._plan_groups(sets)
-        if plan is None:
-            raise NotImplementedError(
-                "the grouped planner refused this batch; the pk-grouped, split "
-                "and flat verdict paths are not ported yet (ROADMAP Queue 1); "
-                "per-set verdicts: verify_signature_sets_individual"
-            )
-        result = self._submit_grouped(sets, plan)
+        resolver for the verdict. The planner's order is the JAX package's:
+        root-grouped, pk-grouped, split (shared roots grouped, the rest
+        pk-grouped or flat), flat."""
+        if sets and self._native_eligible(sets):
+            plan = self._plan_groups(sets)
+            if plan is not None:
+                return self._resolver(self._submit_grouped(sets, plan))
+            pk_plan = self._plan_pk_groups(sets)
+            if pk_plan is not None:
+                return self._resolver(self._submit_pk_grouped(sets, pk_plan))
+            shared, unique = self._split_shared_unique(sets)
+            if shared and unique:
+                shared_sets = [sets[i] for i in shared]
+                sub_plan = self._plan_groups(shared_sets)
+                if sub_plan is not None:
+                    grouped = self._submit_grouped(shared_sets, sub_plan)
+                    if grouped is None:
+                        return lambda: False
+                    unique_sets = [sets[i] for i in unique]
+                    pk_plan = self._plan_pk_groups(unique_sets)
+                    if pk_plan is not None:
+                        rest = self._resolver(self._submit_pk_grouped(unique_sets, pk_plan))
+                    else:
+                        rest = self._submit_flat(unique_sets)
+                    return lambda: self._resolve(grouped) and rest()
+        return self._submit_flat(sets)
+
+    def _resolver(self, result):
+        """The resolver of one dispatch; None (an invalid set) is False."""
         if result is None:
             return lambda: False
         return lambda: self._resolve(result)
 
     def _submit_grouped(self, sets, plan):
-        """Dispatch one grouped batch; None marks an invalid set."""
+        """Dispatch one root-grouped batch; None marks an invalid set."""
+        return self._submit_rows(sets, plan, self._marshal_grouped, grouped_verify_kernel_raw)
+
+    def _submit_pk_grouped(self, sets, plan):
+        """Dispatch one pk-grouped batch; None marks an invalid set."""
+        return self._submit_rows(sets, plan, self._marshal_pk_grouped,
+                                 pk_grouped_verify_kernel_raw)
+
+    def _submit_rows(self, sets, plan, marshal, kernel):
+        """Marshal a (rows × lanes) plan, draw its GLS bits and dispatch
+        `kernel` on the raw signatures; None marks an invalid set."""
         t0 = time.perf_counter()
-        marshalled = self._marshal_grouped(sets, plan)
+        marshalled = marshal(sets, plan)
         self._stage("marshal", t0)
         if marshalled is None:
             return None
@@ -510,7 +844,7 @@ class TorchBlsVerifier:
         self._stage("rand", t0)
         t0 = time.perf_counter()
         dev = self.device
-        result = grouped_verify_kernel_raw(
+        result = kernel(
             *(torch.as_tensor(x).to(dev) for x in (g.pk_x, g.pk_y, g.msg_x, g.msg_y)),
             torch.as_tensor(sig_raw).to(dev),
             torch.as_tensor(a_bits).to(dev),
@@ -519,6 +853,36 @@ class TorchBlsVerifier:
         )
         self._stage("dispatch", t0)
         return result
+
+    def _submit_flat(self, sets):
+        """The flat verdict in chunks of the largest bucket; the resolver
+        ANDs the chunks' verdicts (all or nothing, as one dispatch). Sets
+        in the 32 B root / 96 B signature shape keep their signatures as
+        bytes for the device; others are decoded on the host."""
+        cap = BUCKETS[-1]
+        raw = self._native_eligible(sets)
+        results = []
+        dev = self.device
+        for lo in range(0, max(len(sets), 1), cap):
+            chunk = sets[lo: lo + cap]
+            t0 = time.perf_counter()
+            marshalled = self._marshal(chunk, raw=raw)
+            self._stage("marshal", t0)
+            if marshalled is None:
+                return lambda: False
+            arrs, sig_raw = marshalled if raw else (marshalled, None)
+            t0 = time.perf_counter()
+            r_bits = torch.as_tensor(_rand_bits(arrs.pk_x.shape[0], self._rng)).to(dev)
+            self._stage("rand", t0)
+            t0 = time.perf_counter()
+            t = self._tensors(arrs)
+            if raw:
+                results.append(batch_verify_kernel_raw(
+                    *t[:4], torch.as_tensor(sig_raw).to(dev), r_bits, t[6]))
+            else:
+                results.append(batch_verify_kernel(*t[:6], r_bits, t[6]))
+            self._stage("dispatch", t0)
+        return lambda: all(self._resolve(r) for r in results)
 
     def _resolve(self, result) -> bool:
         t0 = time.perf_counter()
@@ -558,27 +922,39 @@ class TorchBlsVerifier:
             return None
         return pk_rows[0], pk_rows[1], sig_x, sig_y
 
-    def _marshal(self, sets):
+    def _marshal(self, sets, raw: bool = False):
         """Padded limb arrays for one bucket (`SetArrays`); None if there are
-        no sets, more than the largest bucket, or any invalid set."""
+        no sets, more than the largest bucket, or any invalid set. With
+        raw=True the signatures stay bytes for the device to decode →
+        (SetArrays with sig_* zeroed, sig_raw (lanes, 96) uint8); the
+        caller has checked the 96 B signature shape."""
         if not sets:
             return None
         lanes = self.bucket_for(len(sets))
         if len(sets) > lanes:
             return None  # the caller chunks
-        if not self._native_eligible(sets):
-            # the JAX package decodes such a batch with its Python oracle;
-            # the port has none and needs none: any message length is
-            # hashed by the C tier as a root is, and a signature that is
-            # not 96 bytes is malformed
-            if any(len(s.signature) != 96 for s in sets):
-                return None
-        limbs = self._native_limbs(sets)
-        if limbs is None:
-            return None
         n = len(sets)
         arrs = SetArrays(lanes)
-        arrs.pk_x[:n], arrs.pk_y[:n], arrs.sig_x[:n], arrs.sig_y[:n] = limbs
+        if raw:
+            pk_rows = self._pk_rows(sets)
+            if pk_rows is None:
+                return None
+            arrs.pk_x[:n], arrs.pk_y[:n] = pk_rows
+            sig_raw = np.zeros((lanes, 96), np.uint8)
+            sig_raw[:n] = np.frombuffer(b"".join(s.signature for s in sets), np.uint8).reshape(
+                n, 96
+            )
+        else:
+            # the JAX package decodes a batch outside the root / signature
+            # shape with its Python oracle; the port has none and needs
+            # none: any message length is hashed by the C tier as a root
+            # is, and a signature that is not 96 bytes is malformed
+            if any(len(s.signature) != 96 for s in sets):
+                return None
+            limbs = self._native_limbs(sets)
+            if limbs is None:
+                return None
+            arrs.pk_x[:n], arrs.pk_y[:n], arrs.sig_x[:n], arrs.sig_y[:n] = limbs
         for i, s in enumerate(sets):
             hit = self._hash_root(s.message)
             if hit is None:
@@ -586,7 +962,7 @@ class TorchBlsVerifier:
             arrs.msg_x[i], arrs.msg_y[i] = hit
         arrs.valid[:n] = True
         arrs.n = n
-        return arrs
+        return (arrs, sig_raw) if raw else arrs
 
     def _tensors(self, arrs: SetArrays) -> tuple:
         dev = self.device

@@ -3,8 +3,9 @@ grouped or per-set batch's arrays carried into the port.
 
 The port builds its tables from its own copy of the oracle; they must
 equal the JAX package's arrays exactly, and `constants_from_jax` /
-`grouped_inputs_from_jax` / `set_inputs_from_jax` must round-trip the JAX
-arrays unchanged.
+`grouped_inputs_from_jax` / `set_inputs_from_jax` /
+`pk_grouped_inputs_from_jax` / `flat_inputs_from_jax` must round-trip the
+JAX arrays unchanged.
 """
 
 import numpy as np
@@ -15,10 +16,12 @@ from lodestar_tpu.ops import fp12 as jfp12
 from lodestar_tpu.ops import g2_decompress as jdec
 from lodestar_tpu.ops import limbs as jlimbs
 from lodestar_tpu.ops import points as jpoints
-from lodestar_tpu.parallel.verifier import GroupedArrays, SetArrays
+from lodestar_tpu.parallel.verifier import GroupedArrays, PkGroupedArrays, SetArrays
 from lodestar_tpu_torch.convert import (
     constants_from_jax,
+    flat_inputs_from_jax,
     grouped_inputs_from_jax,
+    pk_grouped_inputs_from_jax,
     port_tables,
     set_inputs_from_jax,
 )
@@ -38,6 +41,8 @@ def jax_tables():
         "G1_GEN_Y": jpoints.G1_GEN_Y,
         "NEG_G1_POW2_X": jpoints.NEG_G1_POW2_X,
         "NEG_G1_POW2_Y": jpoints.NEG_G1_POW2_Y,
+        "NEG_G1_POW2_64_X": jpoints.NEG_G1_POW2_64_X,
+        "NEG_G1_POW2_64_Y": jpoints.NEG_G1_POW2_64_Y,
         "PSI_CX": jpoints._PSI_CX_L,
         "PSI_CY": jpoints._PSI_CY_L,
         "FROB_GAMMA": jfp12._GAMMA,
@@ -111,3 +116,44 @@ def test_set_inputs_from_jax_round_trip():
         set_inputs_from_jax(arrs, r_bits[:, :32])
     with pytest.raises(TypeError):
         set_inputs_from_jax(arrs, r_bits.astype(np.int64))
+
+
+def test_pk_grouped_inputs_from_jax_round_trip():
+    rng = np.random.default_rng(5)
+    g = PkGroupedArrays(2, 4)
+    for name in ("pk_x", "pk_y", "msg_x", "msg_y"):
+        arr = getattr(g, name)
+        arr[...] = rng.integers(0, 4096, size=arr.shape)
+    g.valid[1, :2] = True
+    sig_raw = rng.integers(0, 256, size=(2, 4, 96), dtype=np.uint8)
+    a_bits = rng.integers(0, 2, size=(2, 4, 32)).astype(np.int32)
+    b_bits = rng.integers(0, 2, size=(2, 4, 32)).astype(np.int32)
+    out = pk_grouped_inputs_from_jax(g, sig_raw, a_bits, b_bits)
+    want = (g.pk_x, g.pk_y, g.msg_x, g.msg_y, sig_raw, a_bits, b_bits, g.valid)
+    assert len(out) == len(want)
+    for got, arr in zip(out, want):
+        np.testing.assert_array_equal(got.numpy(), arr)
+    with pytest.raises(ValueError):
+        pk_grouped_inputs_from_jax(g, sig_raw[:, :3], a_bits, b_bits)
+    with pytest.raises(TypeError):
+        pk_grouped_inputs_from_jax(g, sig_raw, a_bits.astype(np.int64), b_bits)
+
+
+def test_flat_inputs_from_jax_round_trip():
+    rng = np.random.default_rng(6)
+    arrs = SetArrays(4)
+    for name in ("pk_x", "pk_y", "msg_x", "msg_y"):
+        arr = getattr(arrs, name)
+        arr[...] = rng.integers(0, 4096, size=arr.shape)
+    arrs.valid[:3] = True
+    sig_raw = rng.integers(0, 256, size=(4, 96), dtype=np.uint8)
+    r_bits = rng.integers(0, 2, size=(4, 64)).astype(np.int32)
+    out = flat_inputs_from_jax(arrs, sig_raw, r_bits)
+    want = (arrs.pk_x, arrs.pk_y, arrs.msg_x, arrs.msg_y, sig_raw, r_bits, arrs.valid)
+    assert len(out) == len(want) == 7
+    for got, arr in zip(out, want):
+        np.testing.assert_array_equal(got.numpy(), arr)
+    with pytest.raises(ValueError):
+        flat_inputs_from_jax(arrs, sig_raw.astype(np.int32), r_bits)
+    with pytest.raises(ValueError):
+        flat_inputs_from_jax(arrs, sig_raw, r_bits[:, :32])

@@ -34,7 +34,7 @@ def test_import_loads_no_jax_and_no_jax_package():
     )
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
-    for name in ("ops.fp", "ops.cuda_fp", "ops.cuda_tower", "ops.pairing",
+    for name in ("ops.fp", "ops.cuda_fp", "ops.cuda_mxu", "ops.cuda_tower", "ops.pairing",
                  "ops.g2_decompress", "parallel.verifier", "native", "convert", "build",
                  "device", "gen_tower_consts"):
         assert f"lodestar_tpu_torch.{name}" in result["modules"]

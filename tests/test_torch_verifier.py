@@ -7,7 +7,9 @@
   True on a valid batch and False on four tampered ones (a wrong message,
   swapped signatures, swapped pubkeys, a bad encoding), each equal to the
   JAX package's CPU tier `lodestar_tpu.native.bls_verify_sets`.
-- A batch the grouped planner refuses raises NotImplementedError.
+- A batch the grouped planner refuses no longer raises: it goes on down
+  the planner (here to the flat verdict; `test_torch_batch_paths.py`
+  checks that path's verdicts), and an empty batch is False.
 - Slow tier: `grouped_verify_kernel_raw` of the port against the JAX one
   under the same random bits on the five batches, verdict for verdict.
 """
@@ -116,13 +118,18 @@ def test_verdict_equals_the_cpu_tier(batches, case):
     assert got is (name == "valid")
 
 
-def test_ungroupable_batch_raises(batches):
+def test_ungroupable_batch_raises(batches, monkeypatch):
+    # a batch neither grouped planner takes goes on to the flat path
     _, sets = batches[0]
     v = TorchBlsVerifier(device="cpu", grouped_configs=((ROOTS, PER_ROOT),))
     unique = [bls.SignatureSet(pubkey=s.pubkey, message=bytes([k]) * 32, signature=s.signature)
               for k, s in enumerate(sets)]
-    with pytest.raises(NotImplementedError):
-        v.verify_signature_sets(unique)
+    assert v._plan_groups(unique) is None and v._plan_pk_groups(unique) is None
+    flat = []
+    monkeypatch.setattr(v, "_submit_flat", lambda sets: flat.append(sets) or (lambda: "flat"))
+    assert v.verify_signature_sets(unique) == "flat"
+    assert flat == [unique]
+    monkeypatch.undo()
     assert v.verify_signature_sets([]) is False
 
 
