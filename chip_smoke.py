@@ -13,12 +13,15 @@ Phases (any failure raises and the script exits non-zero):
 3. k1     K1 against its plain PyTorch version on the card, limb for limb
           (tolerance 0), on random values in [0, 2p) plus the edges 0, 1,
           p−1, p and 2p−1, at the lane counts the main path uses; then
-          CUDA-event timings of both beside the byte bound.
+          its device time (launches captured in a CUDA graph, replayed
+          between two events: the host's wrapper left out), its call time
+          (Python calls back to back between two events) and the plain
+          version's time beside the byte bound.
 4. k4     K4, the integer-tensor-core multiply, against its plain version
           and against K1, limb for limb, on the 25 edge pairs (padded to
-          4096 products) and at 4096, 4097 (a partial warp tile), 65,536
-          and 262,144 products; CUDA-event times of K4, K1 and the plain
-          version beside K4's bound.
+          4096 products) and at 4096, 4097 (a partial warp tile), 8,192,
+          65,536, 262,144 and 589,824 products; the device and call times
+          of K4 and K1 and the plain version's time beside K4's bound.
 5. k2     K2, the affine Miller loop, against `miller_loop_plain` on G1
           pubkeys and H(m) points made with the host tier plus one all-zero
           lane, at 8 and 256 lanes (the 2 × 128 Miller lanes of a 128-set
@@ -65,9 +68,10 @@ checks which planner paths ran.
 
 13. the `kernels` line, the card line, and the last line
           {"ok": true, "device": {"platform": "gpu", ...}}. K1's and K4's
-          entries give their times per launch over the product counts that
-          their main-path verdict gave them (the grouped (64, 64) verdict
-          for K1, the pk-grouped one for K4), each count timed anew.
+          entries give their device times (`ms`) and call times
+          (`call_ms`) per launch over the product counts that their
+          main-path verdict gave them (the grouped (64, 64) verdict for K1,
+          the pk-grouped one for K4), each count timed anew.
 """
 
 from __future__ import annotations
@@ -161,6 +165,8 @@ def _random_limbs(rng, n: int):
 
 
 def _time_ms(torch, fn, iters: int) -> float:
+    """Call time: milliseconds per Python call of `fn`, back to back between
+    two events (the wrapper's checks, allocation and launch included)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -171,6 +177,31 @@ def _time_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(torch, fn, iters: int) -> float:
+    """Device time: milliseconds per call of `fn` with the host's wrapper
+    left out, from `iters` calls captured in one CUDA graph and replayed
+    between two events (the kernels and the gaps between them)."""
+    fn()  # warm: the build, the cached constants, the launch shape
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _iters(n: int) -> int:
+    return 200 if n <= 8192 else 50 if n <= 65536 else 20
 
 
 def phase_k1(torch, np):
@@ -190,12 +221,14 @@ def phase_k1(torch, np):
         max_err = max(max_err, err)
         if err != 0:
             raise AssertionError(f"K1 differs from its plain version at {n} lanes")
-        iters = 200 if n <= 4096 else 50
-        ms = _time_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
+        iters = _iters(n)
+        ms = _device_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
+        call_ms = _time_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
         plain_ms = _time_ms(torch, lambda: cuda_fp.mont_mul_plain(a, b), max(5, iters // 10))
         bound_ms, bound_by = k1_bound(n)
-        log(f"[k1] lanes={n} match=exact ms={ms:.6f} plain_ms={plain_ms:.6f} "
-            f"bound_ms={bound_ms:.8f} ({bound_by}) share_of_bound={bound_ms / ms:.6f}")
+        log(f"[k1] lanes={n} match=exact device_ms={ms:.6f} call_ms={call_ms:.6f} "
+            f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({bound_by}) "
+            f"share_of_bound={bound_ms / ms:.6f}")
     return max_err
 
 
@@ -308,12 +341,13 @@ def phase_slice(torch, np, n_roots: int, per_root: int):
     return counts, wall, len(sets), products
 
 
-# K4 computes K1's function, REDC(a·b), on the integer tensor cores. What
-# the function needs there: three 32 × 32 limb-product contractions (a·b,
-# t·N′, m·p), each limb product four u8 × u8 multiply-adds of its lo/hi
-# bytes. The TPU formulation that K4 follows issues far more (a dense
-# contraction with the 0/1 matrix S); that is the cost of the formulation,
-# not work the function needs, so the bound does not count it.
+# K4 computes K1's function, REDC(a·b), with its constant products on the
+# integer tensor cores. The ceiling of what the function needs there: three
+# 32 × 32 limb-product contractions (a·b, t·N′, m·p), each limb product four
+# u8 × u8 multiply-adds of its lo/hi bytes. K4 issues 6,656 per product (its
+# a·b runs on the CUDA cores, t·N′ and m·p on bytes; `csrc/mxu_mont.cuh`), its
+# TPU formulation 208,896 (a dense contraction with the 0/1 matrix S). Every
+# shape is bytes-bound either way.
 K4_MACS_PER_PRODUCT = 3 * 4 * 32 * 32
 INT8_MMA_OPS_PER_S = 1979e12  # dense int8 tensor-core peak
 
@@ -326,7 +360,9 @@ def k4_bound(lanes: int):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-K4_SIZES = (4096, 4097, 65536, 262144)  # products; 4097 leaves a partial warp tile
+# products: the main path's 4096; 4097, a partial warp tile; the pk-grouped
+# path's 8,192 and 589,824; and sizes between
+K4_SIZES = (4096, 4097, 8192, 65536, 262144, 589824)
 
 
 def _edge_pairs(np, rng, n: int):
@@ -344,8 +380,9 @@ def _edge_pairs(np, rng, n: int):
 
 
 def phase_k4(torch, np):
-    """K4 against its plain version and against K1, limb for limb, then
-    CUDA-event times of K4, K1 and the plain version beside K4's bound."""
+    """K4 against its plain version and against K1, limb for limb, then the
+    device and call times of K4 and K1 and the plain version's time beside
+    K4's bound; returns (max_err, {products: row})."""
     from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu
 
     rng = np.random.default_rng(SEED + 4)
@@ -354,6 +391,7 @@ def phase_k4(torch, np):
     for n in K4_SIZES:
         cases.append((str(n), _random_limbs(rng, n), _random_limbs(rng, n)[::-1].copy()))
     max_err = 0
+    rows = {}
     for name, a_np, b_np in cases:
         a, b = torch.as_tensor(a_np).to(dev), torch.as_tensor(b_np).to(dev)
         n = a.shape[0]
@@ -369,15 +407,20 @@ def phase_k4(torch, np):
         if name == "edges":
             log(f"[k4] the 25 edge pairs (padded to {n}): match=exact against plain and K1")
             continue
-        iters = 100 if n <= 4097 else 20
-        ms = _time_ms(torch, lambda: cuda_mxu.mont_mul_mxu_cuda(a, b), iters)
-        k1_ms = _time_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
+        iters = _iters(n)
+        ms = _device_ms(torch, lambda: cuda_mxu.mont_mul_mxu_cuda(a, b), iters)
+        k1_ms = _device_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
+        call_ms = _time_ms(torch, lambda: cuda_mxu.mont_mul_mxu_cuda(a, b), iters)
+        k1_call_ms = _time_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
         plain_ms = _time_ms(torch, lambda: cuda_mxu.mont_mul_mxu_plain(a, b), 3)
         bound_ms, bound_by = k4_bound(n)
-        log(f"[k4] products={n} match=exact ms={ms:.6f} k1_ms={k1_ms:.6f} "
-            f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({bound_by}) "
-            f"share_of_bound={bound_ms / ms:.6f}")
-    return max_err
+        rows[n] = dict(ms=ms, call_ms=call_ms, k1_ms=k1_ms, k1_call_ms=k1_call_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[k4] products={n} match=exact device_ms={ms:.6f} call_ms={call_ms:.6f} "
+            f"k1_device_ms={k1_ms:.6f} k1_call_ms={k1_call_ms:.6f} plain_ms={plain_ms:.6f} "
+            f"bound_ms={bound_ms:.8f} ({bound_by}) share_of_bound={bound_ms / ms:.6f} "
+            f"k1_share_of_bound={bound_ms / k1_ms:.6f}")
+    return max_err, rows
 
 
 PER_SET_N = 128  # the largest per-set bucket: a block's attestations
@@ -629,31 +672,34 @@ def _check_products(products: dict, counts: dict, tag: str):
 
 
 def launch_mix(torch, np, name: str, mix: Counter, kernel, plain, bound):
-    """The times per launch of `kernel` and of its plain version, and its
-    bound, each the mean over the main path's launches (`mix`: products →
-    launches); every product count timed anew on random operands."""
+    """The device and call times per launch of `kernel`, the plain version's
+    time and the bound, each the mean over the main path's launches (`mix`:
+    products → launches); every product count timed anew on random
+    operands."""
     rng = np.random.default_rng(SEED + 21)
     dev = torch.device("cuda")
     total = sum(mix.values())
-    ms = plain_ms = bound_ms = 0.0
+    ms = call_ms = plain_ms = bound_ms = 0.0
     bound_parts = Counter()  # the mean bound, split by what bounds each count
     for n, k in sorted(mix.items()):
         a = torch.as_tensor(_random_limbs(rng, n)).to(dev)
         b = torch.as_tensor(_random_limbs(rng, n)[::-1].copy()).to(dev)
-        t = _time_ms(torch, lambda: kernel(a, b), 50)
+        t = _device_ms(torch, lambda: kernel(a, b), 50)
+        tc = _time_ms(torch, lambda: kernel(a, b), 50)
         tp = _time_ms(torch, lambda: plain(a, b), 3)
         bd, by = bound(n)
-        log(f"[{name}] products={n} launches={k} ms={t:.6f} plain_ms={tp:.6f} "
-            f"bound_ms={bd:.8f} ({by})")
+        log(f"[{name}] products={n} launches={k} device_ms={t:.6f} call_ms={tc:.6f} "
+            f"plain_ms={tp:.6f} bound_ms={bd:.8f} ({by})")
         ms += k * t / total
+        call_ms += k * tc / total
         plain_ms += k * tp / total
         bound_ms += k * bd / total
         bound_parts[by] += k * bd / total
     by = max(bound_parts, key=bound_parts.get)
-    log(f"[{name}] per launch over {total} main-path launches: ms={ms:.6f} "
-        f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({by}) share_of_bound="
-        f"{bound_ms / ms:.6f}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+    log(f"[{name}] per launch over {total} main-path launches: device_ms={ms:.6f} "
+        f"call_ms={call_ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({by}) "
+        f"share_of_bound={bound_ms / ms:.6f}")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
 
 
 def _need(counts: dict, route: str, *kernels):
@@ -956,7 +1002,7 @@ def main() -> int:
     muls = cuda_tower.fp_muls_per_lane()
     log(f"[build] Fp multiplies per lane (host harness): {json.dumps(muls)}")
     max_err = phase_k1(torch, np)
-    k4_err = phase_k4(torch, np)
+    k4_err, k4_rows = phase_k4(torch, np)
     k2_err, k2_row = phase_k2(torch, np, muls["miller_loop"])
     sets, host_ok, bad, host_bad = per_set_batches(np)
     k3_err, k3_row = phase_k3(torch, np, muls["pairing_fused"], bad, host_bad)
@@ -978,6 +1024,7 @@ def main() -> int:
         f"bisection 3 invalid {per_set['b']['seconds']:.3f} s, K3 route "
         f"{per_set['c']['seconds']:.6f} s; script {time.perf_counter() - t_start:.1f} s")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
+    log(f"[summary] k4 and k1 by products (device and call ms): {json.dumps(k4_rows)}")
     stack = k2_row["stack_bytes"] + k3_row["stack_bytes"]
     log(f"[summary] device memory held by the raised stack limit: {stack} B "
         f"({stack / 2**30:.3f} GiB; K2 {k2_row['stack_bytes']} B, then K3 "
@@ -998,6 +1045,7 @@ def main() -> int:
             "launches": grouped_counts["K1"],
             "max_abs_err": max_err,
             "ms": k1_mix["ms"],
+            "call_ms": k1_mix["call_ms"],
             "plain_ms": k1_mix["plain_ms"],
             "bound_ms": k1_mix["bound_ms"],
             "bound_by": k1_mix["bound_by"],
@@ -1011,6 +1059,7 @@ def main() -> int:
             "launches": pk["warm"]["counts"]["K4"],
             "max_abs_err": k4_err,
             "ms": k4_mix["ms"],
+            "call_ms": k4_mix["call_ms"],
             "plain_ms": k4_mix["plain_ms"],
             "bound_ms": k4_mix["bound_ms"],
             "bound_by": k4_mix["bound_by"],

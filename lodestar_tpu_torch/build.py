@@ -155,24 +155,28 @@ def tower_cuda() -> ctypes.CDLL:
     ))
 
 
+MXU_HEADERS = ["mxu_mont.cuh", "fp_mont.cuh"]
+
+
 def mxu_host() -> ctypes.CDLL:
     return _load("mxu_mont_host", lambda: build_shared(
         "mxu_mont_host", find_compiler("c++", "g++", "clang++"),
         ["-O2", "-std=c++17", "-shared", "-fPIC"],
-        ["mxu_mont_host.cpp"], ["mxu_mont.cuh"],
+        ["mxu_mont_host.cpp"], MXU_HEADERS,
     ))
 
 
 def mxu_cuda() -> ctypes.CDLL:
     return _load("mxu_mont", lambda: build_shared(
-        "mxu_mont", find_nvcc(), NVCC_FLAGS, ["mxu_mont.cu"], ["mxu_mont.cuh"],
+        "mxu_mont", find_nvcc(), NVCC_FLAGS, ["mxu_mont.cu"], MXU_HEADERS,
     ))
 
 
 def ptxas_summary(text: str) -> dict[str, dict[str, int]]:
-    """Per-function figures from `nvcc -Xptxas -v` output: registers (entry
-    functions), stack frame, cumulative stack (entries that make calls),
-    spill stores and loads, in bytes. Keys are the mangled names."""
+    """Per-function figures from `nvcc -Xptxas -v` output: registers and
+    static shared memory (entry functions), stack frame, cumulative stack
+    (entries that make calls), spill stores and loads, in bytes. Keys are
+    the mangled names."""
     out: dict[str, dict[str, int]] = {}
     current = entry = None
     for line in text.splitlines():
@@ -197,5 +201,8 @@ def ptxas_summary(text: str) -> dict[str, dict[str, int]]:
             c = re.search(r"(\d+) bytes cumulative stack size", line)
             if c:
                 out[entry]["cumulative_stack"] = int(c.group(1))
+            c = re.search(r"(\d+) bytes smem", line)
+            if c:
+                out[entry]["smem"] = int(c.group(1))
     return out
 

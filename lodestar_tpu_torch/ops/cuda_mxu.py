@@ -1,19 +1,24 @@
-"""K4, the Montgomery multiply on the integer tensor cores: the CUDA kernel,
-its plain version, and the lane rule of `fp.mul`.
+"""K4, the Montgomery multiply with its constant products on the integer
+tensor cores: the CUDA kernel, its plain version, and the lane rule of
+`fp.mul`.
 
 `mont_mul_mxu_cuda` launches the hand-written sm_90a kernel of
 `csrc/mxu_mont.cu` (built at first use by `build.mxu_cuda`), which replaces
 the JAX package's Pallas kernel `ops/pallas_mxu.py::_mxu_kernel`. It
-computes REDC(a·b) as the TPU kernel does: the outer products a_i·b_j split
-into three byte parts and contracted with the 0/1 column-select matrix S
-(1024 × 64), m = (t mod R)·N′ mod R and u = m·p as products of two byte
-parts with the Toeplitz matrices of N′ and p, and carries. The result is
-limb for limb K1's (`cuda_fp`) and the word-serial REDC's.
+computes REDC(a·b) as Hopper suits: t = a·b as a 32-bit-word schoolbook on
+the CUDA cores, one product per lane; m = (t mod R)·N′ mod R and u = m·p
+as u8 × u8 → s32 products of the bytes of t and m with the byte Toeplitz
+matrices of N′ and p (`TN8`, `TP8`) on the tensor cores; the columns folded
+into words and carried on each product's lane. The result is limb for
+limb K1's (`cuda_fp`) and the word-serial REDC's.
 
-`mont_mul_mxu_plain` is the same three contractions in plain PyTorch
-matrix products, with the JAX kernel's carries. The products run in
-float64, where every sum is an integer below 2^27 and so exact (CUDA has no
-integer matrix product in PyTorch). `mont_mul_mxu_host` runs the kernel's
+`mont_mul_mxu_plain` is the JAX kernel's formulation in plain PyTorch
+matrix products: the outer products' byte parts against the 0/1 matrix S,
+the 12-bit limbs' byte parts against Toeplitz(N′) and Toeplitz(p), the
+JAX kernel's carries. The products run in float64, where every sum is an
+integer below 2^27 and so exact (CUDA has no integer matrix product in
+PyTorch). It is the function's reference: the kernel computes other
+digits and meets it limb for limb. `mont_mul_mxu_host` runs the kernel's
 own arithmetic (`csrc/mxu_mont.cuh`, the MMA emulated) on the CPU.
 
 `mont_mul` is the JAX package's MXU configuration (`LODESTAR_TPU_PALLAS_MXU=1`)
@@ -40,7 +45,8 @@ LAUNCHES = 0
 MIN_LANES = 4096
 _PLAIN_CHUNK = 1 << 16  # rows per plain-version pass (bounds its memory)
 
-_NPRIME_LIMBS = int_to_limbs((-pow(_P_INT, -1, R_MONT)) % R_MONT)
+_NPRIME = (-pow(_P_INT, -1, R_MONT)) % R_MONT  # N' = −p⁻¹ mod R
+_NPRIME_LIMBS = int_to_limbs(_NPRIME)
 
 
 def _conv_select() -> np.ndarray:
@@ -70,9 +76,38 @@ _TN = np.concatenate(
 _TP = np.concatenate(
     [_toeplitz(P_LIMBS & 0xFF, 2 * N_LIMBS), _toeplitz(P_LIMBS >> 8, 2 * N_LIMBS)], axis=1
 )  # (32, 128)
-# the kernel reads them transposed, one row of 32 bytes per column
-TNT = np.ascontiguousarray(_TN.T, np.uint8)  # (64, 32)
-TPT = np.ascontiguousarray(_TP.T, np.uint8)  # (128, 32)
+
+
+def _byte_toeplitz(value: int, cols: int) -> np.ndarray:
+    """(cols, 64) u8 by columns: T[c, k] = byte c − k of `value` (48 bytes)
+    where 0 ≤ c − k < 48, so that Σ_k x_k·T[c, k] is byte column c of
+    x·value for the 48 bytes x_k of x; rows 48..63 pad the MMA depth."""
+    digits = value.to_bytes(48, "little")
+    t = np.zeros((cols, 64), np.uint8)
+    for c in range(cols):
+        for k in range(48):
+            if 0 <= c - k < 48:
+                t[c, k] = digits[c - k]
+    return t
+
+
+def _b_fragments(table: np.ndarray) -> np.ndarray:
+    """The mma.m16n8k32 .u8 B fragments of a (cols, 64) by-columns table:
+    (2·cols/8, 32, 2) u32, [2·nt + s][lane][r] = bytes 32s + 4q + 16r ..
+    +3 of column 8nt + g for lane (g, q) = (lane >> 2, lane & 3)."""
+    words = table.reshape(table.shape[0], 16, 4).astype(np.uint32)
+    words = words[..., 0] | words[..., 1] << 8 | words[..., 2] << 16 | words[..., 3] << 24
+    nt, s, g, q, r = np.ix_(*(np.arange(k) for k in (table.shape[0] // 8, 2, 8, 4, 2)))
+    frags = words[8 * nt + g, 8 * s + q + 4 * r]  # (nt, s, g, q, r)
+    return np.ascontiguousarray(frags.reshape(-1, 32, 2))
+
+
+# the kernel's constants: m's 48 byte columns (mod R), u's 96, and their
+# fragments as the kernel stages them (`mxu::Frags`: m's, then u's)
+TN8 = _byte_toeplitz(_NPRIME, 48)
+TP8 = _byte_toeplitz(_P_INT, 96)
+FRAGS = np.concatenate([_b_fragments(TN8), _b_fragments(TP8)])  # (36, 32, 2)
+_FRAGS_I32 = FRAGS.view(np.int32)  # the device copy's type (module-level for `fp.const`)
 # the plain version's float64 copies (module-level: `fp.const` caches by id)
 _S_F64, _TN_F64, _TP_F64 = (m.astype(np.float64) for m in (_S_MAT, _TN, _TP))
 
@@ -146,7 +181,7 @@ def _kernel():
 
     fn = mxu_cuda().lodestar_mxu_mont
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -161,6 +196,8 @@ def mont_mul_mxu_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             raise TypeError(f"mont_mul_mxu takes int32 limbs, got {x.dtype}")
         if x.shape[-1:] != (N_LIMBS,) or not x.is_contiguous():
             raise ValueError("mont_mul_mxu takes contiguous (..., 32) limbs")
+        if x.data_ptr() % 16:
+            raise ValueError("mont_mul_mxu takes 16-byte aligned limbs")
     if a.device != b.device or a.shape != b.shape:
         raise ValueError("mont_mul_mxu operands differ in device or shape")
     out = torch.empty_like(a)
@@ -168,10 +205,9 @@ def mont_mul_mxu_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     fn = _kernel()
-    tnt, tpt = fp.const(TNT, a.device), fp.const(TPT, a.device)
+    frags = fp.const(_FRAGS_I32, a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = fn(a.data_ptr(), b.data_ptr(), tnt.data_ptr(), tpt.data_ptr(), out.data_ptr(), n,
-            stream)
+    rc = fn(a.data_ptr(), b.data_ptr(), frags.data_ptr(), out.data_ptr(), n, stream)
     if rc != 0:
         raise RuntimeError(f"mxu_mont kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -180,20 +216,20 @@ def mont_mul_mxu_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mont_mul_mxu_host(a, b):
     """K4's arithmetic on the CPU (`csrc/mxu_mont_host.cpp`): (n, 32) int32
-    limbs → (REDC limbs (n, 32), the largest t, m or t + u column)."""
+    limbs → (REDC limbs (n, 32), the largest byte column of its MMAs)."""
     from ..build import mxu_host
 
     lib = mxu_host()
     fn = lib.lodestar_mxu_mont_host
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = None
     a = np.ascontiguousarray(a, np.int32)
     b = np.ascontiguousarray(b, np.int32)
     out = np.zeros_like(a)
     col_max = np.zeros(1, np.int32)
-    fn(a.ctypes.data, b.ctypes.data, TNT.ctypes.data, TPT.ctypes.data, out.ctypes.data,
-       a.shape[0], col_max.ctypes.data)
+    fn(a.ctypes.data, b.ctypes.data, FRAGS.ctypes.data, out.ctypes.data, a.shape[0],
+       col_max.ctypes.data)
     return out, int(col_max[0])
 
 
