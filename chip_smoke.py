@@ -5,7 +5,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. env    the card's name and power limit, the torch and CUDA versions.
-2. build  K1 (`csrc/mont_mul.cu`), K2/K3 (`csrc/tower.cu`) and K4
+2. build  K1 (`csrc/mont_mul.cu`), K2/K2p/K3/K3-fe (`csrc/tower.cu`) and K4
           (`csrc/mxu_mont.cu`), each with nvcc for sm_90a, the C host tier
           (`csrc/host/`, cc) and the K2/K3 host harness (`csrc/tower_host.cpp`,
           c++) from the checkout, all at once, into build/lodestar_tpu_torch/;
@@ -33,6 +33,19 @@ Phases (any failure raises and the script exits non-zero):
           and 128 marshalled sets with three invalid sets and one zero lane:
           equal canonical values, verdicts equal to the host tier's, times,
           bound and first-launch memory as for K2.
+6a. k2p   K2p, the projective Miller loop of the batch verdicts, against
+          `miller_loop_proj_plain` at 8 and 192 lanes (the grouped
+          verdict's 2R + 64): G1 pubkeys and H(m) points from the host tier
+          times random Z (Zp ∈ Fp, Zq ∈ Fp2), every coordinate in [p, 2p);
+          lane 0 with Zp = 0 and lane 1 with Zq = 0 must only not fault and
+          are left out of the comparison. Equal canonical values (tolerance
+          0), times, bound and first-launch memory as for K2.
+6b. fe    K3-fe, the final exponentiation per lane, against `final_exp_plain`
+          (the batch form, one shared inversion) at 1, 16 (the bisection's
+          probe) and 256 lanes of random Fp12 values in [0, 2p), with a
+          zero lane and an identity lane from 16 lanes up: equal canonical
+          values, zero to zero, the identity to one; times, bound and
+          first-launch memory.
 7. slice  4096 signature sets over 64 signing roots (one slot of mainnet
           attestation gossip) made from a fixed seed with the host tier,
           verified by `TorchBlsVerifier` at the (64, 64) configuration:
@@ -59,19 +72,22 @@ Phases (any failure raises and the script exits non-zero):
           per-set verdicts.
 12. pairing-check  `pairing.pairing_check`, the multi-pairing primitive, over
           the 2 × 128 affine pairs of the valid and of the tampered batch:
-          the path that runs K2 (one launch per check).
+          the path that runs K2 (one launch per check) and K3-fe.
 
-The main-path verdicts of phases 7-12 run with the launch counts of K1-K4
-reset just before and read just after, and fail if a kernel of their path
-was launched no time; every verdict of phases 8-10 is counted so and also
-checks which planner paths ran.
+The main-path verdicts of phases 7-12 run with the launch counts of K1-K4,
+K2p and K3-fe reset just before and read just after, and fail if a kernel
+of their path was launched no time: K2p and K3-fe once per batch verdict
+(per part of a split one, per chunk of a flat one), both on bisection;
+every verdict of phases 8-10 is counted so and also checks which planner
+paths ran.
 
 13. the `kernels` line, the card line, and the last line
           {"ok": true, "device": {"platform": "gpu", ...}}. K1's and K4's
           entries give their device times (`ms`) and call times
           (`call_ms`) per launch over the product counts that their
           main-path verdict gave them (the grouped (64, 64) verdict for K1,
-          the pk-grouped one for K4), each count timed anew.
+          the pk-grouped one for K4), each count timed anew. K2p's entry
+          is timed at 192 lanes and K3-fe's at 1, their main-path shapes.
 """
 
 from __future__ import annotations
@@ -122,7 +138,7 @@ def phase_build():
     with ThreadPoolExecutor(len(builds)) as pool:
         for job in [pool.submit(b) for b in builds]:
             job.result()
-    log(f"[build] K1, K2/K3, K4, host tier and tower host harness built in "
+    log(f"[build] K1, K2/K2p/K3/K3-fe, K4, host tier and tower host harness built in "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = {}
     for name, (secs, text) in sorted(build.BUILD_LOG.items()):
@@ -317,6 +333,7 @@ def phase_slice(torch, np, n_roots: int, per_root: int):
     if verdict is not True:
         raise AssertionError("the port rejects the valid batch (warm)")
     _need(counts, f"{tag} main path", "K1")
+    _need_main(counts, f"{tag} main path")
     host_s = stages.get("marshal", 0.0) + stages.get("rand", 0.0)
     log(f"{tag} warm verdict True in {wall:.3f} s = {len(sets) / wall:.1f} sets/s; "
         f"launches {json.dumps(counts)}; host marshal+rand share {host_s / wall:.6f} "
@@ -609,11 +626,134 @@ def phase_k3(torch, np, muls: int, bad, host_bad):
     return max_err, row
 
 
+K2P_LANES = (8, 2 * 64 + 64)  # the grouped (64, 64) verdict's 2R + 64 Miller lanes
+K2P_BYTES_PER_LANE = 4 * (3 * 32 + 3 * 64 + 384)  # P and Q projective in; the Fp12 out
+FE_LANES = (1, 16, 256)  # a batch verdict's one product; the bisection probe; 256
+FE_BYTES_PER_LANE = 4 * (384 + 384)  # the Fp12 in and out
+
+
+def _projective_inputs(np, n: int, seed: int):
+    """n projective Miller lanes: `_miller_inputs`'s affine points times
+    random Z (Zp ∈ Fp, Zq ∈ Fp2, Montgomery form), every coordinate as
+    its value plus p, in [p, 2p); lane 0 gets Zp = 0, lane 1 Zq = 0."""
+    from lodestar_tpu_torch.bls.fields import P
+    from lodestar_tpu_torch.ops.limbs import R_MONT, int_to_limbs, limbs_to_int
+
+    xp, yp, xq, yq = _miller_inputs(np, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    r = R_MONT % P
+
+    def rand_fp() -> int:
+        return int.from_bytes(rng.bytes(48), "little") % (P - 1) + 1
+
+    def high(v: int):
+        return int_to_limbs(v % P + P)
+
+    p_out = [np.empty_like(xp) for _ in range(3)]
+    q_out = [np.empty_like(xq) for _ in range(3)]
+    for i in range(n):
+        z = rand_fp()
+        for c, a in ((0, xp), (1, yp)):
+            p_out[c][i] = high(limbs_to_int(a[i]) * z)
+        p_out[2][i] = high(z * r)
+        z0, z1 = rand_fp(), rand_fp()
+        for c, a in ((0, xq), (1, yq)):
+            a0, a1 = limbs_to_int(a[i, 0]), limbs_to_int(a[i, 1])
+            q_out[c][i] = [high(a0 * z0 - a1 * z1), high(a0 * z1 + a1 * z0)]
+        q_out[2][i] = [high(z0 * r), high(z1 * r)]
+    p_out[2][0] = 0
+    q_out[2][1] = 0
+    return p_out + q_out
+
+
+def phase_k2p(torch, np, muls: int):
+    """K2p against its plain version; returns (max_err, row at 192 lanes)."""
+    from lodestar_tpu_torch.ops import cuda_tower
+
+    dev = torch.device("cuda")
+    max_err = 0
+    row = None
+    stack_bytes = None
+    for n in K2P_LANES:
+        args = [torch.as_tensor(a).to(dev) for a in _projective_inputs(np, n, SEED + 30 + n)]
+        got, taken = _device_bytes_taken(torch, lambda: cuda_tower.miller_loop_proj_cuda(*args))
+        if stack_bytes is None:
+            stack_bytes = taken
+            log(f"[k2p] first launch took {taken} B more device memory "
+                f"({taken / 2**20:.1f} MiB) for the stack limit, after K2's and K3's")
+        want = cuda_tower.miller_loop_proj_plain(*args)
+        torch.cuda.synchronize()
+        if not bool((got[:2] >= 0).all() & (got[:2] < 4096).all()):
+            raise AssertionError("K2p's Zp = 0 / Zq = 0 lanes returned no limbs")
+        err = _canonical_err(torch, got[2:], want[2:])
+        max_err = max(max_err, err)
+        if err != 0:
+            raise AssertionError(f"K2p differs from its plain version at {n} lanes")
+        ms = _event_ms(torch, lambda: cuda_tower.miller_loop_proj_cuda(*args), 5)
+        plain_ms = _event_ms(torch, lambda: cuda_tower.miller_loop_proj_plain(*args))
+        bound_ms, bound_by = _bound(muls, K2P_BYTES_PER_LANE, n)
+        row = dict(lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   stack_bytes=stack_bytes)
+        log(f"[k2p] lanes={n} match=canonical (lanes 2..{n - 1}; Zp = 0, Zq = 0 lanes ran) "
+            f"ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({bound_by}) "
+            f"share_of_bound={bound_ms / ms:.6f}")
+    return max_err, row
+
+
+def _fp12_inputs(np, n: int, seed: int):
+    """n Fp12 lanes of random values in [0, 2p) (the edges 0, 1, p−1, p and
+    2p−1 among lane 0's coefficients); from 16 lanes up, lane 1 is zero and
+    lane 2 the identity."""
+    from lodestar_tpu_torch.ops.limbs import ONE_MONT_LIMBS
+
+    fs = _random_limbs(np.random.default_rng(seed), 12 * n).reshape(n, 2, 3, 2, 32)
+    if n >= 16:
+        fs[1] = 0
+        fs[2] = 0
+        fs[2, 0, 0, 0] = ONE_MONT_LIMBS
+    return fs
+
+
+def phase_fe(torch, np, muls: int):
+    """K3-fe against its plain version; returns (max_err, {lanes: row})."""
+    from lodestar_tpu_torch.ops import cuda_tower, fp12
+
+    dev = torch.device("cuda")
+    max_err = 0
+    rows = {}
+    stack_bytes = None
+    for n in FE_LANES:
+        fs = torch.as_tensor(_fp12_inputs(np, n, SEED + 40 + n)).to(dev)
+        got, taken = _device_bytes_taken(torch, lambda: cuda_tower.final_exp_cuda(fs))
+        if stack_bytes is None:
+            stack_bytes = taken
+            log(f"[fe] first launch took {taken} B more device memory "
+                f"({taken / 2**20:.1f} MiB) for the stack limit, after K2's, K3's and K2p's")
+        want = cuda_tower.final_exp_plain(fs)
+        torch.cuda.synchronize()
+        err = _canonical_err(torch, got, want)
+        max_err = max(max_err, err)
+        if err != 0:
+            raise AssertionError(f"K3-fe differs from its plain version at {n} lanes")
+        if n >= 16 and not (bool((got[1] == 0).all()) and bool(fp12.is_one(got[2]))):
+            raise AssertionError("K3-fe: the zero lane or the identity lane went astray")
+        ms = _event_ms(torch, lambda: cuda_tower.final_exp_cuda(fs), 5)
+        plain_ms = _event_ms(torch, lambda: cuda_tower.final_exp_plain(fs))
+        bound_ms, bound_by = _bound(muls, FE_BYTES_PER_LANE, n)
+        rows[n] = dict(lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, stack_bytes=stack_bytes)
+        log(f"[fe] lanes={n} match=canonical{' (zero and identity lanes held)' if n >= 16 else ''} "
+            f"ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({bound_by}) "
+            f"share_of_bound={bound_ms / ms:.6f}")
+    return max_err, rows
+
+
 def _counts():
     from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu, cuda_tower
 
     return {"K1": cuda_fp.LAUNCHES, "K2": cuda_tower.MILLER_LAUNCHES,
-            "K3": cuda_tower.PAIRING_LAUNCHES, "K4": cuda_mxu.LAUNCHES}
+            "K3": cuda_tower.PAIRING_LAUNCHES, "K4": cuda_mxu.LAUNCHES,
+            "K2p": cuda_tower.MILLER_PROJ_LAUNCHES, "K3-fe": cuda_tower.FINAL_EXP_LAUNCHES}
 
 
 def _reset_counts():
@@ -621,7 +761,9 @@ def _reset_counts():
 
     cuda_fp.LAUNCHES = 0
     cuda_tower.MILLER_LAUNCHES = 0
+    cuda_tower.MILLER_PROJ_LAUNCHES = 0
     cuda_tower.PAIRING_LAUNCHES = 0
+    cuda_tower.FINAL_EXP_LAUNCHES = 0
     cuda_mxu.LAUNCHES = 0
 
 
@@ -708,6 +850,14 @@ def _need(counts: dict, route: str, *kernels):
             raise AssertionError(f"{route}: the route launched {k} no time")
 
 
+def _need_main(counts: dict, route: str, verdicts: int = 1):
+    """A batch verdict's Miller stage and final exponentiation: K2p and
+    K3-fe launched once per verdict (per part or chunk)."""
+    for k in ("K2p", "K3-fe"):
+        if counts[k] != verdicts:
+            raise AssertionError(f"{route}: {counts[k]} {k} launches, expected {verdicts}")
+
+
 def phase_per_set(torch, np, sets, host_ok, bad, host_bad):
     """The per-set verdict path on the card; returns its launch counts and
     wall times by route."""
@@ -720,7 +870,7 @@ def phase_per_set(torch, np, sets, host_ok, bad, host_bad):
     got, secs, counts = _run_counted(torch, lambda: v.verify_signature_sets_individual(sets), v)
     if got != host_ok or not all(got):
         raise AssertionError("(a) the valid batch's per-set verdicts differ from the host tier's")
-    _need(counts, "(a) bisection, valid", "K1")
+    _need(counts, "(a) bisection, valid", "K1", "K2p", "K3-fe")
     if counts["K3"] != 0:
         raise AssertionError("(a) the root passed, yet K3 was launched")
     out["a"] = dict(seconds=secs, counts=counts, **v.last_bisect)
@@ -731,7 +881,7 @@ def phase_per_set(torch, np, sets, host_ok, bad, host_bad):
     got, secs, counts = _run_counted(torch, lambda: v.verify_signature_sets_individual(bad), v)
     if got != host_bad:
         raise AssertionError("(b) the tampered batch's per-set verdicts differ from the host tier's")
-    _need(counts, "(b) bisection, three invalid", "K1")
+    _need(counts, "(b) bisection, three invalid", "K1", "K2p", "K3-fe")
     out["b"] = dict(seconds=secs, counts=counts, **v.last_bisect)
     log(f"{tag} (b) 3 tampered of {PER_SET_N}: invalid at {[i for i, ok in enumerate(got) if not ok]} "
         f"= host tier, in {secs:.3f} s; rounds {v.last_bisect['rounds']}, probes "
@@ -770,8 +920,8 @@ def phase_per_set(torch, np, sets, host_ok, bad, host_bad):
 
 
 def phase_pairing_check(torch, np, sets, host_ok, bad, host_bad):
-    """Π e(pk_i, H_i)·e(−g1, sig_i) == 1 through `pairing.pairing_check`;
-    returns K2's launches of the valid batch's check."""
+    """Π e(pk_i, H_i)·e(−g1, sig_i) == 1 through `pairing.pairing_check`
+    (K2, then K3-fe on the product); returns the launches of each check."""
     from lodestar_tpu_torch.ops import cuda_tower, pairing
     from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
 
@@ -788,7 +938,9 @@ def phase_pairing_check(torch, np, sets, host_ok, bad, host_bad):
             torch, lambda: bool(pairing.pairing_check((xs, ys), (qx, qy), valid)))
         if got != want:
             raise AssertionError(f"pairing_check on the {name} batch: {got}, host tier {want}")
-        _need(counts, f"pairing_check ({name})", "K2")
+        _need(counts, f"pairing_check ({name})", "K2", "K3-fe")
+        if counts["K2p"] != 0:
+            raise AssertionError(f"pairing_check ({name}): K2p launched on an affine route")
         result[name] = dict(seconds=secs, counts=counts)
         log(f"[pairing-check] {name}: {got} = host tier, {xs.shape[0]} Miller lanes in "
             f"{secs:.3f} s; launches {json.dumps(counts)}")
@@ -895,7 +1047,8 @@ def phase_pk_grouped(torch, np):
     out = {}
     secs, counts = _verdict(torch, v, routes, tag, "(a) valid, first call", sets, True,
                             ["pk_grouped"])
-    _need(counts, f"{tag} valid", "K1", "K4")
+    _need(counts, f"{tag} valid", "K4")  # every multiply here is ≥ 4096 products
+    _need_main(counts, f"{tag} valid")
     out["cold"] = dict(seconds=secs, counts=counts)
     # a flood of unique roots never hits the hash-to-G2 cache: empty it,
     # so that the warm verdict hashes its 4096 roots as the first did
@@ -903,7 +1056,8 @@ def phase_pk_grouped(torch, np):
     with _products_per_launch() as products:
         secs, counts = _verdict(torch, v, routes, tag, "(a) valid, warm, hash cache emptied",
                                 sets, True, ["pk_grouped"])
-    _need(counts, f"{tag} valid (warm)", "K1", "K4")
+    _need(counts, f"{tag} valid (warm)", "K4")
+    _need_main(counts, f"{tag} valid (warm)")
     _check_products(products, counts, tag)
     out["warm"] = dict(seconds=secs, counts=counts, stages=dict(v.stage_seconds),
                        products=products)
@@ -941,6 +1095,7 @@ def phase_flat(torch, np):
     _verdict(torch, v, routes, tag, "128 valid, first call", head, True, ["flat"])
     secs, counts = _verdict(torch, v, routes, tag, "128 valid, warm", head, True, ["flat"])
     _need(counts, f"{tag} valid", "K1")
+    _need_main(counts, f"{tag} valid")
     out["128"] = dict(seconds=secs, counts=counts)
     bad = _wrong_message(head, 9, rng.bytes(32))
     if all(_host_after(host[:PER_SET_N], bad, (9,))):
@@ -948,6 +1103,7 @@ def phase_flat(torch, np):
     _verdict(torch, v, routes, tag, "128, one wrong message", bad, False, ["flat"])
     secs, counts = _verdict(torch, v, routes, tag, "200 valid (chunks of 128 and 72)", sets,
                             True, ["flat"])
+    _need_main(counts, f"{tag} 200 valid", verdicts=2)
     out["200"] = dict(seconds=secs, counts=counts)
     return out
 
@@ -975,6 +1131,7 @@ def phase_split(torch, np):
         routes = _spy_routes(v)
         secs, counts = _verdict(torch, v, routes, tag, f"grouped + {rest}, valid", sets, True,
                                 ["grouped", route])
+        _need_main(counts, f"{tag} grouped + {rest}", verdicts=2)
         out[rest] = dict(seconds=secs, counts=counts)
         k = 64 + 7  # a set of the unique part
         bad = _wrong_message(sets, k, rng.bytes(32))
@@ -1006,6 +1163,8 @@ def main() -> int:
     k2_err, k2_row = phase_k2(torch, np, muls["miller_loop"])
     sets, host_ok, bad, host_bad = per_set_batches(np)
     k3_err, k3_row = phase_k3(torch, np, muls["pairing_fused"], bad, host_bad)
+    k2p_err, k2p_row = phase_k2p(torch, np, muls["miller_loop_proj"])
+    fe_err, fe_rows = phase_fe(torch, np, muls["final_exp"])
     grouped_counts, wall, n_sets, grouped_products = phase_slice(torch, np, 64, 64)
     log(f"[slice] main path (64, 64): {wall:.3f} s per {n_sets}-set verdict, "
         f"{n_sets / wall:.1f} sets/s, launches per verdict {json.dumps(grouped_counts)}")
@@ -1025,10 +1184,13 @@ def main() -> int:
         f"{per_set['c']['seconds']:.6f} s; script {time.perf_counter() - t_start:.1f} s")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k4 and k1 by products (device and call ms): {json.dumps(k4_rows)}")
-    stack = k2_row["stack_bytes"] + k3_row["stack_bytes"]
+    stack = (k2_row["stack_bytes"] + k3_row["stack_bytes"] + k2p_row["stack_bytes"]
+             + fe_rows[FE_LANES[0]]["stack_bytes"])
     log(f"[summary] device memory held by the raised stack limit: {stack} B "
         f"({stack / 2**30:.3f} GiB; K2 {k2_row['stack_bytes']} B, then K3 "
-        f"{k3_row['stack_bytes']} B more)")
+        f"{k3_row['stack_bytes']} B, K2p {k2p_row['stack_bytes']} B and K3-fe "
+        f"{fe_rows[FE_LANES[0]]['stack_bytes']} B more)")
+    log(f"[summary] k3-fe by lanes: {json.dumps(fe_rows)}")
 
     from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu
 
@@ -1076,6 +1238,34 @@ def main() -> int:
             "plain_ms": k2_row["plain_ms"],
             "bound_ms": k2_row["bound_ms"],
             "bound_by": k2_row["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "miller_loop_proj",
+            "route": "cuda",
+            "source": "lodestar_tpu_torch/csrc/tower.cu",
+            "replaces": "lodestar_tpu/ops/pallas_tower.py:120",
+            "serves": "lodestar_tpu/ops/pairing.py:225",
+            "launches": grouped_counts["K2p"],
+            "max_abs_err": k2p_err,
+            "ms": k2p_row["ms"],
+            "plain_ms": k2p_row["plain_ms"],
+            "bound_ms": k2p_row["bound_ms"],
+            "bound_by": k2p_row["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "final_exp",
+            "route": "cuda",
+            "source": "lodestar_tpu_torch/csrc/tower.cu",
+            "replaces": "lodestar_tpu/ops/pallas_tower.py:240",
+            "serves": "lodestar_tpu/ops/pairing.py:343",
+            "launches": grouped_counts["K3-fe"],
+            "max_abs_err": fe_err,
+            "ms": fe_rows[1]["ms"],
+            "plain_ms": fe_rows[1]["plain_ms"],
+            "bound_ms": fe_rows[1]["bound_ms"],
+            "bound_by": fe_rows[1]["bound_by"],
             "library_ms": None,
         },
         {

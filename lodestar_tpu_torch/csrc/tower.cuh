@@ -1,7 +1,7 @@
 // The BLS12-381 tower, the optimal ate Miller loop and the final
-// exponentiation on 12 x 32-bit words, shared by the CUDA kernels K2 and K3
-// (tower.cu) and the host harness (tower_host.cpp) that the CPU tests build
-// with a C++ compiler.
+// exponentiation on 12 x 32-bit words, shared by the CUDA kernels K2, K2p,
+// K3 and K3-fe (tower.cu) and the host harness (tower_host.cpp) that the
+// CPU tests build with a C++ compiler.
 //
 // Representation: an Fp element is 12 little-endian 32-bit words in
 // Montgomery form (R = 2^384), the value of the tensor tower's 32 x 12-bit
@@ -17,8 +17,10 @@
 // loop's line and point formulas are those of ops/pairing.py
 // (`_line_and_double`, `_line_and_add` for affine Q, the lines scaled by
 // factors the final exponentiation annihilates), through the host C tier's
-// one-to-one copies `pair_line_dbl`/`pair_line_add` (csrc/host/bls12.c), so
-// the Miller value is the same Fp12 element as the plain version's; the
+// one-to-one copies `pair_line_dbl`/`pair_line_add` (csrc/host/bls12.c), and
+// for projective P and Q (`line_double_proj`, `line_add_projq`) those of
+// `_line_and_double` with zp and `_line_and_add_projq` directly, so the
+// Miller value is the same Fp12 element as the plain version's; the
 // tower products may be computed by other (Karatsuba or schoolbook) forms
 // because only the field value matters. The final exponentiation is the
 // easy part (p^6 - 1)(p^2 + 1) with a per-thread Fermat inversion (zero in,
@@ -623,6 +625,67 @@ TW_FN void line_add(Fp2& l0, Fp2& l1, Fp2& l2, G2& t, const Fp2& xq, const Fp2& 
   fp2_add(t.z, pe, pf);
 }
 
+// line_double for P = (Xp, Yp, Zp) homogeneous projective: Xp and Yp as
+// they stand, then l0 scaled by Zp (ops/pairing.py `_line_and_double`)
+TW_FN void line_double_proj(Fp2& l0, Fp2& l1, Fp2& l2, G2& t, const Fp& xp_neg, const Fp& yp,
+                            const Fp& zp) {
+  line_double(l0, l1, l2, t, xp_neg, yp);
+  fp2_mul_fp(l0, l0, zp);
+}
+
+// Chord line through T and projective Q = (Xq, Yq, Zq) and T <- T + Q
+// (RCB16 Algorithm 7, a = 0), the line scaled by Zq^2: with
+// theta' = Y Zq - Yq Z and H' = X Zq - Xq Z,
+// l0 = (theta' Xq - Yq H') Zp, l1 = (Zq theta') (-Xp), l2 = (Zq H') Yp
+// (ops/pairing.py `_line_and_add_projq`, formula for formula)
+TW_FN void line_add_projq(Fp2& l0, Fp2& l1, Fp2& l2, G2& t, const G2& q, const Fp& xp_neg,
+                          const Fp& yp, const Fp& zp) {
+  Fp2 b3, t0, t1, t2, u, s, yzq, yqz, xzq, xqz;
+  twist_b3(b3);
+  fp2_mul(t0, t.x, q.x);
+  fp2_mul(t1, t.y, q.y);
+  fp2_mul(t2, t.z, q.z);
+  fp2_add(u, t.x, t.y);
+  fp2_add(s, q.x, q.y);
+  fp2_mul(u, u, s);  // (X + Y)(Xq + Yq)
+  fp2_mul(yzq, t.y, q.z);
+  fp2_mul(yqz, q.y, t.z);
+  fp2_mul(xzq, t.x, q.z);
+  fp2_mul(xqz, q.x, t.z);
+  Fp2 theta, h, t3, t4, y3p, x3;
+  fp2_sub(theta, yzq, yqz);
+  fp2_sub(h, xzq, xqz);
+  fp2_sub(t3, u, t0);
+  fp2_sub(t3, t3, t1);
+  fp2_add(t4, yzq, yqz);
+  fp2_add(y3p, xzq, xqz);
+  fp2_add(x3, t0, t0);
+  fp2_add(x3, x3, t0);
+  Fp2 t2b, thxq, yqh, thz, hz, y3, z3, t1m;
+  fp2_mul(t2b, b3, t2);
+  fp2_mul(thxq, theta, q.x);
+  fp2_mul(yqh, q.y, h);
+  fp2_mul(thz, q.z, theta);
+  fp2_mul(hz, q.z, h);
+  fp2_mul(y3, b3, y3p);
+  fp2_sub(l0, thxq, yqh);
+  fp2_add(z3, t1, t2b);
+  fp2_sub(t1m, t1, t2b);
+  fp2_mul_fp(l1, thz, xp_neg);
+  fp2_mul_fp(l2, hz, yp);
+  fp2_mul_fp(l0, l0, zp);
+  Fp2 pa, pb, pc, pd, pe, pf;
+  fp2_mul(pa, t3, t1m);
+  fp2_mul(pb, t4, y3);
+  fp2_mul(pc, y3, x3);
+  fp2_mul(pd, t1m, z3);
+  fp2_mul(pe, z3, t4);
+  fp2_mul(pf, x3, t3);
+  fp2_sub(t.x, pa, pb);
+  fp2_add(t.y, pc, pd);
+  fp2_add(t.z, pe, pf);
+}
+
 // conj(f_{|x|,Q}(P)) for affine P = (xp, yp) and Q = (xq, yq): the bits of
 // |x| after the leading one, MSB first; f <- f^2 * line_double, and on a set
 // bit f <- f * line_add
@@ -641,6 +704,29 @@ TW_FN void miller_loop(Fp12& f, const Fp& xp, const Fp& yp, const Fp2& xq, const
     fp12_mul_by_line(f, l0, l1, l2);
     if ((kXAbs >> i) & 1) {
       line_add(l0, l1, l2, t, xq, yq, xp_neg, yp);
+      fp12_mul_by_line(f, l0, l1, l2);
+    }
+  }
+  fp12_conj(f, f);  // x < 0
+}
+
+// conj(f_{|x|,Q}(P)) for P = (xp, yp, zp) and Q both homogeneous
+// projective (ops/pairing.py `miller_loop_proj_pq`): T starts at Q, and
+// every line carries the plain loop's scaling, so f is the same Fp12
+// element lane for lane. Zp = 0 or Zq = 0 gives some value (the callers
+// mask those lanes); nothing divides, so nothing faults.
+TW_FN void miller_loop_proj(Fp12& f, const Fp& xp, const Fp& yp, const Fp& zp, const G2& q) {
+  Fp xp_neg;
+  fp_neg(xp_neg, xp);
+  G2 t = q;
+  fp12_one(f);
+  Fp2 l0, l1, l2;
+  for (int i = 62; i >= 0; i--) {
+    fp12_sqr(f, f);
+    line_double_proj(l0, l1, l2, t, xp_neg, yp, zp);
+    fp12_mul_by_line(f, l0, l1, l2);
+    if ((kXAbs >> i) & 1) {
+      line_add_projq(l0, l1, l2, t, q, xp_neg, yp, zp);
       fp12_mul_by_line(f, l0, l1, l2);
     }
   }
@@ -749,6 +835,24 @@ TW_FN void miller_lane(const int32_t* xp, const int32_t* yp, const int32_t* xq,
   store_fp12(out, f);
 }
 
+// K2p's lane: (xp, yp, zp) (32,), (xq, yq, zq) (2, 32) limbs ->
+// conj(f_{|x|,Q}(P)) for projective P and Q as (2, 3, 2, 32) canonical limbs
+TW_FN void miller_proj_lane(const int32_t* xp, const int32_t* yp, const int32_t* zp,
+                            const int32_t* xq, const int32_t* yq, const int32_t* zq,
+                            int32_t* out) {
+  Fp px, py, pz;
+  G2 q;
+  load_fp(px, xp);
+  load_fp(py, yp);
+  load_fp(pz, zp);
+  load_fp2(q.x, xq);
+  load_fp2(q.y, yq);
+  load_fp2(q.z, zq);
+  Fp12 f;
+  miller_loop_proj(f, px, py, pz, q);
+  store_fp12(out, f);
+}
+
 // K3's lane: final_exp(ML(pk, H(m)) * ML(-g1, sig)) as (2, 3, 2, 32)
 // canonical limbs
 TW_FN void pairing_lane(const int32_t* pk_x, const int32_t* pk_y, const int32_t* msg_x,
@@ -770,7 +874,8 @@ TW_FN void pairing_lane(const int32_t* pk_x, const int32_t* pk_y, const int32_t*
   store_fp12(out, f);
 }
 
-// the final exponentiation of one (2, 3, 2, 32) lane, for the tests
+// K3-fe's lane: the final exponentiation of one (2, 3, 2, 32) lane,
+// canonical limbs out (zero in, zero out)
 TW_FN void final_exp_lane(const int32_t* in, int32_t* out) {
   Fp12 f;
   load_fp12(f, in);

@@ -1,7 +1,7 @@
 // Host build of the tower kernels' arithmetic (tower.cuh) with a plain C
-// interface, so that the CPU tests hold the exact code of K2 and K3 against
-// the plain PyTorch versions without a GPU, and so that the operation bound
-// of both kernels can be counted: this build alone defines TOWER_COUNT_MULS.
+// interface, so that the CPU tests hold the exact code of K2, K2p, K3 and
+// K3-fe against the plain PyTorch versions without a GPU, and so that the
+// operation bound of the kernels can be counted: this build alone defines TOWER_COUNT_MULS.
 // Build:
 //   c++ -O2 -std=c++17 -shared -fPIC -o libtower_host.so tower_host.cpp
 #include <stdint.h>
@@ -21,6 +21,17 @@ extern "C" void lodestar_miller_host(const int32_t* xp, const int32_t* yp,
                     out + 384 * i);
 }
 
+// K2p on the host: n lanes of projective P (32,) xp, yp, zp and Q (2, 32)
+// xq, yq, zq limbs -> (n, 2, 3, 2, 32) canonical limbs.
+extern "C" void lodestar_miller_proj_host(const int32_t* xp, const int32_t* yp,
+                                          const int32_t* zp, const int32_t* xq,
+                                          const int32_t* yq, const int32_t* zq,
+                                          int32_t* out, long long n) {
+  for (long long i = 0; i < n; i++)
+    tw::miller_proj_lane(xp + 32 * i, yp + 32 * i, zp + 32 * i, xq + 64 * i,
+                         yq + 64 * i, zq + 64 * i, out + 384 * i);
+}
+
 // K3 on the host: n sets -> (n, 2, 3, 2, 32) final-exponentiated limbs.
 extern "C" void lodestar_pairing_host(const int32_t* pk_x, const int32_t* pk_y,
                                       const int32_t* msg_x, const int32_t* msg_y,
@@ -32,7 +43,7 @@ extern "C" void lodestar_pairing_host(const int32_t* pk_x, const int32_t* pk_y,
                      out + 384 * i);
 }
 
-// The final exponentiation of n (2, 3, 2, 32) lanes.
+// K3-fe on the host: the final exponentiation of n (2, 3, 2, 32) lanes.
 extern "C" void lodestar_final_exp_host(const int32_t* in, int32_t* out,
                                         long long n) {
   for (long long i = 0; i < n; i++) tw::final_exp_lane(in + 384 * i, out + 384 * i);

@@ -1,5 +1,6 @@
-"""K2 and K3, the Miller loop and the fused per-set pairing: the CUDA
-kernels, their plain versions and their host builds.
+"""K2 and K3, the Miller loop and the fused per-set pairing, with their
+main-path entry points K2p and K3-fe: the CUDA kernels, their plain
+versions and their host builds.
 
 - `miller_loop_kernel` replaces the JAX package's Pallas kernel
   `ops/pallas_tower.py::_miller_tiles` (reached through `pairing.miller_loop`
@@ -8,20 +9,31 @@ kernels, their plain versions and their host builds.
   of `csrc/tower.cu` (built at first use by `build.tower_cuda`) or raises;
   on CPU tensors it runs `miller_loop_plain`, `pairing._miller_loop_impl`
   on affine P and Q.
+- `miller_loop_proj_kernel` is K2 in the form the batch verdicts and the
+  bisection tree call (`pairing.miller_loop_proj_pq`, P and Q homogeneous
+  projective; XLA in the JAX package, whose Pallas kernel takes affine
+  points only). On CUDA tensors it launches `miller_proj_kernel` (K2p) or
+  raises; on CPU tensors it runs `miller_loop_proj_plain`.
+- `final_exp_kernel` is K3's tail alone, the final exponentiation per lane
+  (`pairing.final_exponentiation_batch`, `final_exponentiation_one` and
+  the per-lane `final_exponentiation`). On CUDA tensors it launches
+  `final_exp_kernel` (K3-fe) or raises; on CPU tensors it runs
+  `final_exp_plain`, the batch form with one shared inversion.
 - `pairing_fused` replaces `ops/pallas_tower.py::_pairing_tiles` (reached
   through `individual_verify_kernel` when `LODESTAR_TPU_PALLAS_PAIRING`
   resolves on, as it does on a TPU). On CUDA tensors it launches
   `pairing_kernel` or raises; on CPU tensors it runs `pairing_fused_plain`:
   `individual_pairing_terms` (2n plain Miller lanes, the per-set Fp12
-  product) and `final_exponentiation_batch`.
+  product) and `final_exp_plain`.
 
-Both kernels return canonical limbs (every value below p); the plain
+The kernels return canonical limbs (every value below p); the plain
 versions return lazy limbs in [0, 2p). They agree by canonical value:
-K2 follows the plain version's formulas, and K3 inverts per thread where
-the plain version shares one inversion across the batch, which gives the
-same field element. `MILLER_LAUNCHES` and `PAIRING_LAUNCHES` count kernel
-launches (not plain calls), so a run can show that its path went through
-the kernels.
+K2 and K2p follow the plain version's formulas, and K3 and K3-fe invert
+per thread where the plain version shares one inversion across the batch,
+which gives the same field element. `MILLER_LAUNCHES`,
+`MILLER_PROJ_LAUNCHES`, `PAIRING_LAUNCHES` and `FINAL_EXP_LAUNCHES` count
+kernel launches (not plain calls), so a run can show that its path went
+through the kernels.
 
 The `*_host` functions run the kernels' own arithmetic (`csrc/tower.cuh`)
 built for the CPU (`build.tower_host`), for the tests and for the
@@ -40,7 +52,9 @@ from .limbs import N_LIMBS
 from .points import G1_GEN_X, G1_GEN_Y
 
 MILLER_LAUNCHES = 0
+MILLER_PROJ_LAUNCHES = 0
 PAIRING_LAUNCHES = 0
+FINAL_EXP_LAUNCHES = 0
 
 FP12_SHAPE = (2, 3, 2, N_LIMBS)
 
@@ -52,6 +66,22 @@ def miller_loop_plain(xp, yp, xq, yq):
     from .pairing import _miller_loop_impl
 
     return _miller_loop_impl(xp, yp, None, xq, yq, None)
+
+
+def miller_loop_proj_plain(xp, yp, zp, xq, yq, zq):
+    """conj(f_{|x|,Q}(P)) for projective P (n, 32) ×3 and Q (n, 2, 32) ×3,
+    in PyTorch."""
+    from .pairing import _miller_loop_impl
+
+    return _miller_loop_impl(xp, yp, zp, xq, yq, zq)
+
+
+def final_exp_plain(fs):
+    """The final exponentiation over axis 0 of (n, 2, 3, 2, 32), in
+    PyTorch, the easy part's inversion shared by the batch."""
+    from .pairing import _final_exponentiation_batch_impl
+
+    return _final_exponentiation_batch_impl(fs)
 
 
 def pairing_lanes(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y):
@@ -80,10 +110,7 @@ def individual_pairing_terms(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y):
 def pairing_fused_plain(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y):
     """final_exp(ML(pk_i, H_i)·ML(−g1, sig_i)) per set, in PyTorch, the
     easy part's inversion shared by the batch."""
-    from .pairing import final_exponentiation_batch
-
-    return final_exponentiation_batch(
-        individual_pairing_terms(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y))
+    return final_exp_plain(individual_pairing_terms(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y))
 
 
 # --- CUDA kernels -------------------------------------------------------------
@@ -101,6 +128,10 @@ def _kernels():
         lib.lodestar_miller.restype = ctypes.c_int
         lib.lodestar_pairing.argtypes = [_VP] * 7 + [_LL, _VP]
         lib.lodestar_pairing.restype = ctypes.c_int
+        lib.lodestar_miller_proj.argtypes = [_VP] * 7 + [_LL, _VP]
+        lib.lodestar_miller_proj.restype = ctypes.c_int
+        lib.lodestar_final_exp.argtypes = [_VP] * 2 + [_LL, _VP]
+        lib.lodestar_final_exp.restype = ctypes.c_int
     return lib
 
 
@@ -134,6 +165,46 @@ def miller_loop_cuda(xp, yp, xq, yq):
     return out
 
 
+def miller_loop_proj_cuda(xp, yp, zp, xq, yq, zq):
+    """Launch K2p on contiguous int32 CUDA tensors xp, yp, zp (n, 32) and
+    xq, yq, zq (n, 2, 32) → (n, 2, 3, 2, 32) canonical limbs."""
+    global MILLER_PROJ_LAUNCHES
+    n = xp.shape[0]
+    p, q = (n, N_LIMBS), (n, 2, N_LIMBS)
+    for name, x, shape in (("xp", xp, p), ("yp", yp, p), ("zp", zp, p),
+                           ("xq", xq, q), ("yq", yq, q), ("zq", zq, q)):
+        _check(name, x, shape)
+    out = torch.empty((n,) + FP12_SHAPE, dtype=torch.int32, device=xp.device)
+    if n == 0:
+        return out
+    lib = _kernels()
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = lib.lodestar_miller_proj(xp.data_ptr(), yp.data_ptr(), zp.data_ptr(), xq.data_ptr(),
+                                  yq.data_ptr(), zq.data_ptr(), out.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"projective miller kernel launch failed: CUDA error {rc}")
+    MILLER_PROJ_LAUNCHES += 1
+    return out
+
+
+def final_exp_cuda(fs):
+    """Launch K3-fe on a contiguous int32 CUDA tensor (n, 2, 3, 2, 32) →
+    (n, 2, 3, 2, 32) canonical final-exponentiated limbs."""
+    global FINAL_EXP_LAUNCHES
+    n = fs.shape[0]
+    _check("fs", fs, (n,) + FP12_SHAPE)
+    out = torch.empty((n,) + FP12_SHAPE, dtype=torch.int32, device=fs.device)
+    if n == 0:
+        return out
+    lib = _kernels()
+    stream = torch.cuda.current_stream(fs.device).cuda_stream
+    rc = lib.lodestar_final_exp(fs.data_ptr(), out.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"final exponentiation kernel launch failed: CUDA error {rc}")
+    FINAL_EXP_LAUNCHES += 1
+    return out
+
+
 def pairing_fused_cuda(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y):
     """Launch K3 on contiguous int32 CUDA tensors pk (n, 32) and msg, sig
     (n, 2, 32) → (n, 2, 3, 2, 32) canonical final-exponentiated limbs."""
@@ -163,25 +234,42 @@ def _on_cpu(*xs) -> bool:
     return all(x.device.type == "cpu" for x in xs)
 
 
-def miller_loop_kernel(p_aff, q_aff):
-    """The affine Miller loop over broadcast leading axes: P (xp, yp)
-    (..., 32), Q (xq, yq) (..., 2, 32) → (..., 2, 3, 2, 32). A scalar call
-    gets a unit batch axis, as `pallas_tower.miller_loop_pallas` gives it."""
-    xp, yp = p_aff
-    xq, yq = q_aff
-    batch = fp.broadcast_shapes(xp.shape[:-1], yp.shape[:-1], xq.shape[:-2], yq.shape[:-2])
-    if batch == ():
-        return miller_loop_kernel((xp[None], yp[None]), (xq[None], yq[None]))[0]
-    flat = [
-        torch.broadcast_to(xp, batch + (N_LIMBS,)).reshape(-1, N_LIMBS),
-        torch.broadcast_to(yp, batch + (N_LIMBS,)).reshape(-1, N_LIMBS),
-        torch.broadcast_to(xq, batch + (2, N_LIMBS)).reshape(-1, 2, N_LIMBS),
-        torch.broadcast_to(yq, batch + (2, N_LIMBS)).reshape(-1, 2, N_LIMBS),
-    ]
+def _miller_lanes(p, q, plain, cuda):
+    """A Miller loop over broadcast leading axes: P coordinates (..., 32),
+    Q coordinates (..., 2, 32) → (..., 2, 3, 2, 32), flattened to lanes
+    for `plain` (CPU tensors) or `cuda`. A scalar call runs as one lane."""
+    batch = fp.broadcast_shapes(*(x.shape[:-1] for x in p), *(x.shape[:-2] for x in q))
+    flat = [torch.broadcast_to(x, batch + (N_LIMBS,)).reshape(-1, N_LIMBS) for x in p]
+    flat += [torch.broadcast_to(x, batch + (2, N_LIMBS)).reshape(-1, 2, N_LIMBS) for x in q]
     if _on_cpu(*flat):
-        out = miller_loop_plain(*flat)
+        out = plain(*flat)
     else:
-        out = miller_loop_cuda(*(x.contiguous() for x in flat))
+        out = cuda(*(x.contiguous() for x in flat))
+    return out.reshape(batch + FP12_SHAPE)
+
+
+def miller_loop_kernel(p_aff, q_aff):
+    """The affine Miller loop: P (xp, yp) (..., 32), Q (xq, yq) (..., 2, 32)
+    → (..., 2, 3, 2, 32); a scalar call gets a unit batch axis inside, as
+    `pallas_tower.miller_loop_pallas` gives it."""
+    return _miller_lanes(p_aff, q_aff, miller_loop_plain, miller_loop_cuda)
+
+
+def miller_loop_proj_kernel(p_proj, q_proj):
+    """The projective Miller loop: P (xp, yp, zp) (..., 32), Q (xq, yq, zq)
+    (..., 2, 32) → (..., 2, 3, 2, 32)."""
+    return _miller_lanes(p_proj, q_proj, miller_loop_proj_plain, miller_loop_proj_cuda)
+
+
+def final_exp_kernel(fs):
+    """The final exponentiation of every lane of fs (..., 2, 3, 2, 32); a
+    single element gets a unit batch axis."""
+    batch = tuple(fs.shape[:-4])
+    flat = fs.reshape((-1,) + FP12_SHAPE)
+    if _on_cpu(flat):
+        out = final_exp_plain(flat)
+    else:
+        out = final_exp_cuda(flat.contiguous())
     return out.reshape(batch + FP12_SHAPE)
 
 
@@ -202,8 +290,8 @@ def _host():
 
     lib = tower_host()
     if lib.lodestar_tower_fp_muls.argtypes is None:
-        for name, n_ptr in (("lodestar_miller_host", 5), ("lodestar_pairing_host", 7),
-                            ("lodestar_final_exp_host", 2)):
+        for name, n_ptr in (("lodestar_miller_host", 5), ("lodestar_miller_proj_host", 7),
+                            ("lodestar_pairing_host", 7), ("lodestar_final_exp_host", 2)):
             fn = getattr(lib, name)
             fn.argtypes = [_VP] * n_ptr + [_LL]
             fn.restype = None
@@ -230,6 +318,12 @@ def miller_loop_host(xp, yp, xq, yq) -> np.ndarray:
     return _run_host("lodestar_miller_host", [xp, yp, xq, yq], int(np.shape(xp)[0]))
 
 
+def miller_loop_proj_host(xp, yp, zp, xq, yq, zq) -> np.ndarray:
+    """K2p's arithmetic on the CPU: (n, 32) ×3, (n, 2, 32) ×3 → (n, 2, 3, 2, 32)."""
+    return _run_host("lodestar_miller_proj_host", [xp, yp, zp, xq, yq, zq],
+                     int(np.shape(xp)[0]))
+
+
 def pairing_fused_host(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y) -> np.ndarray:
     """K3's arithmetic on the CPU: n sets → (n, 2, 3, 2, 32)."""
     return _run_host("lodestar_pairing_host", [pk_x, pk_y, msg_x, msg_y, sig_x, sig_y],
@@ -237,7 +331,7 @@ def pairing_fused_host(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y) -> np.ndarray:
 
 
 def final_exp_host(fs) -> np.ndarray:
-    """The kernels' final exponentiation on the CPU, per lane."""
+    """K3-fe's arithmetic (K3's tail) on the CPU, per lane."""
     return _run_host("lodestar_final_exp_host", [fs], int(np.shape(fs)[0]))
 
 
@@ -251,6 +345,11 @@ def fp_muls_per_lane() -> dict[str, int]:
     lib.lodestar_tower_fp_muls(1)
     miller_loop_host(zp, zp, zq, zq)
     miller = int(lib.lodestar_tower_fp_muls(1))
+    miller_loop_proj_host(zp, zp, zp, zq, zq, zq)
+    miller_proj = int(lib.lodestar_tower_fp_muls(1))
     pairing_fused_host(zp, zp, zq, zq, zq, zq)
     pairing = int(lib.lodestar_tower_fp_muls(1))
-    return {"miller_loop": miller, "pairing_fused": pairing}
+    final_exp_host(np.zeros((1,) + FP12_SHAPE, np.int32))
+    final_exp = int(lib.lodestar_tower_fp_muls(1))
+    return {"miller_loop": miller, "miller_loop_proj": miller_proj,
+            "pairing_fused": pairing, "final_exp": final_exp}

@@ -12,7 +12,13 @@ runs on the 5 set bits); the final exponentiation is the easy part
 `miller_loop` (affine P and Q) is the entry that the JAX package sends to
 its Pallas Miller kernel on a TPU; here it goes to K2
 (`cuda_tower.miller_loop_kernel`) for CUDA tensors and to the plain loop
-for CPU tensors. The projective forms always run the plain loop.
+for CPU tensors. `miller_loop_proj_pq` (P and Q projective, the batch
+verdicts' and the bisection tree's form, XLA in the JAX package) goes
+the same way to K2p (`cuda_tower.miller_loop_proj_kernel`), and the final
+exponentiation (`final_exponentiation_batch`, `final_exponentiation_one`,
+the per-lane `final_exponentiation`) to K3-fe
+(`cuda_tower.final_exp_kernel`). `miller_loop_projective` (projective P,
+affine Q) has no caller in the port and always runs the plain loop.
 """
 
 from __future__ import annotations
@@ -164,8 +170,11 @@ def miller_loop_proj_pq(p_proj, q_proj):
     """f = conj(f_{|x|,Q}(P)) for P = (Xp, Yp, Zp) ∈ G1 and Q = (Xq, Yq, Zq)
     ∈ G2, both homogeneous projective: equal after the final
     exponentiation to the affine loop up to Zp/Zq subfield scales. Lanes
-    with Zp = 0 or Zq = 0 give garbage; callers mask them."""
-    return _miller_loop_impl(*p_proj, *q_proj)
+    with Zp = 0 or Zq = 0 give garbage; callers mask them. CUDA tensors
+    run K2p, CPU tensors `_miller_loop_impl`."""
+    from .cuda_tower import miller_loop_proj_kernel
+
+    return miller_loop_proj_kernel(p_proj, q_proj)
 
 
 def _miller_loop_impl(xp, yp, zp, xq, yq, zq):
@@ -229,13 +238,27 @@ def _hard_part(f):
 
 def final_exponentiation(f):
     """Per-lane final exponentiation: the easy part with each lane's own
-    Fp12 inversion, then the HHT hard part (computes pairing³)."""
+    Fp12 inversion, then the HHT hard part (computes pairing³). CUDA
+    tensors run K3-fe, which inverts per lane too."""
+    from .cuda_tower import final_exp_kernel
+
+    if f.device.type != "cpu":
+        return final_exp_kernel(f)
     f = fp12.mul(fp12.conj(f), fp12.inv(f))  # f^(p⁶−1)
     f = fp12.mul(fp12.frobenius(f, 2), f)  # ^(p²+1): cyclotomic now
     return _hard_part(f)
 
 
 def final_exponentiation_batch(fs):
+    """Final exponentiation over axis 0: CUDA tensors run K3-fe (a Fermat
+    inversion per lane), CPU tensors `_final_exponentiation_batch_impl`;
+    the two give the same field elements."""
+    from .cuda_tower import final_exp_kernel
+
+    return final_exp_kernel(fs)
+
+
+def _final_exponentiation_batch_impl(fs):
     """Final exponentiation over axis 0 with the easy part's Fp12 inversion
     shared by the batch (`fp12.batch_inv`). Zero lanes are safe: they are
     swapped for the identity before the shared inversion and their inverse

@@ -12,11 +12,12 @@ kernel (`grouped_verify_kernel_raw` or `pk_grouped_verify_kernel_raw`)
 three ways:
 
 1. stages: host clock around each stage of the kernel with a CUDA
-   synchronise on both sides and the K1 and K4 launches in each stage;
+   synchronise on both sides and the K1, K4, K2p and K3-fe launches in
+   each stage;
    then, in a second pass, the PyTorch operations each dispatches;
 2. profiler: `torch.profiler` over one whole verdict — kernel time by
-   kernel and by PyTorch operation, K1's and K4's shares, and the device's
-   busy share of the (profiled) wall clock;
+   kernel and by PyTorch operation, K1's, K4's, K2p's and K3-fe's shares,
+   and the device's busy share of the (profiled) wall clock;
 3. the plain wall clock of one verdict with nothing attached.
 
 With `--lane-rule-ab` it measures instead the whole warm verdict
@@ -125,7 +126,7 @@ def main() -> int:
     out_path = args.out or (f"build/lodestar_tpu_torch/profile_{args.path}"
                             f"{'_ab' if args.lane_rule_ab else ''}.json")
 
-    from .ops import cuda_fp, cuda_mxu
+    from .ops import cuda_fp, cuda_mxu, cuda_tower
     from .parallel.verifier import (
         TorchBlsVerifier,
         _rand_pairs,
@@ -167,6 +168,11 @@ def main() -> int:
     # PyTorch operations dispatched (the counter slows the dispatch)
     stages: dict[str, dict] = {}
 
+    def launches():
+        return {"k1_launches": cuda_fp.LAUNCHES, "k4_launches": cuda_mxu.LAUNCHES,
+                "k2p_launches": cuda_tower.MILLER_PROJ_LAUNCHES,
+                "k3fe_launches": cuda_tower.FINAL_EXP_LAUNCHES}
+
     class Stage:
         count = False
 
@@ -176,7 +182,7 @@ def main() -> int:
 
         def __enter__(self):
             torch.cuda.synchronize()
-            self.launches = (cuda_fp.LAUNCHES, cuda_mxu.LAUNCHES)
+            self.launches = launches()
             if self.count:
                 self.counter.__enter__()
             self.t0 = time.perf_counter()
@@ -190,8 +196,7 @@ def main() -> int:
                 row["torch_ops"] = self.counter.ops
             else:
                 row["seconds"] = secs
-                row["k1_launches"] = cuda_fp.LAUNCHES - self.launches[0]
-                row["k4_launches"] = cuda_mxu.LAUNCHES - self.launches[1]
+                row.update({k: n - self.launches[k] for k, n in launches().items()})
 
     class CountingStage(Stage):
         count = True
@@ -205,7 +210,8 @@ def main() -> int:
     report["stages"] = stages
     for name, row in stages.items():
         print(f"stage {name}: {row['seconds']:.4f} s, {row['torch_ops']} torch ops, "
-              f"{row['k1_launches']} K1 and {row['k4_launches']} K4 launches", flush=True)
+              f"{row['k1_launches']} K1, {row['k4_launches']} K4, {row['k2p_launches']} K2p "
+              f"and {row['k3fe_launches']} K3-fe launches", flush=True)
 
     # 2. the profiler over one verdict
     from torch.autograd import DeviceType
@@ -228,10 +234,14 @@ def main() -> int:
     total_dev_us = sum(device_us(e) for e in kernels)
     k1_us = sum(device_us(e) for e in kernels if "mont_mul_kernel" in e.key)
     k4_us = sum(device_us(e) for e in kernels if "mxu_mont_kernel" in e.key)
+    k2p_us = sum(device_us(e) for e in kernels if "miller_proj_kernel" in e.key)
+    k3fe_us = sum(device_us(e) for e in kernels if "final_exp_kernel" in e.key)
     report["profiled_wall_s"] = prof_wall
     report["device_time_s"] = total_dev_us / 1e6
     report["k1_device_time_s"] = k1_us / 1e6
     report["k4_device_time_s"] = k4_us / 1e6
+    report["k2p_device_time_s"] = k2p_us / 1e6
+    report["k3fe_device_time_s"] = k3fe_us / 1e6
     report["device_busy_share"] = total_dev_us / 1e6 / prof_wall
     report["top_kernels"] = [
         {"name": e.key, "device_ms": device_us(e) / 1e3, "calls": e.count}
@@ -244,7 +254,8 @@ def main() -> int:
     ]
     print(f"profiled verdict: wall {prof_wall:.3f} s, kernel time "
           f"{total_dev_us / 1e6:.3f} s in {sum(e.count for e in kernels)} launches "
-          f"(K1 {k1_us / 1e6:.4f} s, K4 {k4_us / 1e6:.4f} s), busy share {report['device_busy_share']:.4f}",
+          f"(K1 {k1_us / 1e6:.4f} s, K4 {k4_us / 1e6:.4f} s, K2p {k2p_us / 1e6:.4f} s, "
+          f"K3-fe {k3fe_us / 1e6:.4f} s), busy share {report['device_busy_share']:.4f}",
           flush=True)
     for title in ("top_kernels", "top_ops"):
         print(title + ":", flush=True)
