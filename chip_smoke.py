@@ -22,6 +22,20 @@ Phases (any failure raises and the script exits non-zero):
           4096 products) and at 4096, 4097 (a partial warp tile), 8,192,
           65,536, 262,144 and 589,824 products; the device and call times
           of K4 and K1 and the plain version's time beside K4's bound.
+4a. fe    K3-fe, the final exponentiation with one warp per lane (before
+          any other tower kernel, so that its first-launch memory is its
+          own), against `final_exp_plain` (the batch form, one shared
+          inversion) at 1, 16 (the bisection's probe) and 256 lanes of
+          random Fp12 values in [0, 2p), with a zero lane and an identity
+          lane from 16 lanes up: equal canonical values, zero to zero, the
+          identity to one; ptxas's registers, shared memory, stack and
+          spills of `final_exp_warp_kernel`, the device memory its first
+          launch takes (no stack limit is raised for it), its device time
+          (CUDA-graph replay) and call time, the plain version's time, the
+          bound (the fewest Fp multiplies the function needs per lane,
+          from the host build; the schedule's own count is reported
+          beside it) and the time per dependent round (the host build's
+          count of rounds).
 5. k2     K2, the affine Miller loop, against `miller_loop_plain` on G1
           pubkeys and H(m) points made with the host tier plus one all-zero
           lane, at 8 and 256 lanes (the 2 × 128 Miller lanes of a 128-set
@@ -40,12 +54,6 @@ Phases (any failure raises and the script exits non-zero):
           lane 0 with Zp = 0 and lane 1 with Zq = 0 must only not fault and
           are left out of the comparison. Equal canonical values (tolerance
           0), times, bound and first-launch memory as for K2.
-6b. fe    K3-fe, the final exponentiation per lane, against `final_exp_plain`
-          (the batch form, one shared inversion) at 1, 16 (the bisection's
-          probe) and 256 lanes of random Fp12 values in [0, 2p), with a
-          zero lane and an identity lane from 16 lanes up: equal canonical
-          values, zero to zero, the identity to one; times, bound and
-          first-launch memory.
 7. slice  4096 signature sets over 64 signing roots (one slot of mainnet
           attestation gossip) made from a fixed seed with the host tier,
           verified by `TorchBlsVerifier` at the (64, 64) configuration:
@@ -87,7 +95,9 @@ paths ran.
           (`call_ms`) per launch over the product counts that their
           main-path verdict gave them (the grouped (64, 64) verdict for K1,
           the pk-grouped one for K4), each count timed anew. K2p's entry
-          is timed at 192 lanes and K3-fe's at 1, their main-path shapes.
+          is timed at 192 lanes and K3-fe's at 1, their main-path shapes;
+          K3-fe's also gives its call time, rounds, µs per round and its
+          schedule's Fp multiplies per lane.
 """
 
 from __future__ import annotations
@@ -714,21 +724,38 @@ def _fp12_inputs(np, n: int, seed: int):
     return fs
 
 
-def phase_fe(torch, np, muls: int):
+def _fe_ptxas(ptxas: dict) -> dict:
+    """ptxas's figures for K3-fe's kernel (registers, shared memory, stack
+    frame, spill stores and loads)."""
+    for name, figs in ptxas.items():
+        if "final_exp_warp_kernel" in name:
+            return figs
+    raise AssertionError("ptxas reported no figures for final_exp_warp_kernel")
+
+
+def phase_fe(torch, np, muls: dict, ptxas: dict):
     """K3-fe against its plain version; returns (max_err, {lanes: row})."""
     from lodestar_tpu_torch.ops import cuda_tower, fp12
 
+    figs = _fe_ptxas(ptxas)
+    rounds = muls["final_exp_warp_rounds"]
+    log(f"[fe] final_exp_warp_kernel: {figs.get('registers')} registers, "
+        f"{figs.get('smem')} B shared, {figs.get('stack')} B stack frame, "
+        f"{figs.get('spill_stores')} B spill stores, {figs.get('spill_loads')} B spill loads; "
+        f"{muls['final_exp_warp']} Fp multiplies and {rounds} dependent rounds per lane in "
+        f"its schedule, {muls['final_exp_fewest']} the fewest the function needs (the "
+        f"bound's count; host counts)")
     dev = torch.device("cuda")
     max_err = 0
     rows = {}
-    stack_bytes = None
+    first_bytes = None
     for n in FE_LANES:
         fs = torch.as_tensor(_fp12_inputs(np, n, SEED + 40 + n)).to(dev)
         got, taken = _device_bytes_taken(torch, lambda: cuda_tower.final_exp_cuda(fs))
-        if stack_bytes is None:
-            stack_bytes = taken
-            log(f"[fe] first launch took {taken} B more device memory "
-                f"({taken / 2**20:.1f} MiB) for the stack limit, after K2's, K3's and K2p's")
+        if first_bytes is None:
+            first_bytes = taken
+            log(f"[fe] first launch took {taken} B of device memory "
+                f"({taken / 2**20:.1f} MiB), before any other tower kernel ran")
         want = cuda_tower.final_exp_plain(fs)
         torch.cuda.synchronize()
         err = _canonical_err(torch, got, want)
@@ -737,14 +764,18 @@ def phase_fe(torch, np, muls: int):
             raise AssertionError(f"K3-fe differs from its plain version at {n} lanes")
         if n >= 16 and not (bool((got[1] == 0).all()) and bool(fp12.is_one(got[2]))):
             raise AssertionError("K3-fe: the zero lane or the identity lane went astray")
-        ms = _event_ms(torch, lambda: cuda_tower.final_exp_cuda(fs), 5)
+        ms = _device_ms(torch, lambda: cuda_tower.final_exp_cuda(fs), 20)
+        call_ms = _time_ms(torch, lambda: cuda_tower.final_exp_cuda(fs), 20)
         plain_ms = _event_ms(torch, lambda: cuda_tower.final_exp_plain(fs))
-        bound_ms, bound_by = _bound(muls, FE_BYTES_PER_LANE, n)
-        rows[n] = dict(lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, stack_bytes=stack_bytes)
+        bound_ms, bound_by = _bound(muls["final_exp_fewest"], FE_BYTES_PER_LANE, n)
+        rows[n] = dict(lanes=n, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, rounds=rounds, us_per_round=ms * 1e3 / rounds,
+                       schedule_fp_muls=muls["final_exp_warp"],
+                       first_launch_bytes=first_bytes, ptxas=figs)
         log(f"[fe] lanes={n} match=canonical{' (zero and identity lanes held)' if n >= 16 else ''} "
-            f"ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({bound_by}) "
-            f"share_of_bound={bound_ms / ms:.6f}")
+            f"device_ms={ms:.6f} call_ms={call_ms:.6f} plain_ms={plain_ms:.6f} "
+            f"bound_ms={bound_ms:.8f} ({bound_by}) share_of_bound={bound_ms / ms:.6f} "
+            f"us_per_round={ms * 1e3 / rounds:.4f}")
     return max_err, rows
 
 
@@ -1160,11 +1191,11 @@ def main() -> int:
     log(f"[build] Fp multiplies per lane (host harness): {json.dumps(muls)}")
     max_err = phase_k1(torch, np)
     k4_err, k4_rows = phase_k4(torch, np)
+    fe_err, fe_rows = phase_fe(torch, np, muls, ptxas)
     k2_err, k2_row = phase_k2(torch, np, muls["miller_loop"])
     sets, host_ok, bad, host_bad = per_set_batches(np)
     k3_err, k3_row = phase_k3(torch, np, muls["pairing_fused"], bad, host_bad)
     k2p_err, k2p_row = phase_k2p(torch, np, muls["miller_loop_proj"])
-    fe_err, fe_rows = phase_fe(torch, np, muls["final_exp"])
     grouped_counts, wall, n_sets, grouped_products = phase_slice(torch, np, 64, 64)
     log(f"[slice] main path (64, 64): {wall:.3f} s per {n_sets}-set verdict, "
         f"{n_sets / wall:.1f} sets/s, launches per verdict {json.dumps(grouped_counts)}")
@@ -1184,12 +1215,11 @@ def main() -> int:
         f"{per_set['c']['seconds']:.6f} s; script {time.perf_counter() - t_start:.1f} s")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k4 and k1 by products (device and call ms): {json.dumps(k4_rows)}")
-    stack = (k2_row["stack_bytes"] + k3_row["stack_bytes"] + k2p_row["stack_bytes"]
-             + fe_rows[FE_LANES[0]]["stack_bytes"])
+    stack = k2_row["stack_bytes"] + k3_row["stack_bytes"] + k2p_row["stack_bytes"]
     log(f"[summary] device memory held by the raised stack limit: {stack} B "
         f"({stack / 2**30:.3f} GiB; K2 {k2_row['stack_bytes']} B, then K3 "
-        f"{k3_row['stack_bytes']} B, K2p {k2p_row['stack_bytes']} B and K3-fe "
-        f"{fe_rows[FE_LANES[0]]['stack_bytes']} B more)")
+        f"{k3_row['stack_bytes']} B and K2p {k2p_row['stack_bytes']} B more); K3-fe's "
+        f"first launch, before them, took {fe_rows[FE_LANES[0]]['first_launch_bytes']} B")
     log(f"[summary] k3-fe by lanes: {json.dumps(fe_rows)}")
 
     from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu
@@ -1263,6 +1293,10 @@ def main() -> int:
             "launches": grouped_counts["K3-fe"],
             "max_abs_err": fe_err,
             "ms": fe_rows[1]["ms"],
+            "call_ms": fe_rows[1]["call_ms"],
+            "rounds": fe_rows[1]["rounds"],
+            "us_per_round": fe_rows[1]["us_per_round"],
+            "schedule_fp_muls": fe_rows[1]["schedule_fp_muls"],
             "plain_ms": fe_rows[1]["plain_ms"],
             "bound_ms": fe_rows[1]["bound_ms"],
             "bound_by": fe_rows[1]["bound_by"],

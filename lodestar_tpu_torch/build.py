@@ -12,10 +12,14 @@ with `ctypes` (no Python or PyTorch headers, so a build takes seconds).
 - `mont_mul_host()`: the K1 arithmetic header built for the host with
   `c++`, for the CPU tests.
 - `mont_mul_cuda()`: kernel K1 for sm_90a with `nvcc`.
-- `tower_host()`: the K2/K3 arithmetic header (`tower.cuh`) built for the
-  host with `c++`, for the CPU tests and the kernels' operation count.
-- `tower_cuda()`: kernels K2 and K3 (`tower.cu`) for sm_90a with `nvcc`;
+- `tower_host()`: the K2/K3 arithmetic headers (`tower.cuh`, and
+  `tower_warp.cuh` with its warp emulated) built for the host with `c++`,
+  for the CPU tests and the kernels' operation and round counts.
+- `tower_cuda()`: kernels K2, K2p, K3 and K3-fe (`tower.cu`) for sm_90a with `nvcc`;
   `BUILD_LOG["tower"]` keeps ptxas's registers, stack and spills.
+- `fe_probe_cuda()`: a probe of K3-fe's schedule (`fe_probe.cu`: cycles
+  by operation on one lane) for sm_90a with `nvcc`; not on the port's
+  path, built only by `python3 -m lodestar_tpu_torch.profile_fe`.
 - `mxu_host()`: the K4 arithmetic header (`mxu_mont.cuh`) built for the
   host with `c++`, its MMA emulated, for the CPU tests.
 - `mxu_cuda()`: kernel K4 (`mxu_mont.cu`) for sm_90a with `nvcc`;
@@ -138,7 +142,7 @@ def mont_mul_cuda() -> ctypes.CDLL:
     ))
 
 
-TOWER_HEADERS = ["tower.cuh", "tower_consts.cuh", "fp_mont.cuh"]
+TOWER_HEADERS = ["tower.cuh", "tower_warp.cuh", "tower_consts.cuh", "fp_mont.cuh"]
 
 
 def tower_host() -> ctypes.CDLL:
@@ -152,6 +156,12 @@ def tower_host() -> ctypes.CDLL:
 def tower_cuda() -> ctypes.CDLL:
     return _load("tower", lambda: build_shared(
         "tower", find_nvcc(), NVCC_FLAGS, ["tower.cu"], TOWER_HEADERS,
+    ))
+
+
+def fe_probe_cuda() -> ctypes.CDLL:
+    return _load("fe_probe", lambda: build_shared(
+        "fe_probe", find_nvcc(), NVCC_FLAGS, ["fe_probe.cu"], TOWER_HEADERS,
     ))
 
 

@@ -24,37 +24,49 @@
 // Q homogeneous projective, the tangent's l0 scaled by Zp and the chord
 // through projective Q, every line scaled as the plain loop scales it.
 //
-// K3-fe (`final_exp_kernel`) is K3's tail alone: the final exponentiation
-// of one Fp12 lane per thread (pairing.final_exponentiation_batch, JAX
-// lodestar_tpu/ops/pairing.py:343), the easy part's inversion by Fermat
-// per thread as in K3, so it equals the batch form by canonical value.
+// K2, K2p and K3 are one thread per lane over tower.cuh (fully reduced
+// 12 x 32-bit words, CIOS multiply), which tower_host.cpp also builds for
+// the CPU tests. One K2 lane runs 8,282 Fp multiplies, one K2p lane 8,493
+// and one K3 set 22,629 (counted by the host build), each about 576 32-bit
+// integer operations, against at most 2.8 KB in and out per lane: the byte
+// bound is two orders of magnitude below the operation bound. Their tower
+// functions are real calls (__noinline__), so the working set lives on the
+// stack, and `ensure_stack` raises the device-wide stack limit before the
+// launch. That leaves most of the card idle at the path's sizes and
+// serialises every lane's multiplies on one thread's latency.
 //
-// The arithmetic lives in tower.cuh (fully reduced 12 x 32-bit words, CIOS
-// multiply), which tower_host.cpp also builds for the CPU tests.
-//
-// What bounds them on this card: operations. One K2 lane runs 8,282 Fp
-// multiplies and one K3 set 22,629 (counted by the host build), each about
-// 576 32-bit integer operations, against 768 B in and 1,536 B out per K2
-// lane and 1,280 B in per K3 set: the byte bound is about two orders of
-// magnitude below the operation bound. K2p and K3-fe are the same: 8,493
-// and 8,333 multiplies per lane against 1,152 B in and 1,536 B out per K2p
-// lane and 1,536 B each way per K3-fe lane.
-//
-// Design, and what it leaves on the table: one thread per lane, blocks of
-// 32 threads so that a few hundred lanes spread over several SMs. The loop
-// runs inside the thread with the Fp12 accumulator, the ladder point and
-// the lines in local memory; tower functions are real calls (__noinline__),
-// so the working set lives on the stack. That leaves most of the card idle
-// at the path's sizes (256 lanes are 8 warps on 132 SMs), serialises every
-// lane's ~8-23 k multiplies on one thread's latency, and pays local-memory
-// traffic on every tower step. The redesign is a warp or a block per lane
-// (coefficients of the Fp12 spread over threads) with the accumulator in
-// registers or shared memory.
+// K3-fe (`final_exp_warp_kernel`) is K3's tail in the main path's form:
+// the final exponentiation of one Fp12 lane (pairing.final_exponentiation_batch,
+// JAX lodestar_tpu/ops/pairing.py:343) per WARP, over tower_warp.cuh.
+// - What bounds it: the dependent rounds, not the card's operation rate.
+//   A lane needs 7,724 Fp multiplies (the schedule runs 10,562), under
+//   0.1 us of the card's int32 rate, but they form a chain: 315 cyclotomic squarings and 35 Fp12 products
+//   one after the other, plus the easy part's inversion. The batch
+//   verdicts exponentiate one product per verdict, so there is one lane to
+//   run, and its time is the rounds times the time of one round.
+// - What the design does: one warp per lane (blocks of 1-4 warps), the
+//   lane's Fp12 values in shared memory, every tower operation split into
+//   phases in which each thread does at most one register-resident Fp
+//   multiply: a cyclotomic squaring is one round of 27 products, an Fp12
+//   product two rounds of 54, 398 rounds in all. Nothing on the path is a
+//   call (no stack, no `ensure_stack`, nothing in local memory), and the
+//   easy part's one Fp inversion is a variable-time binary extended Euclid
+//   on thread 0 instead of Fermat's chain of 610 dependent
+//   multiplies. It equals the batch form, which shares one inversion, by
+//   canonical value.
+// - What it leaves: a round is one thread's serial 12 x 12-word FIOS plus
+//   the additions around it, issued by one warp on one of the SM's four
+//   schedulers. A limb-parallel multiply (several threads, on several
+//   warps, per product, carries exchanged through shared memory or
+//   shuffles) would shorten the round. The integer tensor cores (`wgmma`)
+//   have no use here: a round is a few dozen independent 384-bit products,
+//   not a matrix product.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tower.cuh"
+#include "tower_warp.cuh"
 
 namespace {
 
@@ -91,16 +103,33 @@ miller_proj_kernel(const int32_t* __restrict__ xp, const int32_t* __restrict__ y
                        zq + 64 * i, out + 384 * i);
 }
 
-__global__ void __launch_bounds__(kThreads)
-final_exp_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  tw::final_exp_lane(in + 384 * i, out + 384 * i);
+// The warp of tower_warp.cuh's phases on the card: every thread runs the
+// phase for its lane index, then the warp synchronises, which also orders
+// the phase's shared-memory writes before the next phase's reads.
+struct DeviceWarp {
+  int tid;
+  template <class F>
+  __device__ __forceinline__ void phase(F&& f) const {
+    f(tid);
+    __syncwarp();
+  }
+};
+
+constexpr int kFeWarps = 4;  // the most warps (lanes) per K3-fe block
+
+__global__ void __launch_bounds__(32 * kFeWarps)
+final_exp_warp_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long n) {
+  __shared__ __align__(16) uint32_t slots[kFeWarps][tww::kSlotWords];
+  const int warp = threadIdx.x >> 5;
+  const long long i = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (i >= n) return;  // the whole warp: nothing below waits on another warp
+  DeviceWarp w{(int)(threadIdx.x & 31)};
+  tww::final_exp_warp(w, slots[warp], in + 384 * i, out + 384 * i);
 }
 
-// The tower functions are calls, so each thread needs a stack as deep as
-// the deepest call chain (several Fp12 values per frame). Raise the
-// per-thread stack limit to what the kernel reports, never lower it.
+// K2, K2p and K3's tower functions are calls, so each thread needs a stack
+// as deep as the deepest call chain (several Fp12 values per frame). Raise
+// the per-thread stack limit to what the kernel reports, never lower it.
 template <typename K>
 int ensure_stack(K kernel) {
   cudaFuncAttributes attr;
@@ -117,6 +146,24 @@ int ensure_stack(K kernel) {
 }
 
 unsigned grid_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+constexpr int kMaxDevices = 64;
+
+// the SMs of the current device, read once per device
+int sm_count(int& sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  static int cache[kMaxDevices];
+  if (dev < kMaxDevices && cache[dev] > 0) {
+    sms = cache[dev];
+    return 0;
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices) cache[dev] = sms;
+  return 0;
+}
 
 }  // namespace
 
@@ -163,12 +210,17 @@ extern "C" int lodestar_miller_proj(const int32_t* xp, const int32_t* yp, const 
 }
 
 // K3-fe: out[i] = the final exponentiation of in[i] for n (2, 3, 2, 32)
-// int32 limb lanes; canonical limbs out, on `stream`. Returns the CUDA
-// error of the launch.
+// int32 limb lanes; canonical limbs out, on `stream`. One warp per lane;
+// blocks of as many warps as spread the lanes over the device's SMs, at
+// most 4. Returns the CUDA error of the launch.
 extern "C" int lodestar_final_exp(const int32_t* in, int32_t* out, long long n, void* stream) {
   if (n <= 0) return 0;
-  const int rc = ensure_stack(final_exp_kernel);
+  int sms = 0;
+  const int rc = sm_count(sms);
   if (rc != 0) return rc;
-  final_exp_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(in, out, n);
+  long long warps = (n + sms - 1) / sms;
+  if (warps > kFeWarps) warps = kFeWarps;
+  const unsigned blocks = (unsigned)((n + warps - 1) / warps);
+  final_exp_warp_kernel<<<blocks, 32 * (unsigned)warps, 0, (cudaStream_t)stream>>>(in, out, n);
   return (int)cudaGetLastError();
 }

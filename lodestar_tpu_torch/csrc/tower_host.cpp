@@ -1,7 +1,9 @@
-// Host build of the tower kernels' arithmetic (tower.cuh) with a plain C
-// interface, so that the CPU tests hold the exact code of K2, K2p, K3 and
-// K3-fe against the plain PyTorch versions without a GPU, and so that the
-// operation bound of the kernels can be counted: this build alone defines TOWER_COUNT_MULS.
+// Host build of the tower kernels' arithmetic (tower.cuh, tower_warp.cuh)
+// with a plain C interface, so that the CPU tests hold the exact code of K2,
+// K2p, K3 and K3-fe against the plain PyTorch versions without a GPU, and so
+// that the operation bound of the kernels can be counted: this build alone
+// defines TOWER_COUNT_MULS. K3-fe's warp is emulated: each phase runs its
+// 32 threads one after the other, in either order.
 // Build:
 //   c++ -O2 -std=c++17 -shared -fPIC -o libtower_host.so tower_host.cpp
 #include <stdint.h>
@@ -10,6 +12,34 @@
 unsigned long long tw_fp_muls = 0;
 
 #include "tower.cuh"
+#include "tower_warp.cuh"
+
+// over the warp-emulated lanes since the last reset: phases, rounds (the
+// most multiplies one thread did in a phase, summed over the phases) and
+// phases in which a thread multiplied more than once
+unsigned long long tw_warp_phases = 0, tw_warp_rounds = 0, tw_warp_overfull = 0;
+
+namespace {
+
+// K3-fe's warp on the host: phase f runs for tid 0..31, or 31..0
+struct HostWarp {
+  bool reverse;
+  template <class F>
+  void phase(F&& f) {
+    unsigned long long most = 0;
+    for (int k = 0; k < 32; k++) {
+      const unsigned long long before = tw_fp_muls;
+      f(reverse ? 31 - k : k);
+      const unsigned long long muls = tw_fp_muls - before;
+      if (muls > most) most = muls;
+    }
+    tw_warp_phases++;
+    tw_warp_rounds += most;
+    if (most > 1) tw_warp_overfull++;
+  }
+};
+
+}  // namespace
 
 // K2 on the host: n lanes of (32,) xp, yp and (2, 32) xq, yq limbs ->
 // (n, 2, 3, 2, 32) canonical limbs.
@@ -47,6 +77,58 @@ extern "C" void lodestar_pairing_host(const int32_t* pk_x, const int32_t* pk_y,
 extern "C" void lodestar_final_exp_host(const int32_t* in, int32_t* out,
                                         long long n) {
   for (long long i = 0; i < n; i++) tw::final_exp_lane(in + 384 * i, out + 384 * i);
+}
+
+// K3-fe on the host, the warp emulated in thread order 0..31 (reverse = 0)
+// or 31..0: the final exponentiation of n (2, 3, 2, 32) lanes. The slot
+// buffer starts filled with a pattern that depends on the order, so a read
+// of a slot before it is written shows as a difference between the orders.
+extern "C" void lodestar_final_exp_warp_host(const int32_t* in, int32_t* out,
+                                             long long n, int reverse) {
+  uint32_t slots[tww::kSlotWords];
+  for (long long i = 0; i < n; i++) {
+    for (int k = 0; k < tww::kSlotWords; k++) slots[k] = reverse ? 0xffffffffu : 0x5a5a5a5au;
+    HostWarp w{reverse != 0};
+    tww::final_exp_warp(w, slots, in + 384 * i, out + 384 * i);
+  }
+}
+
+// n (32,) limb values -> their inverses as canonical limbs: the Euclid
+// inverse of tower_warp.cuh (euclid = 1) or tower.cuh's Fermat fp_inv
+extern "C" void lodestar_fp_inv_host(const int32_t* in, int32_t* out, long long n,
+                                     int euclid) {
+  for (long long i = 0; i < n; i++) {
+    tw::Fp a, r;
+    tw::load_fp(a, in + 32 * i);
+    if (euclid) {
+      tww::fp_inv_euclid(r, a);
+    } else {
+      tw::fp_inv(r, a);
+    }
+    tw::store_fp(out + 32 * i, r);
+  }
+}
+
+// n products of (32,) limb values (reduced first) by K3-fe's FIOS multiply
+// -> canonical limbs
+extern "C" void lodestar_fp_mul_host(const int32_t* a, const int32_t* b, int32_t* out,
+                                     long long n) {
+  for (long long i = 0; i < n; i++) {
+    tw::Fp x, y, r;
+    tw::load_fp(x, a + 32 * i);
+    tw::load_fp(y, b + 32 * i);
+    tww::mul(r, x, y);
+    tw::store_fp(out + 32 * i, r);
+  }
+}
+
+// (phases, rounds, overfull phases) of the warp-emulated lanes since the
+// last reset
+extern "C" void lodestar_tower_warp_stats(unsigned long long* out, int reset) {
+  out[0] = tw_warp_phases;
+  out[1] = tw_warp_rounds;
+  out[2] = tw_warp_overfull;
+  if (reset) tw_warp_phases = tw_warp_rounds = tw_warp_overfull = 0;
 }
 
 // Fp multiplies since the last reset (the operation count of the bound).

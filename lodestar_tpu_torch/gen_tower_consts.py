@@ -47,6 +47,7 @@ def constants() -> dict[str, object]:
         "g1_x": _mont(gen[0].n),
         "g1_neg_y": _mont((-gen[1]).n),
         "p_minus_2": _words(P - 2),
+        "r3": _words(pow(2, 3 * 384, P)),
         "gamma": gamma,
     }
 
@@ -74,6 +75,9 @@ def render() -> str:
         _fn("g1_neg_y", "uint32_t w[12]", _assign("w", c["g1_neg_y"])),
         "// p - 2, a plain integer: the Fermat exponent of the Fp inverse",
         _fn("p_minus_2", "uint32_t w[12]", _assign("w", c["p_minus_2"])),
+        "// R^3 mod p, a plain integer: one Montgomery multiply by it turns the",
+        "// plain inverse (aR)^-1 of a Montgomery value aR into a^-1 R",
+        _fn("r3", "uint32_t w[12]", _assign("w", c["r3"])),
     ]
     cases = []
     for k in range(3):
@@ -91,6 +95,14 @@ def render() -> str:
         "      for (int j = 0; j < 12; j++) c0[j] = c1[j] = 0;",
         "  }",
         "}",
+        "",
+        "// the same gamma_i^(k) as one table of words, [k - 1][i][c0, c1][word], for",
+        "// code that indexes them at run time (tower_warp.cuh)",
+        "#define TW_GAMMA_WORDS \\",
+        "  { \\",
+        *[f"    {', '.join(f'0x{w:08x}u' for w in c['gamma'][k][i][h])}, \\"
+          for k in range(3) for i in range(6) for h in range(2)],
+        "  }",
         "",
         "}  // namespace consts",
         "}  // namespace tw",

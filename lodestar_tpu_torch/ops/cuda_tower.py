@@ -17,7 +17,8 @@ versions and their host builds.
 - `final_exp_kernel` is K3's tail alone, the final exponentiation per lane
   (`pairing.final_exponentiation_batch`, `final_exponentiation_one` and
   the per-lane `final_exponentiation`). On CUDA tensors it launches
-  `final_exp_kernel` (K3-fe) or raises; on CPU tensors it runs
+  `final_exp_warp_kernel` (K3-fe: one warp per lane over
+  `csrc/tower_warp.cuh`) or raises; on CPU tensors it runs
   `final_exp_plain`, the batch form with one shared inversion.
 - `pairing_fused` replaces `ops/pallas_tower.py::_pairing_tiles` (reached
   through `individual_verify_kernel` when `LODESTAR_TPU_PALLAS_PAIRING`
@@ -35,9 +36,12 @@ which gives the same field element. `MILLER_LAUNCHES`,
 kernel launches (not plain calls), so a run can show that its path went
 through the kernels.
 
-The `*_host` functions run the kernels' own arithmetic (`csrc/tower.cuh`)
-built for the CPU (`build.tower_host`), for the tests and for the
-operation count of the kernels' bound (`fp_muls_per_lane`).
+The `*_host` functions run the kernels' own arithmetic (`csrc/tower.cuh`,
+`csrc/tower_warp.cuh`) built for the CPU (`build.tower_host`), for the
+tests and for the operation and round counts of the kernels' bound
+(`fp_muls_per_lane`). `final_exp_host` is the one-thread final
+exponentiation that K3 runs; `final_exp_warp_host` is K3-fe's, its warp
+emulated one thread after another in either order.
 """
 
 from __future__ import annotations
@@ -295,6 +299,14 @@ def _host():
             fn = getattr(lib, name)
             fn.argtypes = [_VP] * n_ptr + [_LL]
             fn.restype = None
+        lib.lodestar_final_exp_warp_host.argtypes = [_VP, _VP, _LL, ctypes.c_int]
+        lib.lodestar_final_exp_warp_host.restype = None
+        lib.lodestar_fp_inv_host.argtypes = [_VP, _VP, _LL, ctypes.c_int]
+        lib.lodestar_fp_inv_host.restype = None
+        lib.lodestar_fp_mul_host.argtypes = [_VP, _VP, _VP, _LL]
+        lib.lodestar_fp_mul_host.restype = None
+        lib.lodestar_tower_warp_stats.argtypes = [_VP, ctypes.c_int]
+        lib.lodestar_tower_warp_stats.restype = None
         lib.lodestar_tower_fp_muls.argtypes = [ctypes.c_int]
         lib.lodestar_tower_fp_muls.restype = ctypes.c_ulonglong
     return lib
@@ -335,10 +347,56 @@ def final_exp_host(fs) -> np.ndarray:
     return _run_host("lodestar_final_exp_host", [fs], int(np.shape(fs)[0]))
 
 
+def final_exp_warp_host(fs, reverse: bool = False) -> np.ndarray:
+    """K3-fe's arithmetic on the CPU, per lane, its warp emulated: each
+    phase runs thread 0..31 in turn, or 31..0 with `reverse`."""
+    a = _np(fs)
+    n = int(a.shape[0])
+    out = np.zeros((n,) + FP12_SHAPE, np.int32)
+    _host().lodestar_final_exp_warp_host(a.ctypes.data, out.ctypes.data, n, int(reverse))
+    return out
+
+
+def fp_inv_host(x, euclid: bool = True) -> np.ndarray:
+    """(n, 32) limbs → their Fp inverses as canonical limbs (0 → 0): K3-fe's
+    binary extended Euclid, or with `euclid=False` the one-thread tower's
+    Fermat inverse."""
+    a = _np(x)
+    out = np.zeros_like(a)
+    _host().lodestar_fp_inv_host(a.ctypes.data, out.ctypes.data, int(a.shape[0]), int(euclid))
+    return out
+
+
+def fp_mul_host(a, b) -> np.ndarray:
+    """(n, 32) limbs a, b → a·b·R⁻¹ mod p as canonical limbs (inputs
+    reduced first), by K3-fe's FIOS multiply."""
+    x, y = _np(a), _np(b)
+    out = np.zeros_like(x)
+    _host().lodestar_fp_mul_host(x.ctypes.data, y.ctypes.data, out.ctypes.data,
+                                 int(x.shape[0]))
+    return out
+
+
+def warp_stats(reset: bool = True) -> dict[str, int]:
+    """Over the warp-emulated lanes since the last reset: phases, rounds
+    (the most Fp multiplies one thread did in a phase, summed over the
+    phases: the dependent multiplies of a lane) and the phases in which a
+    thread multiplied more than once (0 by design)."""
+    out = (ctypes.c_ulonglong * 3)()
+    _host().lodestar_tower_warp_stats(out, int(reset))
+    return {"phases": int(out[0]), "rounds": int(out[1]), "overfull": int(out[2])}
+
+
 def fp_muls_per_lane() -> dict[str, int]:
     """Fp multiplies one lane of each kernel runs (data-independent: the
-    loops follow the fixed bits of |x| and of p − 2), counted on the host
-    build over one all-zero lane."""
+    loops follow the fixed bits of |x| and of p − 2, and the Euclid inverse
+    makes none but its last), counted on the host build over one all-zero
+    lane. `final_exp_warp` is K3-fe's schedule and `final_exp_warp_rounds`
+    its dependent rounds per lane; `final_exp_fewest` is the fewest that
+    the final exponentiation needs among the repo's schedules, the count
+    of K3-fe's bound: the one-thread lane (`final_exp`, 18 products per
+    cyclotomic squaring) with its Fermat inverse replaced by the Euclid
+    inverse."""
     lib = _host()
     zp = np.zeros((1, N_LIMBS), np.int32)
     zq = np.zeros((1, 2, N_LIMBS), np.int32)
@@ -351,5 +409,15 @@ def fp_muls_per_lane() -> dict[str, int]:
     pairing = int(lib.lodestar_tower_fp_muls(1))
     final_exp_host(np.zeros((1,) + FP12_SHAPE, np.int32))
     final_exp = int(lib.lodestar_tower_fp_muls(1))
+    warp_stats(reset=True)
+    final_exp_warp_host(np.zeros((1,) + FP12_SHAPE, np.int32))
+    final_exp_warp = int(lib.lodestar_tower_fp_muls(1))
+    rounds = warp_stats(reset=True)["rounds"]
+    fp_inv_host(zp, euclid=False)
+    fermat = int(lib.lodestar_tower_fp_muls(1))
+    fp_inv_host(zp, euclid=True)
+    euclid = int(lib.lodestar_tower_fp_muls(1))
     return {"miller_loop": miller, "miller_loop_proj": miller_proj,
-            "pairing_fused": pairing, "final_exp": final_exp}
+            "pairing_fused": pairing, "final_exp": final_exp,
+            "final_exp_warp": final_exp_warp, "final_exp_warp_rounds": rounds,
+            "final_exp_fewest": final_exp - fermat + euclid}
