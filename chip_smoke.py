@@ -36,6 +36,18 @@ Phases (any failure raises and the script exits non-zero):
           from the host build; the schedule's own count is reported
           beside it) and the time per dependent round (the host build's
           count of rounds).
+4b. k2p   K2p, the projective Miller loop of the batch verdicts with one
+          warp per lane (before K2 and K3, so that its first-launch memory
+          is its own), against `miller_loop_proj_plain` at 8 and 192 lanes
+          (the grouped verdict's 2R + 64): G1 pubkeys and H(m) points from
+          the host tier times random Z (Zp ∈ Fp, Zq ∈ Fp2), every
+          coordinate in [p, 2p); lane 0 with Zp = 0 and lane 1 with Zq = 0
+          must only not fault and are left out of the comparison. Equal
+          canonical values (tolerance 0); ptxas's figures of
+          `miller_proj_warp_kernel` (it fails on a stack frame or a
+          spill), first-launch memory, device and call times, the bound
+          (the fewer Fp multiplies per lane of the one-thread lane and the
+          warp schedule) and the time per round, as for K3-fe.
 5. k2     K2, the affine Miller loop, against `miller_loop_plain` on G1
           pubkeys and H(m) points made with the host tier plus one all-zero
           lane, at 8 and 256 lanes (the 2 × 128 Miller lanes of a 128-set
@@ -47,13 +59,6 @@ Phases (any failure raises and the script exits non-zero):
           and 128 marshalled sets with three invalid sets and one zero lane:
           equal canonical values, verdicts equal to the host tier's, times,
           bound and first-launch memory as for K2.
-6a. k2p   K2p, the projective Miller loop of the batch verdicts, against
-          `miller_loop_proj_plain` at 8 and 192 lanes (the grouped
-          verdict's 2R + 64): G1 pubkeys and H(m) points from the host tier
-          times random Z (Zp ∈ Fp, Zq ∈ Fp2), every coordinate in [p, 2p);
-          lane 0 with Zp = 0 and lane 1 with Zq = 0 must only not fault and
-          are left out of the comparison. Equal canonical values (tolerance
-          0), times, bound and first-launch memory as for K2.
 7. slice  4096 signature sets over 64 signing roots (one slot of mainnet
           attestation gossip) made from a fixed seed with the host tier,
           verified by `TorchBlsVerifier` at the (64, 64) configuration:
@@ -96,7 +101,7 @@ paths ran.
           main-path verdict gave them (the grouped (64, 64) verdict for K1,
           the pk-grouped one for K4), each count timed anew. K2p's entry
           is timed at 192 lanes and K3-fe's at 1, their main-path shapes;
-          K3-fe's also gives its call time, rounds, µs per round and its
+          both also give their call time, rounds, µs per round and their
           schedule's Fp multiplies per lane.
 """
 
@@ -676,21 +681,40 @@ def _projective_inputs(np, n: int, seed: int):
     return p_out + q_out
 
 
-def phase_k2p(torch, np, muls: int):
-    """K2p against its plain version; returns (max_err, row at 192 lanes)."""
+def _kernel_ptxas(ptxas: dict, kernel: str) -> dict:
+    """ptxas's figures for one kernel (registers, shared memory, stack
+    frame, spill stores and loads)."""
+    for name, figs in ptxas.items():
+        if kernel in name:
+            return figs
+    raise AssertionError(f"ptxas reported no figures for {kernel}")
+
+
+def phase_k2p(torch, np, muls: dict, ptxas: dict):
+    """K2p against its plain version; returns (max_err, {lanes: row})."""
     from lodestar_tpu_torch.ops import cuda_tower
 
+    figs = _kernel_ptxas(ptxas, "miller_proj_warp_kernel")
+    rounds = muls["miller_loop_proj_warp_rounds"]
+    log(f"[k2p] miller_proj_warp_kernel: {figs.get('registers')} registers, "
+        f"{figs.get('smem')} B shared, {figs.get('stack')} B stack frame, "
+        f"{figs.get('spill_stores')} B spill stores, {figs.get('spill_loads')} B spill loads; "
+        f"{muls['miller_loop_proj_warp']} Fp multiplies and {rounds} dependent rounds per lane "
+        f"in its schedule, {muls['miller_loop_proj']} in the one-thread lane; the bound counts "
+        f"the fewer, {muls['miller_loop_proj_fewest']} (host counts)")
+    if figs.get("stack", 0) or figs.get("spill_stores", 0) or figs.get("spill_loads", 0):
+        raise AssertionError("K2p's kernel uses a stack or spills: its launcher raises no limit")
     dev = torch.device("cuda")
     max_err = 0
-    row = None
-    stack_bytes = None
+    rows = {}
+    first_bytes = None
     for n in K2P_LANES:
         args = [torch.as_tensor(a).to(dev) for a in _projective_inputs(np, n, SEED + 30 + n)]
         got, taken = _device_bytes_taken(torch, lambda: cuda_tower.miller_loop_proj_cuda(*args))
-        if stack_bytes is None:
-            stack_bytes = taken
-            log(f"[k2p] first launch took {taken} B more device memory "
-                f"({taken / 2**20:.1f} MiB) for the stack limit, after K2's and K3's")
+        if first_bytes is None:
+            first_bytes = taken
+            log(f"[k2p] first launch took {taken} B of device memory "
+                f"({taken / 2**20:.1f} MiB), before K2 and K3 ran")
         want = cuda_tower.miller_loop_proj_plain(*args)
         torch.cuda.synchronize()
         if not bool((got[:2] >= 0).all() & (got[:2] < 4096).all()):
@@ -699,15 +723,19 @@ def phase_k2p(torch, np, muls: int):
         max_err = max(max_err, err)
         if err != 0:
             raise AssertionError(f"K2p differs from its plain version at {n} lanes")
-        ms = _event_ms(torch, lambda: cuda_tower.miller_loop_proj_cuda(*args), 5)
+        ms = _device_ms(torch, lambda: cuda_tower.miller_loop_proj_cuda(*args), 20)
+        call_ms = _time_ms(torch, lambda: cuda_tower.miller_loop_proj_cuda(*args), 20)
         plain_ms = _event_ms(torch, lambda: cuda_tower.miller_loop_proj_plain(*args))
-        bound_ms, bound_by = _bound(muls, K2P_BYTES_PER_LANE, n)
-        row = dict(lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   stack_bytes=stack_bytes)
+        bound_ms, bound_by = _bound(muls["miller_loop_proj_fewest"], K2P_BYTES_PER_LANE, n)
+        rows[n] = dict(lanes=n, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, rounds=rounds, us_per_round=ms * 1e3 / rounds,
+                       schedule_fp_muls=muls["miller_loop_proj_warp"],
+                       first_launch_bytes=first_bytes, ptxas=figs)
         log(f"[k2p] lanes={n} match=canonical (lanes 2..{n - 1}; Zp = 0, Zq = 0 lanes ran) "
-            f"ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({bound_by}) "
-            f"share_of_bound={bound_ms / ms:.6f}")
-    return max_err, row
+            f"device_ms={ms:.6f} call_ms={call_ms:.6f} plain_ms={plain_ms:.6f} "
+            f"bound_ms={bound_ms:.8f} ({bound_by}) share_of_bound={bound_ms / ms:.6f} "
+            f"us_per_round={ms * 1e3 / rounds:.4f}")
+    return max_err, rows
 
 
 def _fp12_inputs(np, n: int, seed: int):
@@ -724,20 +752,11 @@ def _fp12_inputs(np, n: int, seed: int):
     return fs
 
 
-def _fe_ptxas(ptxas: dict) -> dict:
-    """ptxas's figures for K3-fe's kernel (registers, shared memory, stack
-    frame, spill stores and loads)."""
-    for name, figs in ptxas.items():
-        if "final_exp_warp_kernel" in name:
-            return figs
-    raise AssertionError("ptxas reported no figures for final_exp_warp_kernel")
-
-
 def phase_fe(torch, np, muls: dict, ptxas: dict):
     """K3-fe against its plain version; returns (max_err, {lanes: row})."""
     from lodestar_tpu_torch.ops import cuda_tower, fp12
 
-    figs = _fe_ptxas(ptxas)
+    figs = _kernel_ptxas(ptxas, "final_exp_warp_kernel")
     rounds = muls["final_exp_warp_rounds"]
     log(f"[fe] final_exp_warp_kernel: {figs.get('registers')} registers, "
         f"{figs.get('smem')} B shared, {figs.get('stack')} B stack frame, "
@@ -1192,10 +1211,11 @@ def main() -> int:
     max_err = phase_k1(torch, np)
     k4_err, k4_rows = phase_k4(torch, np)
     fe_err, fe_rows = phase_fe(torch, np, muls, ptxas)
+    k2p_err, k2p_rows = phase_k2p(torch, np, muls, ptxas)
+    k2p_row = k2p_rows[K2P_LANES[-1]]
     k2_err, k2_row = phase_k2(torch, np, muls["miller_loop"])
     sets, host_ok, bad, host_bad = per_set_batches(np)
     k3_err, k3_row = phase_k3(torch, np, muls["pairing_fused"], bad, host_bad)
-    k2p_err, k2p_row = phase_k2p(torch, np, muls["miller_loop_proj"])
     grouped_counts, wall, n_sets, grouped_products = phase_slice(torch, np, 64, 64)
     log(f"[slice] main path (64, 64): {wall:.3f} s per {n_sets}-set verdict, "
         f"{n_sets / wall:.1f} sets/s, launches per verdict {json.dumps(grouped_counts)}")
@@ -1215,12 +1235,14 @@ def main() -> int:
         f"{per_set['c']['seconds']:.6f} s; script {time.perf_counter() - t_start:.1f} s")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k4 and k1 by products (device and call ms): {json.dumps(k4_rows)}")
-    stack = k2_row["stack_bytes"] + k3_row["stack_bytes"] + k2p_row["stack_bytes"]
+    stack = k2_row["stack_bytes"] + k3_row["stack_bytes"]
     log(f"[summary] device memory held by the raised stack limit: {stack} B "
         f"({stack / 2**30:.3f} GiB; K2 {k2_row['stack_bytes']} B, then K3 "
-        f"{k3_row['stack_bytes']} B and K2p {k2p_row['stack_bytes']} B more); K3-fe's "
-        f"first launch, before them, took {fe_rows[FE_LANES[0]]['first_launch_bytes']} B")
+        f"{k3_row['stack_bytes']} B more); the first launches of K3-fe and K2p, before them, "
+        f"took {fe_rows[FE_LANES[0]]['first_launch_bytes']} B and "
+        f"{k2p_row['first_launch_bytes']} B")
     log(f"[summary] k3-fe by lanes: {json.dumps(fe_rows)}")
+    log(f"[summary] k2p by lanes: {json.dumps(k2p_rows)}")
 
     from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu
 
@@ -1279,6 +1301,10 @@ def main() -> int:
             "launches": grouped_counts["K2p"],
             "max_abs_err": k2p_err,
             "ms": k2p_row["ms"],
+            "call_ms": k2p_row["call_ms"],
+            "rounds": k2p_row["rounds"],
+            "us_per_round": k2p_row["us_per_round"],
+            "schedule_fp_muls": k2p_row["schedule_fp_muls"],
             "plain_ms": k2p_row["plain_ms"],
             "bound_ms": k2p_row["bound_ms"],
             "bound_by": k2p_row["bound_by"],

@@ -13,8 +13,9 @@ with `ctypes` (no Python or PyTorch headers, so a build takes seconds).
   `c++`, for the CPU tests.
 - `mont_mul_cuda()`: kernel K1 for sm_90a with `nvcc`.
 - `tower_host()`: the K2/K3 arithmetic headers (`tower.cuh`, and
-  `tower_warp.cuh` with its warp emulated) built for the host with `c++`,
-  for the CPU tests and the kernels' operation and round counts.
+  `tower_warp.cuh` and `miller_warp.cuh` with their warp emulated) built
+  for the host with `c++`, for the CPU tests and the kernels' operation
+  and round counts.
 - `tower_cuda()`: kernels K2, K2p, K3 and K3-fe (`tower.cu`) for sm_90a with `nvcc`;
   `BUILD_LOG["tower"]` keeps ptxas's registers, stack and spills.
 - `fe_probe_cuda()`: a probe of K3-fe's schedule (`fe_probe.cu`: cycles
@@ -142,7 +143,8 @@ def mont_mul_cuda() -> ctypes.CDLL:
     ))
 
 
-TOWER_HEADERS = ["tower.cuh", "tower_warp.cuh", "tower_consts.cuh", "fp_mont.cuh"]
+TOWER_HEADERS = ["tower.cuh", "tower_warp.cuh", "miller_warp.cuh", "miller_sched.cuh",
+                 "tower_consts.cuh", "fp_mont.cuh"]
 
 
 def tower_host() -> ctypes.CDLL:

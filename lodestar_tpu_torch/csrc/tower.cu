@@ -18,23 +18,39 @@
 // and 0 maps to 0 as under the batch's zero-lane guard. So K3 equals the
 // plain version by canonical value, not limb for limb.
 //
-// K2p (`miller_proj_kernel`) is K2 in the form the batch verdicts call
-// (pairing.miller_loop_proj_pq; XLA in the JAX package, lodestar_tpu/ops/
-// pairing.py:225, since the Pallas kernel takes affine P and Q only): P and
-// Q homogeneous projective, the tangent's l0 scaled by Zp and the chord
-// through projective Q, every line scaled as the plain loop scales it.
+// K2p (`miller_proj_warp_kernel`) is K2 in the form the batch verdicts
+// call (pairing.miller_loop_proj_pq; XLA in the JAX package, lodestar_tpu/
+// ops/pairing.py:225, since the Pallas kernel takes affine P and Q only):
+// P and Q homogeneous projective, the tangent's l0 scaled by Zp and the
+// chord through projective Q, every line scaled as the plain loop scales
+// it, one lane per WARP over miller_warp.cuh (below).
 //
-// K2, K2p and K3 are one thread per lane over tower.cuh (fully reduced
+// K2 and K3 are one thread per lane over tower.cuh (fully reduced
 // 12 x 32-bit words, CIOS multiply), which tower_host.cpp also builds for
-// the CPU tests. One K2 lane runs 8,282 Fp multiplies, one K2p lane 8,493
-// and one K3 set 22,629 (counted by the host build), each about 576 32-bit
-// integer operations, against at most 2.8 KB in and out per lane: the byte
-// bound is two orders of magnitude below the operation bound. Their tower
-// functions are real calls (__noinline__), so the working set lives on the
-// stack, and `ensure_stack` raises the device-wide stack limit before the
-// launch. That leaves most of the card idle at the path's sizes and
-// serialises every lane's multiplies on one thread's latency.
+// the CPU tests. One K2 lane runs 8,282 Fp multiplies and one K3 set 22,629
+// (counted by the host build), each about 576 32-bit integer operations,
+// against at most 2.8 KB in and out per lane: the byte bound is two orders
+// of magnitude below the operation bound. Their tower functions are real
+// calls (__noinline__), so the working set lives on the stack, and
+// `ensure_stack` raises the device-wide stack limit before the launch.
+// That leaves most of the card idle at the path's sizes and serialises
+// every lane's multiplies on one thread's latency.
 //
+// K2p and K3-fe run one lane per warp (blocks of 1-4 warps sized from the
+// device's SM count), the lane's values in shared memory, every step split
+// into phases in which each thread does at most one register-resident Fp
+// multiply: nothing on their path is a call (no stack, no `ensure_stack`,
+// nothing in local memory), so their launchers set no device limit and
+// can be captured in a CUDA graph.
+// - K2p: a lane's 63 doubling and 5 addition steps need 8,182 Fp multiplies
+//   (the one-thread lane of tower.cuh runs 8,493), under 0.1 us of the
+//   card's int32 rate, but as a chain: f is squared and multiplied by the
+//   line at every step. The schedule (miller_sched.cuh, generated by
+//   gen_miller_sched.py) packs them into 268 dependent rounds of at most
+//   32 products: per doubling the Fp12 squaring's 36 products, the line's
+//   second level beside its last 4, the sparse line product's 39 with the
+//   next step's first level of line products; 539 phases in all, run by
+//   one loop over tables, so each phase kind is code once.
 // K3-fe (`final_exp_warp_kernel`) is K3's tail in the main path's form:
 // the final exponentiation of one Fp12 lane (pairing.final_exponentiation_batch,
 // JAX lodestar_tpu/ops/pairing.py:343) per WARP, over tower_warp.cuh.
@@ -66,6 +82,7 @@
 #include <stdint.h>
 
 #include "tower.cuh"
+#include "miller_warp.cuh"
 #include "tower_warp.cuh"
 
 namespace {
@@ -92,17 +109,6 @@ pairing_kernel(const int32_t* __restrict__ pk_x, const int32_t* __restrict__ pk_
                    sig_x + 64 * i, sig_y + 64 * i, out + 384 * i);
 }
 
-__global__ void __launch_bounds__(kThreads)
-miller_proj_kernel(const int32_t* __restrict__ xp, const int32_t* __restrict__ yp,
-                   const int32_t* __restrict__ zp, const int32_t* __restrict__ xq,
-                   const int32_t* __restrict__ yq, const int32_t* __restrict__ zq,
-                   int32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  tw::miller_proj_lane(xp + 32 * i, yp + 32 * i, zp + 32 * i, xq + 64 * i, yq + 64 * i,
-                       zq + 64 * i, out + 384 * i);
-}
-
 // The warp of tower_warp.cuh's phases on the card: every thread runs the
 // phase for its lane index, then the warp synchronises, which also orders
 // the phase's shared-memory writes before the next phase's reads.
@@ -115,11 +121,11 @@ struct DeviceWarp {
   }
 };
 
-constexpr int kFeWarps = 4;  // the most warps (lanes) per K3-fe block
+constexpr int kMaxWarps = 4;  // the most warps (lanes) per K2p or K3-fe block
 
-__global__ void __launch_bounds__(32 * kFeWarps)
+__global__ void __launch_bounds__(32 * kMaxWarps)
 final_exp_warp_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long n) {
-  __shared__ __align__(16) uint32_t slots[kFeWarps][tww::kSlotWords];
+  __shared__ __align__(16) uint32_t slots[kMaxWarps][tww::kSlotWords];
   const int warp = threadIdx.x >> 5;
   const long long i = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (i >= n) return;  // the whole warp: nothing below waits on another warp
@@ -127,7 +133,21 @@ final_exp_warp_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
   tww::final_exp_warp(w, slots[warp], in + 384 * i, out + 384 * i);
 }
 
-// K2, K2p and K3's tower functions are calls, so each thread needs a stack
+__global__ void __launch_bounds__(32 * kMaxWarps)
+miller_proj_warp_kernel(const int32_t* __restrict__ xp, const int32_t* __restrict__ yp,
+                        const int32_t* __restrict__ zp, const int32_t* __restrict__ xq,
+                        const int32_t* __restrict__ yq, const int32_t* __restrict__ zq,
+                        int32_t* __restrict__ out, long long n) {
+  __shared__ __align__(16) uint32_t slots[kMaxWarps][tww::ml::kSlotWords];
+  const int warp = threadIdx.x >> 5;
+  const long long i = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (i >= n) return;  // the whole warp: nothing below waits on another warp
+  DeviceWarp w{(int)(threadIdx.x & 31)};
+  tww::miller_proj_warp(w, slots[warp], xp + 32 * i, yp + 32 * i, zp + 32 * i, xq + 64 * i,
+                        yq + 64 * i, zq + 64 * i, out + 384 * i);
+}
+
+// K2 and K3's tower functions are calls, so each thread needs a stack
 // as deep as the deepest call chain (several Fp12 values per frame). Raise
 // the per-thread stack limit to what the kernel reports, never lower it.
 template <typename K>
@@ -165,6 +185,19 @@ int sm_count(int& sms) {
   return 0;
 }
 
+// Blocks of as many warps (one lane each) as spread n lanes over the
+// device's SMs, at most kMaxWarps: (blocks, threads per block).
+int warp_grid(long long n, unsigned& blocks, unsigned& threads) {
+  int sms = 0;
+  const int rc = sm_count(sms);
+  if (rc != 0) return rc;
+  long long warps = (n + sms - 1) / sms;
+  if (warps > kMaxWarps) warps = kMaxWarps;
+  blocks = (unsigned)((n + warps - 1) / warps);
+  threads = 32 * (unsigned)warps;
+  return 0;
+}
+
 }  // namespace
 
 // K2: out[i] = conj(f_{|x|,Q_i}(P_i)) for n lanes of (32,) xp, yp and
@@ -197,15 +230,17 @@ extern "C" int lodestar_pairing(const int32_t* pk_x, const int32_t* pk_y,
 
 // K2p: out[i] = conj(f_{|x|,Q_i}(P_i)) for n lanes of projective P (32,)
 // xp, yp, zp and Q (2, 32) xq, yq, zq int32 limbs; out (n, 2, 3, 2, 32)
-// canonical limbs, on `stream`. Returns the CUDA error of the launch.
+// canonical limbs, on `stream`. One warp per lane. Returns the CUDA error
+// of the launch.
 extern "C" int lodestar_miller_proj(const int32_t* xp, const int32_t* yp, const int32_t* zp,
                                     const int32_t* xq, const int32_t* yq, const int32_t* zq,
                                     int32_t* out, long long n, void* stream) {
   if (n <= 0) return 0;
-  const int rc = ensure_stack(miller_proj_kernel);
+  unsigned blocks = 0, threads = 0;
+  const int rc = warp_grid(n, blocks, threads);
   if (rc != 0) return rc;
-  miller_proj_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(xp, yp, zp, xq, yq,
-                                                                         zq, out, n);
+  miller_proj_warp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(xp, yp, zp, xq, yq,
+                                                                        zq, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -215,12 +250,9 @@ extern "C" int lodestar_miller_proj(const int32_t* xp, const int32_t* yp, const 
 // most 4. Returns the CUDA error of the launch.
 extern "C" int lodestar_final_exp(const int32_t* in, int32_t* out, long long n, void* stream) {
   if (n <= 0) return 0;
-  int sms = 0;
-  const int rc = sm_count(sms);
+  unsigned blocks = 0, threads = 0;
+  const int rc = warp_grid(n, blocks, threads);
   if (rc != 0) return rc;
-  long long warps = (n + sms - 1) / sms;
-  if (warps > kFeWarps) warps = kFeWarps;
-  const unsigned blocks = (unsigned)((n + warps - 1) / warps);
-  final_exp_warp_kernel<<<blocks, 32 * (unsigned)warps, 0, (cudaStream_t)stream>>>(in, out, n);
+  final_exp_warp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(in, out, n);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
-// Host build of the tower kernels' arithmetic (tower.cuh, tower_warp.cuh)
-// with a plain C interface, so that the CPU tests hold the exact code of K2,
-// K2p, K3 and K3-fe against the plain PyTorch versions without a GPU, and so
-// that the operation bound of the kernels can be counted: this build alone
-// defines TOWER_COUNT_MULS. K3-fe's warp is emulated: each phase runs its
-// 32 threads one after the other, in either order.
+// Host build of the tower kernels' arithmetic (tower.cuh, tower_warp.cuh,
+// miller_warp.cuh) with a plain C interface, so that the CPU tests hold the
+// exact code of K2, K2p, K3 and K3-fe against the plain PyTorch versions
+// without a GPU, and so that the operation bound of the kernels can be
+// counted: this build alone defines TOWER_COUNT_MULS. The warp of K2p and
+// K3-fe is emulated: each phase runs its 32 threads one after the other,
+// in either order. The one-thread Miller lane (`tw::miller_proj_lane`) is
+// kept here as K2p's oracle.
 // Build:
 //   c++ -O2 -std=c++17 -shared -fPIC -o libtower_host.so tower_host.cpp
 #include <stdint.h>
@@ -12,6 +14,7 @@
 unsigned long long tw_fp_muls = 0;
 
 #include "tower.cuh"
+#include "miller_warp.cuh"
 #include "tower_warp.cuh"
 
 // over the warp-emulated lanes since the last reset: phases, rounds (the
@@ -21,7 +24,7 @@ unsigned long long tw_warp_phases = 0, tw_warp_rounds = 0, tw_warp_overfull = 0;
 
 namespace {
 
-// K3-fe's warp on the host: phase f runs for tid 0..31, or 31..0
+// the warp of K2p and K3-fe on the host: phase f runs for tid 0..31, or 31..0
 struct HostWarp {
   bool reverse;
   template <class F>
@@ -51,7 +54,7 @@ extern "C" void lodestar_miller_host(const int32_t* xp, const int32_t* yp,
                     out + 384 * i);
 }
 
-// K2p on the host: n lanes of projective P (32,) xp, yp, zp and Q (2, 32)
+// K2p's one-thread oracle on the host: n lanes of projective P (32,) xp, yp, zp and Q (2, 32)
 // xq, yq, zq limbs -> (n, 2, 3, 2, 32) canonical limbs.
 extern "C" void lodestar_miller_proj_host(const int32_t* xp, const int32_t* yp,
                                           const int32_t* zp, const int32_t* xq,
@@ -60,6 +63,24 @@ extern "C" void lodestar_miller_proj_host(const int32_t* xp, const int32_t* yp,
   for (long long i = 0; i < n; i++)
     tw::miller_proj_lane(xp + 32 * i, yp + 32 * i, zp + 32 * i, xq + 64 * i,
                          yq + 64 * i, zq + 64 * i, out + 384 * i);
+}
+
+// K2p on the host, the warp emulated in thread order 0..31 (reverse = 0)
+// or 31..0: n lanes of projective P (32,) xp, yp, zp and Q (2, 32) xq, yq,
+// zq limbs -> (n, 2, 3, 2, 32) canonical limbs. The slot buffer starts
+// filled with a pattern that depends on the order, so a read of a slot
+// before it is written shows as a difference between the orders.
+extern "C" void lodestar_miller_proj_warp_host(const int32_t* xp, const int32_t* yp,
+                                               const int32_t* zp, const int32_t* xq,
+                                               const int32_t* yq, const int32_t* zq,
+                                               int32_t* out, long long n, int reverse) {
+  uint32_t slots[tww::ml::kSlotWords];
+  for (long long i = 0; i < n; i++) {
+    for (int k = 0; k < tww::ml::kSlotWords; k++) slots[k] = reverse ? 0xffffffffu : 0x5a5a5a5au;
+    HostWarp w{reverse != 0};
+    tww::miller_proj_warp(w, slots, xp + 32 * i, yp + 32 * i, zp + 32 * i, xq + 64 * i,
+                          yq + 64 * i, zq + 64 * i, out + 384 * i);
+  }
 }
 
 // K3 on the host: n sets -> (n, 2, 3, 2, 32) final-exponentiated limbs.

@@ -1,6 +1,7 @@
 // The final exponentiation with one warp per lane (K3-fe), shared by the
 // CUDA kernel (tower.cu) and the host harness (tower_host.cpp), which
-// emulates the warp.
+// emulates the warp. Its Fp operations, slots and `Warp` phase runner also carry
+// K2p's Miller loop (miller_warp.cuh).
 //
 // The lane's Fp12 values live in a buffer of Fp slots (12 words each,
 // fully reduced Montgomery form, as in tower.cuh) that the warp shares:

@@ -12,8 +12,10 @@ versions and their host builds.
 - `miller_loop_proj_kernel` is K2 in the form the batch verdicts and the
   bisection tree call (`pairing.miller_loop_proj_pq`, P and Q homogeneous
   projective; XLA in the JAX package, whose Pallas kernel takes affine
-  points only). On CUDA tensors it launches `miller_proj_kernel` (K2p) or
-  raises; on CPU tensors it runs `miller_loop_proj_plain`.
+  points only). On CUDA tensors it launches `miller_proj_warp_kernel`
+  (K2p: one warp per lane over `csrc/miller_warp.cuh`, whose phase tables
+  `gen_miller_sched.py` generates) or raises; on CPU tensors it runs
+  `miller_loop_proj_plain`.
 - `final_exp_kernel` is K3's tail alone, the final exponentiation per lane
   (`pairing.final_exponentiation_batch`, `final_exponentiation_one` and
   the per-lane `final_exponentiation`). On CUDA tensors it launches
@@ -42,6 +44,9 @@ tests and for the operation and round counts of the kernels' bound
 (`fp_muls_per_lane`). `final_exp_host` is the one-thread final
 exponentiation that K3 runs; `final_exp_warp_host` is K3-fe's, its warp
 emulated one thread after another in either order.
+`miller_loop_proj_host` is the one-thread projective Miller lane
+(`tower.cuh` `miller_proj_lane`), K2p's oracle; `miller_loop_proj_warp_host`
+is K2p's own schedule, its warp emulated in either order.
 """
 
 from __future__ import annotations
@@ -299,6 +304,8 @@ def _host():
             fn = getattr(lib, name)
             fn.argtypes = [_VP] * n_ptr + [_LL]
             fn.restype = None
+        lib.lodestar_miller_proj_warp_host.argtypes = [_VP] * 7 + [_LL, ctypes.c_int]
+        lib.lodestar_miller_proj_warp_host.restype = None
         lib.lodestar_final_exp_warp_host.argtypes = [_VP, _VP, _LL, ctypes.c_int]
         lib.lodestar_final_exp_warp_host.restype = None
         lib.lodestar_fp_inv_host.argtypes = [_VP, _VP, _LL, ctypes.c_int]
@@ -334,6 +341,18 @@ def miller_loop_proj_host(xp, yp, zp, xq, yq, zq) -> np.ndarray:
     """K2p's arithmetic on the CPU: (n, 32) ×3, (n, 2, 32) ×3 → (n, 2, 3, 2, 32)."""
     return _run_host("lodestar_miller_proj_host", [xp, yp, zp, xq, yq, zq],
                      int(np.shape(xp)[0]))
+
+
+def miller_loop_proj_warp_host(xp, yp, zp, xq, yq, zq, reverse: bool = False) -> np.ndarray:
+    """K2p's arithmetic on the CPU, its warp emulated: each phase runs
+    thread 0..31 in turn, or 31..0 with `reverse`; (n, 32) ×3, (n, 2, 32)
+    ×3 → (n, 2, 3, 2, 32)."""
+    arrs = [_np(x) for x in (xp, yp, zp, xq, yq, zq)]
+    n = int(arrs[0].shape[0])
+    out = np.zeros((n,) + FP12_SHAPE, np.int32)
+    _host().lodestar_miller_proj_warp_host(*(a.ctypes.data for a in arrs), out.ctypes.data, n,
+                                           int(reverse))
+    return out
 
 
 def pairing_fused_host(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y) -> np.ndarray:
@@ -396,7 +415,10 @@ def fp_muls_per_lane() -> dict[str, int]:
     the final exponentiation needs among the repo's schedules, the count
     of K3-fe's bound: the one-thread lane (`final_exp`, 18 products per
     cyclotomic squaring) with its Fermat inverse replaced by the Euclid
-    inverse."""
+    inverse. `miller_loop_proj` is the one-thread projective lane,
+    `miller_loop_proj_warp` K2p's schedule and `miller_loop_proj_warp_rounds`
+    its dependent rounds; `miller_loop_proj_fewest`, the smaller of the two
+    counts, is the count of K2p's bound."""
     lib = _host()
     zp = np.zeros((1, N_LIMBS), np.int32)
     zq = np.zeros((1, 2, N_LIMBS), np.int32)
@@ -405,6 +427,10 @@ def fp_muls_per_lane() -> dict[str, int]:
     miller = int(lib.lodestar_tower_fp_muls(1))
     miller_loop_proj_host(zp, zp, zp, zq, zq, zq)
     miller_proj = int(lib.lodestar_tower_fp_muls(1))
+    warp_stats(reset=True)
+    miller_loop_proj_warp_host(zp, zp, zp, zq, zq, zq)
+    miller_proj_warp = int(lib.lodestar_tower_fp_muls(1))
+    miller_rounds = warp_stats(reset=True)["rounds"]
     pairing_fused_host(zp, zp, zq, zq, zq, zq)
     pairing = int(lib.lodestar_tower_fp_muls(1))
     final_exp_host(np.zeros((1,) + FP12_SHAPE, np.int32))
@@ -418,6 +444,9 @@ def fp_muls_per_lane() -> dict[str, int]:
     fp_inv_host(zp, euclid=True)
     euclid = int(lib.lodestar_tower_fp_muls(1))
     return {"miller_loop": miller, "miller_loop_proj": miller_proj,
+            "miller_loop_proj_warp": miller_proj_warp,
+            "miller_loop_proj_warp_rounds": miller_rounds,
+            "miller_loop_proj_fewest": min(miller_proj, miller_proj_warp),
             "pairing_fused": pairing, "final_exp": final_exp,
             "final_exp_warp": final_exp_warp, "final_exp_warp_rounds": rounds,
             "final_exp_fewest": final_exp - fermat + euclid}

@@ -234,7 +234,7 @@ def main() -> int:
     total_dev_us = sum(device_us(e) for e in kernels)
     k1_us = sum(device_us(e) for e in kernels if "mont_mul_kernel" in e.key)
     k4_us = sum(device_us(e) for e in kernels if "mxu_mont_kernel" in e.key)
-    k2p_us = sum(device_us(e) for e in kernels if "miller_proj_kernel" in e.key)
+    k2p_us = sum(device_us(e) for e in kernels if "miller_proj_warp_kernel" in e.key)
     k3fe_us = sum(device_us(e) for e in kernels if "final_exp_warp_kernel" in e.key)
     report["profiled_wall_s"] = prof_wall
     report["device_time_s"] = total_dev_us / 1e6
