@@ -10,18 +10,24 @@ Phases (any failure raises and the script exits non-zero):
           (`csrc/host/`, cc) and the K2/K3 host harness (`csrc/tower_host.cpp`,
           c++) from the checkout, all at once, into build/lodestar_tpu_torch/;
           ptxas's registers, stack and spills of every kernel.
-3. k1     K1 against its plain PyTorch version on the card, limb for limb
-          (tolerance 0), on random values in [0, 2p) plus the edges 0, 1,
-          p−1, p and 2p−1, at the lane counts the main path uses; then
-          its device time (launches captured in a CUDA graph, replayed
-          between two events: the host's wrapper left out), its call time
-          (Python calls back to back between two events) and the plain
-          version's time beside the byte bound.
+3. k1     K1, a half-warp per product, against its plain PyTorch version
+          on the card, limb for limb (tolerance 0): the 36 pairs of the
+          edges 0, 1, p−1, p, 2p−1 and 2^381 − 1 (all ones below 2p), then
+          random values in [0, 2p) at 1, 13 (a tail that is not a multiple
+          of its 8 products per block), 128 and 2,048 (the grouped
+          verdict's smallest and largest counts), 4096 and 589,824
+          products; at each its device time (launches captured in a CUDA
+          graph, replayed between two events: the host's wrapper left
+          out), its call time (Python calls back to back between two
+          events), the plain version's time, the byte bound and the share;
+          ptxas's registers, shared memory, stack and spills of
+          `mont_mul_kernel`.
 4. k4     K4, the integer-tensor-core multiply, against its plain version
-          and against K1, limb for limb, on the 25 edge pairs (padded to
+          and against K1, limb for limb, on the 36 edge pairs (padded to
           4096 products) and at 4096, 4097 (a partial warp tile), 8,192,
           65,536, 262,144 and 589,824 products; the device and call times
-          of K4 and K1 and the plain version's time beside K4's bound.
+          of K4 and K1 side by side and the plain version's time beside
+          K4's bound.
 4a. fe    K3-fe, the final exponentiation with one warp per lane (before
           any other tower kernel, so that its first-launch memory is its
           own), against `final_exp_plain` (the batch form, one shared
@@ -37,7 +43,7 @@ Phases (any failure raises and the script exits non-zero):
           beside it) and the time per dependent round (the host build's
           count of rounds).
 4b. k2p   K2p, the projective Miller loop of the batch verdicts with one
-          warp per lane (before K2 and K3, so that its first-launch memory
+          warp per lane (before K3 and K2, so that its first-launch memory
           is its own), against `miller_loop_proj_plain` at 8 and 192 lanes
           (the grouped verdict's 2R + 64): G1 pubkeys and H(m) points from
           the host tier times random Z (Zp ∈ Fp, Zq ∈ Fp2), every
@@ -48,61 +54,70 @@ Phases (any failure raises and the script exits non-zero):
           spill), first-launch memory, device and call times, the bound
           (the fewer Fp multiplies per lane of the one-thread lane and the
           warp schedule) and the time per round, as for K3-fe.
+4c. k3    K3, the fused per-set pairing (two warps per set run K2p's Miller
+          program at unit Z, then one of them the product and K3-fe's final
+          exponentiation), before K2, so that its first launch shows that
+          it raises no stack limit: against `pairing_fused_plain` on 4 and
+          128 marshalled sets with three invalid sets and one zero lane,
+          equal canonical values and verdicts equal to the host tier's;
+          ptxas's figures of `pairing_warp_kernel` (it fails on a stack
+          frame or a spill), first-launch memory, device time (graph
+          replay) and call time, the plain version's time, the bound (the
+          fewest Fp multiplies a set needs) and the time per round (the
+          host build's count: one Miller warp's, the product's and the
+          final exponentiation's rounds).
 5. k2     K2, the affine Miller loop, against `miller_loop_plain` on G1
           pubkeys and H(m) points made with the host tier plus one all-zero
           lane, at 8 and 256 lanes (the 2 × 128 Miller lanes of a 128-set
           per-set batch): equal canonical values (tolerance 0), CUDA-event
           times of both, the operation bound (Fp multiplies per lane counted
           by the host harness); the device memory that K2's first launch
-          takes for the raised per-thread stack limit.
-6. k3     K3, the fused per-set pairing, against `pairing_fused_plain` on 4
-          and 128 marshalled sets with three invalid sets and one zero lane:
-          equal canonical values, verdicts equal to the host tier's, times,
-          bound and first-launch memory as for K2.
-7. slice  4096 signature sets over 64 signing roots (one slot of mainnet
+          takes for the raised per-thread stack limit, the last one.
+6. slice  4096 signature sets over 64 signing roots (one slot of mainnet
           attestation gossip) made from a fixed seed with the host tier,
           verified by `TorchBlsVerifier` at the (64, 64) configuration:
           True on the valid batch, False on four tampered ones, each equal
           to the host tier's CPU verdict; the same for 128 sets over 16
           roots, the (16, 8) configuration.
-8. pk-grouped  4096 sets over 4096 unique roots signed by 128 keys (the
+7. pk-grouped  4096 sets over 4096 unique roots signed by 128 keys (the
           default (128, 32) configuration): the valid batch (first call, and
           warm with the hash-to-G2 cache emptied, as a flood of unique roots
           always finds it) and three tampered ones (a wrong message, two
           signatures swapped, bad flag bits), each equal to the host tier's
           verdict.
-9. flat   128 sets over 128 roots and 128 keys (valid, one wrong message)
+8. flat   128 sets over 128 roots and 128 keys (valid, one wrong message)
           and 200 such sets (two chunks).
-10. split 64 sets over 8 shared roots plus 64 sets over 64 unique roots,
+9. split  64 sets over 8 shared roots plus 64 sets over 64 unique roots,
           from 2 keys (the rest goes pk-grouped) or from 64 keys (flat); each
           valid and with one tampered set in the unique part.
-11. per-set  128 sets over 128 signing roots (a block's attestations),
+10. per-set  128 sets over 128 signing roots (a block's attestations),
           `verify_signature_sets_individual` on the card: (a) the valid
           batch, all True by the root alone; (b) three tampered sets,
           found by bisection; (c) `verify_individual` on the tampered
           bucket, one K3 launch; (d) 16 sets with one bad encoding, one
           set at a time (`_verify_one`). Every list equals the host tier's
           per-set verdicts.
-12. pairing-check  `pairing.pairing_check`, the multi-pairing primitive, over
+11. pairing-check  `pairing.pairing_check`, the multi-pairing primitive, over
           the 2 × 128 affine pairs of the valid and of the tampered batch:
           the path that runs K2 (one launch per check) and K3-fe.
 
-The main-path verdicts of phases 7-12 run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-11 run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
 (per part of a split one, per chunk of a flat one), both on bisection;
-every verdict of phases 8-10 is counted so and also checks which planner
+every verdict of phases 7-9 is counted so and also checks which planner
 paths ran.
 
-13. the `kernels` line, the card line, and the last line
+12. the `kernels` line, the card line, and the last line
           {"ok": true, "device": {"platform": "gpu", ...}}. K1's and K4's
           entries give their device times (`ms`) and call times
           (`call_ms`) per launch over the product counts that their
           main-path verdict gave them (the grouped (64, 64) verdict for K1,
-          the pk-grouped one for K4), each count timed anew. K2p's entry
-          is timed at 192 lanes and K3-fe's at 1, their main-path shapes;
-          both also give their call time, rounds, µs per round and their
-          schedule's Fp multiplies per lane.
+          the pk-grouped one for K4), each count checked limb for limb and
+          timed anew. K2p's entry is timed at 192 lanes, K3-fe's at 1 and
+          K3's at 128 sets, their main-path shapes; the three also give
+          their call time, rounds, µs per round and their schedule's Fp
+          multiplies per lane.
 """
 
 from __future__ import annotations
@@ -235,32 +250,54 @@ def _iters(n: int) -> int:
     return 200 if n <= 8192 else 50 if n <= 65536 else 20
 
 
-def phase_k1(torch, np):
+# products: one; a tail that is not a multiple of K1's 8 per block; the
+# grouped verdict's smallest and largest counts (128, 2,048); the lane
+# rule's switch to K4 (4,096); the pk-grouped path's largest count
+K1_SIZES = (1, 13, 128, 2048, 4096, 589824)
+
+
+def phase_k1(torch, np, ptxas: dict):
+    """K1 against its plain version, limb for limb, on the edge pairs and at
+    K1_SIZES, with its device and call times, the plain version's time and
+    the bound; returns (max_err, {products: row}, ptxas figures)."""
     from lodestar_tpu_torch.ops import cuda_fp
 
+    figs = _kernel_ptxas(ptxas, "mont_mul_kernel")
+    log(f"[k1] mont_mul_kernel (a half-warp per product): {figs.get('registers')} registers, "
+        f"{figs.get('smem', 0)} B shared, {figs.get('stack')} B stack frame, "
+        f"{figs.get('spill_stores')} B spill stores, {figs.get('spill_loads')} B spill loads")
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    sizes = (1, 68, 4096, 64 * 4096)
+    a_np, b_np = _edge_pairs(np, rng, 64)
+    cases = [("edges", a_np, b_np)]
+    for n in K1_SIZES:
+        cases.append((str(n), _random_limbs(rng, n), _random_limbs(rng, n)[::-1].copy()))
     max_err = 0
-    for n in sizes:
-        a = torch.as_tensor(_random_limbs(rng, n)).to(dev)
-        b = torch.as_tensor(_random_limbs(rng, n)[::-1].copy()).to(dev)
+    rows = {}
+    for name, a_np, b_np in cases:
+        a, b = torch.as_tensor(a_np).to(dev), torch.as_tensor(b_np).to(dev)
+        n = a.shape[0]
         got = cuda_fp.mont_mul_cuda(a, b)
         want = cuda_fp.mont_mul_plain(a, b)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         max_err = max(max_err, err)
         if err != 0:
-            raise AssertionError(f"K1 differs from its plain version at {n} lanes")
+            raise AssertionError(f"K1 differs from its plain version at {name} products")
+        if name == "edges":
+            log(f"[k1] the {len(_edge_values()) ** 2} edge pairs (padded to {n}): match=exact")
+            continue
         iters = _iters(n)
         ms = _device_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
         call_ms = _time_ms(torch, lambda: cuda_fp.mont_mul_cuda(a, b), iters)
-        plain_ms = _time_ms(torch, lambda: cuda_fp.mont_mul_plain(a, b), max(5, iters // 10))
+        plain_ms = _time_ms(torch, lambda: cuda_fp.mont_mul_plain(a, b), max(3, iters // 10))
         bound_ms, bound_by = k1_bound(n)
-        log(f"[k1] lanes={n} match=exact device_ms={ms:.6f} call_ms={call_ms:.6f} "
+        rows[n] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+        log(f"[k1] products={n} match=exact device_ms={ms:.6f} call_ms={call_ms:.6f} "
             f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({bound_by}) "
             f"share_of_bound={bound_ms / ms:.6f}")
-    return max_err
+    return max_err, rows, figs
 
 
 def k1_bound(lanes: int):
@@ -397,17 +434,25 @@ def k4_bound(lanes: int):
 K4_SIZES = (4096, 4097, 8192, 65536, 262144, 589824)
 
 
-def _edge_pairs(np, rng, n: int):
-    """The 25 pairs of the edges {0, 1, p−1, p, 2p−1}, padded with random
-    values in [0, 2p) to n products."""
+def _edge_values():
+    """0, 1, p−1, p, 2p−1 and 2^381 − 1, the all-ones value below 2p (its
+    words give the largest word products)."""
     from lodestar_tpu_torch.bls.fields import P
+
+    return (0, 1, P - 1, P, 2 * P - 1, 2**381 - 1)
+
+
+def _edge_pairs(np, rng, n: int):
+    """The 36 pairs of `_edge_values()`, padded with random values in [0, 2p) to
+    n products."""
     from lodestar_tpu_torch.ops.limbs import int_to_limbs
 
-    edges = [int_to_limbs(v) for v in (0, 1, P - 1, P, 2 * P - 1)]
+    edges = [int_to_limbs(v) for v in _edge_values()]
+    k = len(edges) ** 2
     a = _random_limbs(rng, n)
     b = _random_limbs(rng, n)
-    a[:25] = [x for x in edges for _ in edges]
-    b[:25] = [y for _ in edges for y in edges]
+    a[:k] = [x for x in edges for _ in edges]
+    b[:k] = [y for _ in edges for y in edges]
     return a, b
 
 
@@ -437,7 +482,8 @@ def phase_k4(torch, np):
         if err != 0:
             raise AssertionError(f"K4 differs from its plain version or K1 at {name} products")
         if name == "edges":
-            log(f"[k4] the 25 edge pairs (padded to {n}): match=exact against plain and K1")
+            log(f"[k4] the {len(_edge_values()) ** 2} edge pairs (padded to {n}): match=exact "
+                f"against plain and K1")
             continue
         iters = _iters(n)
         ms = _device_ms(torch, lambda: cuda_mxu.mont_mul_mxu_cuda(a, b), iters)
@@ -595,10 +641,22 @@ def per_set_batches(np):
     return sets, _host_verdicts(sets), bad, _host_verdicts(bad)
 
 
-def phase_k3(torch, np, muls: int, bad, host_bad):
+def phase_k3(torch, np, muls: dict, ptxas: dict, bad, host_bad):
+    """K3 against its plain version and the host tier's verdicts; returns
+    (max_err, {sets: row})."""
     from lodestar_tpu_torch.ops import cuda_tower, fp12
     from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
 
+    figs = _kernel_ptxas(ptxas, "pairing_warp_kernel")
+    rounds = muls["pairing_warp_rounds"]
+    log(f"[k3] pairing_warp_kernel: {figs.get('registers')} registers, "
+        f"{figs.get('smem')} B shared, {figs.get('stack')} B stack frame, "
+        f"{figs.get('spill_stores')} B spill stores, {figs.get('spill_loads')} B spill loads; "
+        f"{muls['pairing_warp']} Fp multiplies and {rounds} dependent rounds per set in its "
+        f"schedule, {muls['pairing_fused']} in the one-thread set; the bound counts the "
+        f"fewest a set needs, {muls['pairing_fewest']} (host counts)")
+    if figs.get("stack", 0) or figs.get("spill_stores", 0) or figs.get("spill_loads", 0):
+        raise AssertionError("K3's kernel uses a stack or spills: its launcher raises no limit")
     arrs = TorchBlsVerifier(device="cpu")._marshal(bad)
     if arrs is None:
         raise AssertionError("the tampered per-set batch did not marshal")
@@ -611,16 +669,16 @@ def phase_k3(torch, np, muls: int, bad, host_bad):
     want_ok = np.array(host_bad, bool)
     want_ok[zero] = False
     max_err = 0
-    row = None
-    stack_bytes = None
+    rows = {}
+    first_bytes = None
     for lanes in (slice(3, 7), slice(0, PER_SET_N)):
         args = [torch.as_tensor(cols[k][lanes]).to(dev) for k in names]
         n = args[0].shape[0]
         got, taken = _device_bytes_taken(torch, lambda: cuda_tower.pairing_fused_cuda(*args))
-        if stack_bytes is None:
-            stack_bytes = taken
-            log(f"[k3] first launch took {taken} B more device memory "
-                f"({taken / 2**20:.1f} MiB): the stack limit raised from K2's to K3's")
+        if first_bytes is None:
+            first_bytes = taken
+            log(f"[k3] first launch took {taken} B of device memory "
+                f"({taken / 2**20:.1f} MiB), before K2 ran")
         want = cuda_tower.pairing_fused_plain(*args)
         torch.cuda.synchronize()
         err = _canonical_err(torch, got, want)
@@ -630,15 +688,19 @@ def phase_k3(torch, np, muls: int, bad, host_bad):
         ok = fp12.is_one(got).cpu().numpy()
         if not (ok == want_ok[lanes]).all():
             raise AssertionError(f"K3's verdicts differ from the host tier's at {n} sets")
-        ms = _event_ms(torch, lambda: cuda_tower.pairing_fused_cuda(*args), 5)
+        ms = _device_ms(torch, lambda: cuda_tower.pairing_fused_cuda(*args), 20)
+        call_ms = _time_ms(torch, lambda: cuda_tower.pairing_fused_cuda(*args), 20)
         plain_ms = _event_ms(torch, lambda: cuda_tower.pairing_fused_plain(*args))
-        bound_ms, bound_by = _bound(muls, K3_BYTES_PER_SET, n)
-        row = dict(sets=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   stack_bytes=stack_bytes)
+        bound_ms, bound_by = _bound(muls["pairing_fewest"], K3_BYTES_PER_SET, n)
+        rows[n] = dict(sets=n, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, rounds=rounds, us_per_round=ms * 1e3 / rounds,
+                       schedule_fp_muls=muls["pairing_warp"], first_launch_bytes=first_bytes,
+                       ptxas=figs)
         log(f"[k3] sets={n} match=canonical verdicts=host_tier invalid={int((~ok).sum())} "
-            f"ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={bound_ms:.8f} ({bound_by}) "
-            f"share_of_bound={bound_ms / ms:.6f}")
-    return max_err, row
+            f"device_ms={ms:.6f} call_ms={call_ms:.6f} plain_ms={plain_ms:.6f} "
+            f"bound_ms={bound_ms:.8f} ({bound_by}) share_of_bound={bound_ms / ms:.6f} "
+            f"us_per_round={ms * 1e3 / rounds:.4f}")
+    return max_err, rows
 
 
 K2P_LANES = (8, 2 * 64 + 64)  # the grouped (64, 64) verdict's 2R + 64 Miller lanes
@@ -866,8 +928,8 @@ def _check_products(products: dict, counts: dict, tag: str):
 def launch_mix(torch, np, name: str, mix: Counter, kernel, plain, bound):
     """The device and call times per launch of `kernel`, the plain version's
     time and the bound, each the mean over the main path's launches (`mix`:
-    products → launches); every product count timed anew on random
-    operands."""
+    products → launches); every product count checked limb for limb
+    against the plain version and timed anew on random operands."""
     rng = np.random.default_rng(SEED + 21)
     dev = torch.device("cuda")
     total = sum(mix.values())
@@ -876,11 +938,14 @@ def launch_mix(torch, np, name: str, mix: Counter, kernel, plain, bound):
     for n, k in sorted(mix.items()):
         a = torch.as_tensor(_random_limbs(rng, n)).to(dev)
         b = torch.as_tensor(_random_limbs(rng, n)[::-1].copy()).to(dev)
+        if not torch.equal(kernel(a, b), plain(a, b)):
+            raise AssertionError(f"[{name}] the kernel differs from its plain version at "
+                                 f"{n} products")
         t = _device_ms(torch, lambda: kernel(a, b), 50)
         tc = _time_ms(torch, lambda: kernel(a, b), 50)
         tp = _time_ms(torch, lambda: plain(a, b), 3)
         bd, by = bound(n)
-        log(f"[{name}] products={n} launches={k} device_ms={t:.6f} call_ms={tc:.6f} "
+        log(f"[{name}] products={n} launches={k} match=exact device_ms={t:.6f} call_ms={tc:.6f} "
             f"plain_ms={tp:.6f} bound_ms={bd:.8f} ({by})")
         ms += k * t / total
         call_ms += k * tc / total
@@ -1208,14 +1273,15 @@ def main() -> int:
     ptxas = phase_build()
     muls = cuda_tower.fp_muls_per_lane()
     log(f"[build] Fp multiplies per lane (host harness): {json.dumps(muls)}")
-    max_err = phase_k1(torch, np)
+    max_err, k1_rows, k1_ptxas = phase_k1(torch, np, ptxas)
     k4_err, k4_rows = phase_k4(torch, np)
     fe_err, fe_rows = phase_fe(torch, np, muls, ptxas)
     k2p_err, k2p_rows = phase_k2p(torch, np, muls, ptxas)
     k2p_row = k2p_rows[K2P_LANES[-1]]
-    k2_err, k2_row = phase_k2(torch, np, muls["miller_loop"])
     sets, host_ok, bad, host_bad = per_set_batches(np)
-    k3_err, k3_row = phase_k3(torch, np, muls["pairing_fused"], bad, host_bad)
+    k3_err, k3_rows = phase_k3(torch, np, muls, ptxas, bad, host_bad)
+    k3_row = k3_rows[PER_SET_N]
+    k2_err, k2_row = phase_k2(torch, np, muls["miller_loop"])
     grouped_counts, wall, n_sets, grouped_products = phase_slice(torch, np, 64, 64)
     log(f"[slice] main path (64, 64): {wall:.3f} s per {n_sets}-set verdict, "
         f"{n_sets / wall:.1f} sets/s, launches per verdict {json.dumps(grouped_counts)}")
@@ -1234,15 +1300,17 @@ def main() -> int:
         f"bisection 3 invalid {per_set['b']['seconds']:.3f} s, K3 route "
         f"{per_set['c']['seconds']:.6f} s; script {time.perf_counter() - t_start:.1f} s")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
+    log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "
+        f"ptxas {json.dumps(k1_ptxas)}")
     log(f"[summary] k4 and k1 by products (device and call ms): {json.dumps(k4_rows)}")
-    stack = k2_row["stack_bytes"] + k3_row["stack_bytes"]
+    stack = k2_row["stack_bytes"]
     log(f"[summary] device memory held by the raised stack limit: {stack} B "
-        f"({stack / 2**30:.3f} GiB; K2 {k2_row['stack_bytes']} B, then K3 "
-        f"{k3_row['stack_bytes']} B more); the first launches of K3-fe and K2p, before them, "
-        f"took {fe_rows[FE_LANES[0]]['first_launch_bytes']} B and "
-        f"{k2p_row['first_launch_bytes']} B")
+        f"({stack / 2**30:.3f} GiB, K2's alone); the first launches of K3-fe, K2p and K3, "
+        f"before it, took {fe_rows[FE_LANES[0]]['first_launch_bytes']} B, "
+        f"{k2p_row['first_launch_bytes']} B and {k3_row['first_launch_bytes']} B")
     log(f"[summary] k3-fe by lanes: {json.dumps(fe_rows)}")
     log(f"[summary] k2p by lanes: {json.dumps(k2p_rows)}")
+    log(f"[summary] k3 by sets: {json.dumps(k3_rows)}")
 
     from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu
 
@@ -1336,6 +1404,10 @@ def main() -> int:
             "launches": per_set["d"]["counts"]["K3"],
             "max_abs_err": k3_err,
             "ms": k3_row["ms"],
+            "call_ms": k3_row["call_ms"],
+            "rounds": k3_row["rounds"],
+            "us_per_round": k3_row["us_per_round"],
+            "schedule_fp_muls": k3_row["schedule_fp_muls"],
             "plain_ms": k3_row["plain_ms"],
             "bound_ms": k3_row["bound_ms"],
             "bound_by": k3_row["bound_by"],

@@ -9,9 +9,11 @@ with `ctypes` (no Python or PyTorch headers, so a build takes seconds).
 
 - `host_tier()`: the C host tier (BLS12-381 decompression, hash-to-curve,
   signing, CPU verification) with `cc`.
-- `mont_mul_host()`: the K1 arithmetic header built for the host with
-  `c++`, for the CPU tests.
-- `mont_mul_cuda()`: kernel K1 for sm_90a with `nvcc`.
+- `mont_mul_host()`: the K1 arithmetic headers (`fp_mont.cuh`'s
+  one-thread CIOS, `fp_mont_group.cuh`'s half-warp product with its
+  shuffles emulated) built for the host with `c++`, for the CPU tests.
+- `mont_mul_cuda()`: kernel K1 for sm_90a with `nvcc`; `BUILD_LOG["mont_mul"]`
+  keeps ptxas's figures.
 - `tower_host()`: the K2/K3 arithmetic headers (`tower.cuh`, and
   `tower_warp.cuh` and `miller_warp.cuh` with their warp emulated) built
   for the host with `c++`, for the CPU tests and the kernels' operation
@@ -129,17 +131,20 @@ def host_tier() -> ctypes.CDLL:
     ))
 
 
+MONT_MUL_HEADERS = ["fp_mont.cuh", "fp_mont_group.cuh"]
+
+
 def mont_mul_host() -> ctypes.CDLL:
     return _load("mont_mul_host", lambda: build_shared(
         "mont_mul_host", find_compiler("c++", "g++", "clang++"),
         ["-O2", "-std=c++17", "-shared", "-fPIC"],
-        ["mont_mul_host.cpp"], ["fp_mont.cuh"],
+        ["mont_mul_host.cpp"], MONT_MUL_HEADERS,
     ))
 
 
 def mont_mul_cuda() -> ctypes.CDLL:
     return _load("mont_mul", lambda: build_shared(
-        "mont_mul", find_nvcc(), NVCC_FLAGS, ["mont_mul.cu"], ["fp_mont.cuh"],
+        "mont_mul", find_nvcc(), NVCC_FLAGS, ["mont_mul.cu"], MONT_MUL_HEADERS,
     ))
 
 

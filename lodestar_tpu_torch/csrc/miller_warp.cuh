@@ -24,6 +24,11 @@
 // phases per lane. Every l0, l1, l2 and T is the field element of the plain
 // loop (`_line_and_double` with zp, `_line_and_add_projq`), so the result
 // equals tower.cuh's one-thread `miller_loop_proj` limb for limb.
+//
+// K3 runs the same program (`miller_slots`) on two warps per set, loaded
+// affine at unit Z by `pairing_load`, and ends with `pairing_tail`: the
+// product of the two values, its conjugate and tower_warp.cuh's final
+// exponentiation on the first warp's slots.
 #pragma once
 
 #include <stdint.h>
@@ -120,25 +125,16 @@ TWW_INL void run_phase(Warp& w, uint32_t* S, int ph) {
 
 }  // namespace ml
 
-// conj(f_{|x|,Q}(P)) of one lane, P = (xp, yp, zp) (32,) and Q = (xq, yq,
-// zq) (2, 32) limbs homogeneous projective, as (2, 3, 2, 32) canonical
-// limbs, by the warp `w` over the ml::kSlotWords-word buffer S: the load
-// phase, the set-up, per bit of |x| after the leading one a doubling step
-// and on a set bit an addition step (one loop over the phases, so each
-// phase kind's code exists once), then f conjugated out.
-template <class Warp>
-TWW_INL void miller_proj_warp(Warp& w, uint32_t* S, const int32_t* xp, const int32_t* yp,
-                              const int32_t* zp, const int32_t* xq, const int32_t* yq,
-                              const int32_t* zq, int32_t* out) {
+// The load phase: slot t < ml::kQ + 6 (P's three coordinates, then Q's
+// six) from coord(t, x), then the zero slot and f = 1.
+template <class Warp, class Coord>
+TWW_INL void miller_load(Warp& w, uint32_t* S, Coord&& coord) {
   // slot t < 9: P and Q loaded; 9: zero; 10: f's 1; 11 .. 21: f's zeros
   w.phase([&](int t) {
     if (t >= ml::kLoaded) return;
     Fp x;
     if (t < ml::kZero) {
-      const int k = t - ml::kQ;
-      const int32_t* src = t == 0 ? xp : t == 1 ? yp : t == 2 ? zp
-                           : (k < 2 ? xq : k < 4 ? yq : zq) + fpm::kLimbs * (k & 1);
-      load_limbs(x, src);
+      coord(t, x);
     } else {
       Fp one;
       tw::consts::one(one.w);
@@ -148,6 +144,14 @@ TWW_INL void miller_proj_warp(Warp& w, uint32_t* S, const int32_t* xp, const int
     }
     st(S, t, x);
   });
+}
+
+// The Miller program over the loaded slots of S: the set-up, per bit of
+// |x| after the leading one a doubling step and on a set bit an addition
+// step (one loop over the phases, so each phase kind's code exists once).
+// f_{|x|,Q}(P) ends in slots ml::kF .. ml::kF + 11, not yet conjugated.
+template <class Warp>
+TWW_INL void miller_slots(Warp& w, uint32_t* S) {
   int ph = ml::kSetup, end = ml::kDoubling;
   int bit = 62;
   bool add_next = false;
@@ -169,6 +173,23 @@ TWW_INL void miller_proj_warp(Warp& w, uint32_t* S, const int32_t* xp, const int
     }
     ml::run_phase(w, S, ph++);
   }
+}
+
+// conj(f_{|x|,Q}(P)) of one lane, P = (xp, yp, zp) (32,) and Q = (xq, yq,
+// zq) (2, 32) limbs homogeneous projective, as (2, 3, 2, 32) canonical
+// limbs, by the warp `w` over the ml::kSlotWords-word buffer S: the load
+// phase, the program, then f conjugated out.
+template <class Warp>
+TWW_INL void miller_proj_warp(Warp& w, uint32_t* S, const int32_t* xp, const int32_t* yp,
+                              const int32_t* zp, const int32_t* xq, const int32_t* yq,
+                              const int32_t* zq, int32_t* out) {
+  miller_load(w, S, [&](int t, Fp& x) {
+    const int k = t - ml::kQ;
+    const int32_t* src = t == 0 ? xp : t == 1 ? yp : t == 2 ? zp
+                         : (k < 2 ? xq : k < 4 ? yq : zq) + fpm::kLimbs * (k & 1);
+    load_limbs(x, src);
+  });
+  miller_slots(w, S);
   w.phase([&](int t) {
     if (t >= 12) return;
     Fp x;
@@ -176,6 +197,45 @@ TWW_INL void miller_proj_warp(Warp& w, uint32_t* S, const int32_t* xp, const int
     if (t >= 6) neg(x, x);  // x < 0
     fpm::unpack(out + fpm::kLimbs * t, x.w);
   });
+}
+
+// K3's Miller lanes: the load phase of (pk, H(m)) (`g1` false) or of (-g1,
+// sig) (`g1` true, xp and yp unused), P = (xp, yp, 1) and Q = (xq, yq, 1)
+// in Montgomery form; at unit Z the projective loop is the affine one.
+template <class Warp>
+TWW_INL void pairing_load(Warp& w, uint32_t* S, bool g1, const int32_t* xp, const int32_t* yp,
+                          const int32_t* xq, const int32_t* yq) {
+  miller_load(w, S, [&](int t, Fp& x) {
+    const int k = t - ml::kQ;
+    Fp c;
+#pragma unroll
+    for (int i = 0; i < kW; i++) c.w[i] = 0;
+    if (t == 0 && g1) {
+      tw::consts::g1_x(c.w);
+    } else if (t == 1 && g1) {
+      tw::consts::g1_neg_y(c.w);
+    } else if (t == 2 || k == 4) {
+      tw::consts::one(c.w);
+    } else if (t < 2 || k < 4) {
+      load_limbs(c, t == 0 ? xp : t == 1 ? yp : (k < 2 ? xq : yq) + fpm::kLimbs * (k & 1));
+    }
+    x = c;  // k == 5: Zq's zero imaginary part
+  });
+}
+
+// K3's tail on a set's two Miller regions, f_1 in the first (S) and f_2 in
+// the second (S + ml::kSlotWords), both as miller_slots leaves them: the
+// product f_1 f_2 into the first region's slots kF, conjugated (x < 0:
+// conj(f_1) conj(f_2) = conj(f_1 f_2)), then the final exponentiation
+// there (its kSlots slots lie inside the first region) and the result out
+// as (2, 3, 2, 32) canonical limbs.
+template <class Warp>
+TWW_INL void pairing_tail(Warp& w, uint32_t* S, int32_t* out) {
+  static_assert(kSlots <= ml::kSlots, "the final exponentiation fits a Miller region");
+  fp12_mul(w, S, kF, ml::kF, ml::kSlots + ml::kF);
+  copy12(w, S, kF, kF, true);
+  final_exp_slots(w, S);
+  store12(w, S, kC, out);
 }
 
 }  // namespace tww

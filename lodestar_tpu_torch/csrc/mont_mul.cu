@@ -3,69 +3,67 @@
 // Replaces lodestar_tpu/ops/pallas_fp.py::_mont_mul_kernel, the Pallas TPU
 // kernel behind fp.mul when LODESTAR_TPU_PALLAS_MUL=1: REDC(a*b) =
 // a*b*2^-384 mod p, lazily in [0, 2p), for a, b < 2p on 32 x 12-bit int32
-// limbs. The arithmetic lives in fp_mont.cuh (CIOS on 12 x 32-bit words,
-// no final subtraction), so the result is limb for limb the 12-bit
-// word-serial REDC of the plain version in ops/cuda_fp.py.
+// limbs. The arithmetic lives in fp_mont_group.cuh (REDC on 12 x 32-bit
+// words by a group of 16 threads, no final subtraction), so the result is
+// limb for limb the 12-bit word-serial REDC of the plain version in
+// ops/cuda_fp.py and fp_mont.cuh's one-thread CIOS, which the host
+// harness keeps as its oracle.
 //
 // What bounds it on this card: one product moves 384 B (two 128 B operands
 // in, 128 B out), 0.115 ns at 3.35 TB/s, against 2 * 12^2 = 288 32-bit word
-// products (each giving a low and a high half) plus the repacking, a few
-// hundred integer instructions per thread. At the main path's shapes it is
-// bounded by neither: many calls are chains over a handful of lanes (the
-// Fermat inverse in final_exponentiation_one, the two power chains of
-// fp2_sqrt), so the launch latency is what a call costs.
+// products (each giving a low and a high half). At the main path's shapes
+// (128 to 2,048 products per launch) it is bounded by neither: a launch
+// costs the latency of one product's dependent chain plus the launch.
 //
-// Design: one thread per product. A block of 128 threads stages its 128
-// operand pairs through shared memory so that global loads and stores are
-// coalesced (consecutive threads touch consecutive 4 B words); rows are
-// padded to 33 words so that thread t reading its own row hits bank
-// (t + k) mod 32, without conflicts. The kernel launches on the caller's
-// stream, allocates nothing, and is checked with cudaGetLastError by the
-// C entry point.
+// Design: a half-warp per product, so that the chain is the 12 outer steps
+// of the multiply (each two dependent shuffles and two wide multiply-adds)
+// instead of one thread's 144-step CIOS, and so that 2,048 products are
+// 256 blocks over every SM rather than 16 blocks of one thread per
+// product. A block of 128 threads holds 8 products; lane j of a group
+// loads limbs 2j and 2j + 1 of each operand straight from device memory
+// (8 B per thread: a group's loads and its store are one 128 B row each,
+// coalesced, no shared memory). The tail group of the last block runs its
+// shuffles on zeros and skips its loads and its store, so no shuffle has
+// a missing partner. The kernel launches on the caller's stream,
+// allocates nothing, and is checked with cudaGetLastError by the C entry
+// point.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fp_mont.cuh"
+#include "fp_mont_group.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRow = fpm::kLimbs + 1;  // padded shared-memory row
+constexpr int kProducts = fpg::kProductsPerBlock;
+constexpr int kThreads = kProducts * fpg::kLanes;  // 128
+
+// The group of fp_mont_group.cuh on the card: 16 lanes of a warp's half,
+// every lane of the warp present at every exchange.
+struct DeviceGroup {
+  __device__ __forceinline__ int lane() const { return threadIdx.x & 15; }
+  __device__ __forceinline__ uint32_t shfl(uint32_t v, int src) const {
+    return __shfl_sync(0xffffffffu, v, src, fpg::kLanes);
+  }
+  __device__ __forceinline__ uint32_t shfl_down(uint32_t v, int d) const {
+    return __shfl_down_sync(0xffffffffu, v, d, fpg::kLanes);
+  }
+  __device__ __forceinline__ uint32_t shfl_up(uint32_t v, int d) const {
+    return __shfl_up_sync(0xffffffffu, v, d, fpg::kLanes);
+  }
+  __device__ __forceinline__ uint32_t ballot(bool pred) const {
+    return (__ballot_sync(0xffffffffu, pred) >> (threadIdx.x & 16)) & 0xffffu;
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                 int32_t* __restrict__ out, long long n) {
-  __shared__ int32_t sa[kThreads * kRow];
-  __shared__ int32_t sb[kThreads * kRow];
-  const long long first = (long long)blockIdx.x * kThreads;
-  const long long words = (n - first < kThreads ? n - first : kThreads) * fpm::kLimbs;
-  const long long base = first * fpm::kLimbs;
-
-  for (int w = threadIdx.x; w < words; w += kThreads) {
-    const int row = w / fpm::kLimbs, col = w % fpm::kLimbs;
-    sa[row * kRow + col] = a[base + w];
-    sb[row * kRow + col] = b[base + w];
-  }
-  __syncthreads();
-
-  if (first + threadIdx.x < n) {
-    int32_t x[fpm::kLimbs], y[fpm::kLimbs], r[fpm::kLimbs];
-#pragma unroll
-    for (int k = 0; k < fpm::kLimbs; k++) {
-      x[k] = sa[threadIdx.x * kRow + k];
-      y[k] = sb[threadIdx.x * kRow + k];
-    }
-    fpm::mont_mul_limbs(r, x, y);
-#pragma unroll
-    for (int k = 0; k < fpm::kLimbs; k++) sa[threadIdx.x * kRow + k] = r[k];
-  }
-  __syncthreads();
-
-  for (int w = threadIdx.x; w < words; w += kThreads) {
-    const int row = w / fpm::kLimbs, col = w % fpm::kLimbs;
-    out[base + w] = sa[row * kRow + col];
-  }
+  const long long i = (long long)blockIdx.x * kProducts + (threadIdx.x >> 4);
+  const bool active = i < n;
+  const long long row = active ? fpm::kLimbs * i : 0;
+  DeviceGroup g;
+  fpg::mont_mul_group(g, a + row, b + row, out + row, active);
 }
 
 }  // namespace
@@ -75,7 +73,7 @@ mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
 extern "C" int lodestar_mont_mul(const int32_t* a, const int32_t* b,
                                  int32_t* out, long long n, void* stream) {
   if (n <= 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
+  const long long blocks = (n + kProducts - 1) / kProducts;
   mont_mul_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       a, b, out, n);
   return (int)cudaGetLastError();

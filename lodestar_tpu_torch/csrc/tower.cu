@@ -8,15 +8,25 @@
 // affine P in G1 and affine Q on the twist, 63 doubling steps plus the
 // additions on the set bits of |x|.
 //
-// K3 (`pairing_kernel`) replaces lodestar_tpu/ops/pallas_tower.py::_pairing_tiles,
+// K3 (`pairing_warp_kernel`) replaces lodestar_tpu/ops/pallas_tower.py::_pairing_tiles,
 // the Pallas TPU kernel behind individual_verify_kernel when
 // LODESTAR_TPU_PALLAS_PAIRING resolves on: per signature set,
-// final_exp(ML(pk, H(m)) * ML(-g1, sig)). The two Miller loops share one
-// squaring chain (their product is the same field element), and the easy
-// part inverts per thread by Fermat instead of sharing one batch inversion
-// across a tile: the final exponentiation is one field element either way,
-// and 0 maps to 0 as under the batch's zero-lane guard. So K3 equals the
-// plain version by canonical value, not limb for limb.
+// final_exp(ML(pk, H(m)) * ML(-g1, sig)). It composes the two warp
+// programs below: two warps of one block run K2p's Miller program at unit
+// Z (the affine loop), one on (pk, H(m)) and one on (-g1, sig), side by
+// side; after the block's barrier the set's first warp multiplies the two
+// values, conjugates the product, runs K3-fe's final exponentiation on it
+// and stores (miller_warp.cuh `pairing_load`, `miller_slots`,
+// `pairing_tail`). The easy part inverts per set (the Euclid inverse)
+// instead of sharing one batch inversion, and 0 maps to 0 as under the
+// batch's zero-lane guard, so K3 equals the plain version by canonical
+// value, not limb for limb. A set needs 22,020 Fp multiplies (the
+// one-thread lane of tower.cuh, `pairing_lane`, shares one squaring chain
+// between the two loops and runs 22,629 with Fermat's inverse); the
+// schedule runs 2 x 8,182 + 54 + 10,562 in 268 + 2 + 398 dependent rounds.
+// Blocks hold one or two sets (two or four warps, 4 x 7,632 B of slots at
+// most; the final exponentiation's 7,200 B reuse the first Miller region),
+// as many as spread the sets over the SMs.
 //
 // K2p (`miller_proj_warp_kernel`) is K2 in the form the batch verdicts
 // call (pairing.miller_loop_proj_pq; XLA in the JAX package, lodestar_tpu/
@@ -25,20 +35,20 @@
 // chord through projective Q, every line scaled as the plain loop scales
 // it, one lane per WARP over miller_warp.cuh (below).
 //
-// K2 and K3 are one thread per lane over tower.cuh (fully reduced
+// K2 alone is one thread per lane, over tower.cuh (fully reduced
 // 12 x 32-bit words, CIOS multiply), which tower_host.cpp also builds for
-// the CPU tests. One K2 lane runs 8,282 Fp multiplies and one K3 set 22,629
-// (counted by the host build), each about 576 32-bit integer operations,
-// against at most 2.8 KB in and out per lane: the byte bound is two orders
-// of magnitude below the operation bound. Their tower functions are real
-// calls (__noinline__), so the working set lives on the stack, and
+// the CPU tests and as the warp kernels' oracles. One K2 lane runs 8,282
+// Fp multiplies (counted by the host build), each about 576 32-bit integer
+// operations, against 2.3 KB in and out per lane: the byte bound is two
+// orders of magnitude below the operation bound. Its tower functions are
+// real calls (__noinline__), so the working set lives on the stack, and
 // `ensure_stack` raises the device-wide stack limit before the launch.
-// That leaves most of the card idle at the path's sizes and serialises
-// every lane's multiplies on one thread's latency.
+// That leaves most of the card idle and serialises every lane's
+// multiplies on one thread's latency.
 //
-// K2p and K3-fe run one lane per warp (blocks of 1-4 warps sized from the
-// device's SM count), the lane's values in shared memory, every step split
-// into phases in which each thread does at most one register-resident Fp
+// K2p, K3-fe and K3 run one lane per warp (blocks sized from the device's
+// SM count), the lane's values in shared memory, every step split into
+// phases in which each thread does at most one register-resident Fp
 // multiply: nothing on their path is a call (no stack, no `ensure_stack`,
 // nothing in local memory), so their launchers set no device limit and
 // can be captured in a CUDA graph.
@@ -72,11 +82,10 @@
 //   canonical value.
 // - What it leaves: a round is one thread's serial 12 x 12-word FIOS plus
 //   the additions around it, issued by one warp on one of the SM's four
-//   schedulers. A limb-parallel multiply (several threads, on several
-//   warps, per product, carries exchanged through shared memory or
-//   shuffles) would shorten the round. The integer tensor cores (`wgmma`)
-//   have no use here: a round is a few dozen independent 384-bit products,
-//   not a matrix product.
+//   schedulers. A limb-parallel multiply (K1's half-warp per product,
+//   fp_mont_group.cuh, is one) would shorten the round. The integer
+//   tensor cores (`wgmma`) have no use here: a round is a few dozen
+//   independent 384-bit products, not a matrix product.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,17 +105,6 @@ miller_kernel(const int32_t* __restrict__ xp, const int32_t* __restrict__ yp,
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   tw::miller_lane(xp + 32 * i, yp + 32 * i, xq + 64 * i, yq + 64 * i, out + 384 * i);
-}
-
-__global__ void __launch_bounds__(kThreads)
-pairing_kernel(const int32_t* __restrict__ pk_x, const int32_t* __restrict__ pk_y,
-               const int32_t* __restrict__ msg_x, const int32_t* __restrict__ msg_y,
-               const int32_t* __restrict__ sig_x, const int32_t* __restrict__ sig_y,
-               int32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  tw::pairing_lane(pk_x + 32 * i, pk_y + 32 * i, msg_x + 64 * i, msg_y + 64 * i,
-                   sig_x + 64 * i, sig_y + 64 * i, out + 384 * i);
 }
 
 // The warp of tower_warp.cuh's phases on the card: every thread runs the
@@ -147,7 +145,35 @@ miller_proj_warp_kernel(const int32_t* __restrict__ xp, const int32_t* __restric
                         yq + 64 * i, zq + 64 * i, out + 384 * i);
 }
 
-// K2 and K3's tower functions are calls, so each thread needs a stack
+constexpr int kMaxSets = 2;  // the most sets per K3 block: two warps each
+
+// K3: per set, two warps of one block run the Miller program side by side
+// at unit Z, one on (pk, H(m)) and one on (-g1, sig), each over its own
+// region of ml::kSlots slots; after the block's barrier the set's first
+// warp multiplies the two values (reading the second region), conjugates,
+// runs the final exponentiation inside its own region and stores. A block
+// holds blockDim.x / 64 sets; every warp reaches the barrier, so a set
+// past n skips its work, not the barrier.
+__global__ void __launch_bounds__(64 * kMaxSets)
+pairing_warp_kernel(const int32_t* __restrict__ pk_x, const int32_t* __restrict__ pk_y,
+                    const int32_t* __restrict__ msg_x, const int32_t* __restrict__ msg_y,
+                    const int32_t* __restrict__ sig_x, const int32_t* __restrict__ sig_y,
+                    int32_t* __restrict__ out, long long n) {
+  __shared__ __align__(16) uint32_t slots[2 * kMaxSets][tww::ml::kSlotWords];
+  const int warp = threadIdx.x >> 5;
+  const long long i = (long long)blockIdx.x * (blockDim.x >> 6) + (warp >> 1);
+  const bool second = warp & 1;
+  DeviceWarp w{(int)(threadIdx.x & 31)};
+  if (i < n) {
+    tww::pairing_load(w, slots[warp], second, pk_x + 32 * i, pk_y + 32 * i,
+                      (second ? sig_x : msg_x) + 64 * i, (second ? sig_y : msg_y) + 64 * i);
+    tww::miller_slots(w, slots[warp]);
+  }
+  __syncthreads();
+  if (i < n && !second) tww::pairing_tail(w, slots[warp], out + 384 * i);
+}
+
+// K2's tower functions are calls, so each thread needs a stack
 // as deep as the deepest call chain (several Fp12 values per frame). Raise
 // the per-thread stack limit to what the kernel reports, never lower it.
 template <typename K>
@@ -185,16 +211,18 @@ int sm_count(int& sms) {
   return 0;
 }
 
-// Blocks of as many warps (one lane each) as spread n lanes over the
-// device's SMs, at most kMaxWarps: (blocks, threads per block).
-int warp_grid(long long n, unsigned& blocks, unsigned& threads) {
+// Blocks of as many lanes (`threads_per_lane` threads each) as spread n
+// lanes over the device's SMs, at most `max_lanes`: (blocks, threads per
+// block).
+int lane_grid(long long n, int max_lanes, int threads_per_lane, unsigned& blocks,
+              unsigned& threads) {
   int sms = 0;
   const int rc = sm_count(sms);
   if (rc != 0) return rc;
-  long long warps = (n + sms - 1) / sms;
-  if (warps > kMaxWarps) warps = kMaxWarps;
-  blocks = (unsigned)((n + warps - 1) / warps);
-  threads = 32 * (unsigned)warps;
+  long long lanes = (n + sms - 1) / sms;
+  if (lanes > max_lanes) lanes = max_lanes;
+  blocks = (unsigned)((n + lanes - 1) / lanes);
+  threads = threads_per_lane * (unsigned)lanes;
   return 0;
 }
 
@@ -214,17 +242,20 @@ extern "C" int lodestar_miller(const int32_t* xp, const int32_t* yp, const int32
 
 // K3: out[i] = final_exp(ML(pk_i, H_i) * ML(-g1, sig_i)) for n sets of
 // (32,) pk_x, pk_y and (2, 32) msg_x, msg_y, sig_x, sig_y int32 limbs; out
-// (n, 2, 3, 2, 32) canonical limbs, on `stream`. Returns the CUDA error of
-// the launch (0 on success).
+// (n, 2, 3, 2, 32) canonical limbs, on `stream`. Two warps per set; blocks
+// of one or two sets, as many as spread the sets over the device's SMs.
+// Sets no device limit. Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int lodestar_pairing(const int32_t* pk_x, const int32_t* pk_y,
                                 const int32_t* msg_x, const int32_t* msg_y,
                                 const int32_t* sig_x, const int32_t* sig_y, int32_t* out,
                                 long long n, void* stream) {
   if (n <= 0) return 0;
-  const int rc = ensure_stack(pairing_kernel);
+  unsigned blocks = 0, threads = 0;
+  const int rc = lane_grid(n, kMaxSets, 64, blocks, threads);
   if (rc != 0) return rc;
-  pairing_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, out, n);
+  pairing_warp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(pk_x, pk_y, msg_x, msg_y,
+                                                                    sig_x, sig_y, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -237,7 +268,7 @@ extern "C" int lodestar_miller_proj(const int32_t* xp, const int32_t* yp, const 
                                     int32_t* out, long long n, void* stream) {
   if (n <= 0) return 0;
   unsigned blocks = 0, threads = 0;
-  const int rc = warp_grid(n, blocks, threads);
+  const int rc = lane_grid(n, kMaxWarps, 32, blocks, threads);
   if (rc != 0) return rc;
   miller_proj_warp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(xp, yp, zp, xq, yq,
                                                                         zq, out, n);
@@ -251,7 +282,7 @@ extern "C" int lodestar_miller_proj(const int32_t* xp, const int32_t* yp, const 
 extern "C" int lodestar_final_exp(const int32_t* in, int32_t* out, long long n, void* stream) {
   if (n <= 0) return 0;
   unsigned blocks = 0, threads = 0;
-  const int rc = warp_grid(n, blocks, threads);
+  const int rc = lane_grid(n, kMaxWarps, 32, blocks, threads);
   if (rc != 0) return rc;
   final_exp_warp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(in, out, n);
   return (int)cudaGetLastError();

@@ -2,10 +2,11 @@
 // miller_warp.cuh) with a plain C interface, so that the CPU tests hold the
 // exact code of K2, K2p, K3 and K3-fe against the plain PyTorch versions
 // without a GPU, and so that the operation bound of the kernels can be
-// counted: this build alone defines TOWER_COUNT_MULS. The warp of K2p and
-// K3-fe is emulated: each phase runs its 32 threads one after the other,
-// in either order. The one-thread Miller lane (`tw::miller_proj_lane`) is
-// kept here as K2p's oracle.
+// counted: this build alone defines TOWER_COUNT_MULS. The warps of K2p,
+// K3-fe and K3 are emulated: each phase runs its 32 threads one after the
+// other, in either order. The one-thread lanes of tower.cuh
+// (`tw::miller_proj_lane`, `final_exp_lane`, `pairing_lane`) are kept here
+// as the warp kernels' oracles.
 // Build:
 //   c++ -O2 -std=c++17 -shared -fPIC -o libtower_host.so tower_host.cpp
 #include <stdint.h>
@@ -92,6 +93,33 @@ extern "C" void lodestar_pairing_host(const int32_t* pk_x, const int32_t* pk_y,
     tw::pairing_lane(pk_x + 32 * i, pk_y + 32 * i, msg_x + 64 * i,
                      msg_y + 64 * i, sig_x + 64 * i, sig_y + 64 * i,
                      out + 384 * i);
+}
+
+// K3 on the host, as pairing_warp_kernel runs it: per set, the two Miller
+// warps (pk, H(m)) and (-g1, sig) over two adjacent slot regions, then the
+// tail on the first, every warp emulated in thread order 0..31 (reverse =
+// 0) or 31..0; with `reverse` the second Miller warp also runs before the
+// first. The slot buffer starts filled with a pattern that depends on the
+// order, so a read of a slot before it is written shows as a difference
+// between the orders. n sets -> (n, 2, 3, 2, 32) canonical limbs.
+extern "C" void lodestar_pairing_warp_host(const int32_t* pk_x, const int32_t* pk_y,
+                                           const int32_t* msg_x, const int32_t* msg_y,
+                                           const int32_t* sig_x, const int32_t* sig_y,
+                                           int32_t* out, long long n, int reverse) {
+  static uint32_t slots[2 * tww::ml::kSlotWords];
+  for (long long i = 0; i < n; i++) {
+    for (uint32_t& v : slots) v = reverse ? 0xffffffffu : 0x5a5a5a5au;
+    for (int k = 0; k < 2; k++) {
+      const bool second = reverse ? k == 0 : k == 1;
+      HostWarp w{reverse != 0};
+      uint32_t* S = slots + (second ? tww::ml::kSlotWords : 0);
+      tww::pairing_load(w, S, second, pk_x + 32 * i, pk_y + 32 * i,
+                        (second ? sig_x : msg_x) + 64 * i, (second ? sig_y : msg_y) + 64 * i);
+      tww::miller_slots(w, S);
+    }
+    HostWarp w{reverse != 0};
+    tww::pairing_tail(w, slots, out + 384 * i);
+  }
 }
 
 // K3-fe on the host: the final exponentiation of n (2, 3, 2, 32) lanes.

@@ -814,6 +814,25 @@ TWW_INL void run_program(Warp& w, uint32_t* S) {
   }
 }
 
+// The final exponentiation of the Fp12 value already in slots kF of the
+// kSlotWords-word buffer S, by the warp `w`; the result ends in kC.
+template <class Warp>
+TWW_INL void final_exp_slots(Warp& w, uint32_t* S) {
+  fp12_inv(w, S);
+  run_program(w, S);
+}
+
+// the Fp12 value at slot `src` of S out as (2, 3, 2, 32) canonical limbs
+template <class Warp>
+TWW_INL void store12(Warp& w, const uint32_t* S, int src, int32_t* out) {
+  w.phase([&](int t) {
+    if (t >= 12) return;
+    Fp x;
+    ld(x, S, src + t);
+    fpm::unpack(out + fpm::kLimbs * t, x.w);
+  });
+}
+
 // The final exponentiation f^((p^12 - 1)/r * 3) of one (2, 3, 2, 32) limb
 // lane, canonical limbs out (zero in, zero out), by the warp `w` over the
 // kSlotWords-word buffer S.
@@ -825,14 +844,8 @@ TWW_INL void final_exp_warp(Warp& w, uint32_t* S, const int32_t* in, int32_t* ou
     load_limbs(x, in + fpm::kLimbs * t);
     st(S, kF + t, x);
   });
-  fp12_inv(w, S);
-  run_program(w, S);
-  w.phase([&](int t) {
-    if (t >= 12) return;
-    Fp x;
-    ld(x, S, kC + t);
-    fpm::unpack(out + fpm::kLimbs * t, x.w);
-  });
+  final_exp_slots(w, S);
+  store12(w, S, kC, out);
 }
 
 }  // namespace tww

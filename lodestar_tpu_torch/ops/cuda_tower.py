@@ -25,7 +25,9 @@ versions and their host builds.
 - `pairing_fused` replaces `ops/pallas_tower.py::_pairing_tiles` (reached
   through `individual_verify_kernel` when `LODESTAR_TPU_PALLAS_PAIRING`
   resolves on, as it does on a TPU). On CUDA tensors it launches
-  `pairing_kernel` or raises; on CPU tensors it runs `pairing_fused_plain`:
+  `pairing_warp_kernel` (K3: two warps per set run K2p's Miller program
+  at unit Z side by side, then one of them K3-fe's final exponentiation on
+  the product) or raises; on CPU tensors it runs `pairing_fused_plain`:
   `individual_pairing_terms` (2n plain Miller lanes, the per-set Fp12
   product) and `final_exp_plain`.
 
@@ -42,8 +44,11 @@ The `*_host` functions run the kernels' own arithmetic (`csrc/tower.cuh`,
 `csrc/tower_warp.cuh`) built for the CPU (`build.tower_host`), for the
 tests and for the operation and round counts of the kernels' bound
 (`fp_muls_per_lane`). `final_exp_host` is the one-thread final
-exponentiation that K3 runs; `final_exp_warp_host` is K3-fe's, its warp
+exponentiation of tower.cuh; `final_exp_warp_host` is K3-fe's, its warp
 emulated one thread after another in either order.
+`pairing_fused_host` is the one-thread set (`tower.cuh` `pairing_lane`),
+K3's oracle; `pairing_warp_host` is K3's own composition of the two warp
+programs, its warps emulated in either order.
 `miller_loop_proj_host` is the one-thread projective Miller lane
 (`tower.cuh` `miller_proj_lane`), K2p's oracle; `miller_loop_proj_warp_host`
 is K2p's own schedule, its warp emulated in either order.
@@ -306,6 +311,8 @@ def _host():
             fn.restype = None
         lib.lodestar_miller_proj_warp_host.argtypes = [_VP] * 7 + [_LL, ctypes.c_int]
         lib.lodestar_miller_proj_warp_host.restype = None
+        lib.lodestar_pairing_warp_host.argtypes = [_VP] * 7 + [_LL, ctypes.c_int]
+        lib.lodestar_pairing_warp_host.restype = None
         lib.lodestar_final_exp_warp_host.argtypes = [_VP, _VP, _LL, ctypes.c_int]
         lib.lodestar_final_exp_warp_host.restype = None
         lib.lodestar_fp_inv_host.argtypes = [_VP, _VP, _LL, ctypes.c_int]
@@ -356,9 +363,24 @@ def miller_loop_proj_warp_host(xp, yp, zp, xq, yq, zq, reverse: bool = False) ->
 
 
 def pairing_fused_host(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y) -> np.ndarray:
-    """K3's arithmetic on the CPU: n sets → (n, 2, 3, 2, 32)."""
+    """The one-thread fused pairing on the CPU (`tower.cuh` `pairing_lane`,
+    K3's oracle): n sets → (n, 2, 3, 2, 32)."""
     return _run_host("lodestar_pairing_host", [pk_x, pk_y, msg_x, msg_y, sig_x, sig_y],
                      int(np.shape(pk_x)[0]))
+
+
+def pairing_warp_host(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y,
+                      reverse: bool = False) -> np.ndarray:
+    """K3's arithmetic on the CPU as `pairing_warp_kernel` runs it: per set
+    the two Miller warps, then the tail, each phase's threads run 0..31 in
+    turn, or 31..0 (and the second Miller warp first) with `reverse`;
+    n sets → (n, 2, 3, 2, 32)."""
+    arrs = [_np(x) for x in (pk_x, pk_y, msg_x, msg_y, sig_x, sig_y)]
+    n = int(arrs[0].shape[0])
+    out = np.zeros((n,) + FP12_SHAPE, np.int32)
+    _host().lodestar_pairing_warp_host(*(a.ctypes.data for a in arrs), out.ctypes.data, n,
+                                       int(reverse))
+    return out
 
 
 def final_exp_host(fs) -> np.ndarray:
@@ -418,7 +440,13 @@ def fp_muls_per_lane() -> dict[str, int]:
     inverse. `miller_loop_proj` is the one-thread projective lane,
     `miller_loop_proj_warp` K2p's schedule and `miller_loop_proj_warp_rounds`
     its dependent rounds; `miller_loop_proj_fewest`, the smaller of the two
-    counts, is the count of K2p's bound."""
+    counts, is the count of K2p's bound. `pairing_fused` is the one-thread
+    set (two Miller loops on one squaring chain, Fermat's inverse),
+    `pairing_warp` K3's schedule and `pairing_warp_rounds` its dependent
+    rounds per set (the two Miller warps run side by side, so one warp's
+    rounds count once); `pairing_fewest`, the count of K3's bound, is the
+    one-thread set's Miller part (its multiplies less its final
+    exponentiation's) plus `final_exp_fewest`."""
     lib = _host()
     zp = np.zeros((1, N_LIMBS), np.int32)
     zq = np.zeros((1, 2, N_LIMBS), np.int32)
@@ -433,6 +461,10 @@ def fp_muls_per_lane() -> dict[str, int]:
     miller_rounds = warp_stats(reset=True)["rounds"]
     pairing_fused_host(zp, zp, zq, zq, zq, zq)
     pairing = int(lib.lodestar_tower_fp_muls(1))
+    warp_stats(reset=True)
+    pairing_warp_host(zp, zp, zq, zq, zq, zq)
+    pairing_warp = int(lib.lodestar_tower_fp_muls(1))
+    pairing_rounds = warp_stats(reset=True)["rounds"] - miller_rounds
     final_exp_host(np.zeros((1,) + FP12_SHAPE, np.int32))
     final_exp = int(lib.lodestar_tower_fp_muls(1))
     warp_stats(reset=True)
@@ -443,10 +475,14 @@ def fp_muls_per_lane() -> dict[str, int]:
     fermat = int(lib.lodestar_tower_fp_muls(1))
     fp_inv_host(zp, euclid=True)
     euclid = int(lib.lodestar_tower_fp_muls(1))
+    fewest_fe = final_exp - fermat + euclid
     return {"miller_loop": miller, "miller_loop_proj": miller_proj,
             "miller_loop_proj_warp": miller_proj_warp,
             "miller_loop_proj_warp_rounds": miller_rounds,
             "miller_loop_proj_fewest": min(miller_proj, miller_proj_warp),
-            "pairing_fused": pairing, "final_exp": final_exp,
+            "pairing_fused": pairing, "pairing_warp": pairing_warp,
+            "pairing_warp_rounds": pairing_rounds,
+            "pairing_fewest": pairing - final_exp + fewest_fe,
+            "final_exp": final_exp,
             "final_exp_warp": final_exp_warp, "final_exp_warp_rounds": rounds,
-            "final_exp_fewest": final_exp - fermat + euclid}
+            "final_exp_fewest": fewest_fe}
