@@ -4,7 +4,9 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. env    the card's name and power limit, the torch and CUDA versions.
+1. env    the card's name and power limit, the torch and CUDA versions, the
+          per-thread stack limit (`cudaLimitStackSize`, read through the
+          CUDA runtime with ctypes); no phase may raise it.
 2. build  K1 (`csrc/mont_mul.cu`), K2/K2p/K3/K3-fe (`csrc/tower.cu`) and K4
           (`csrc/mxu_mont.cu`), each with nvcc for sm_90a, the C host tier
           (`csrc/host/`, cc) and the K2/K3 host harness (`csrc/tower_host.cpp`,
@@ -56,8 +58,7 @@ Phases (any failure raises and the script exits non-zero):
           warp schedule) and the time per round, as for K3-fe.
 4c. k3    K3, the fused per-set pairing (two warps per set run K2p's Miller
           program at unit Z, then one of them the product and K3-fe's final
-          exponentiation), before K2, so that its first launch shows that
-          it raises no stack limit: against `pairing_fused_plain` on 4 and
+          exponentiation): against `pairing_fused_plain` on 4 and
           128 marshalled sets with three invalid sets and one zero lane,
           equal canonical values and verdicts equal to the host tier's;
           ptxas's figures of `pairing_warp_kernel` (it fails on a stack
@@ -66,13 +67,17 @@ Phases (any failure raises and the script exits non-zero):
           fewest Fp multiplies a set needs) and the time per round (the
           host build's count: one Miller warp's, the product's and the
           final exponentiation's rounds).
-5. k2     K2, the affine Miller loop, against `miller_loop_plain` on G1
-          pubkeys and H(m) points made with the host tier plus one all-zero
-          lane, at 8 and 256 lanes (the 2 × 128 Miller lanes of a 128-set
-          per-set batch): equal canonical values (tolerance 0), CUDA-event
-          times of both, the operation bound (Fp multiplies per lane counted
-          by the host harness); the device memory that K2's first launch
-          takes for the raised per-thread stack limit, the last one.
+5. k2     K2, the affine Miller loop (one warp per lane running K2p's
+          Miller program at unit Z), against `miller_loop_plain` on G1
+          pubkeys and H(m) points made with the host tier, the odd lanes'
+          coordinates in [p, 2p), plus one all-zero lane (f = 0), at 8 and
+          256 lanes (the 2 × 128 Miller lanes of a 128-set per-set batch):
+          equal canonical values (tolerance 0); ptxas's figures of
+          `miller_warp_kernel` (it fails on a stack frame or a spill),
+          first-launch memory, device time (graph replay) and call time,
+          the plain version's time, the bound (the fewer Fp multiplies per
+          lane of the one-thread lane and the schedule) and the time per
+          round; it fails if the stack limit is above its start value.
 6. slice  4096 signature sets over 64 signing roots (one slot of mainnet
           attestation gossip) made from a fixed seed with the host tier,
           verified by `TorchBlsVerifier` at the (64, 64) configuration:
@@ -100,24 +105,34 @@ Phases (any failure raises and the script exits non-zero):
 11. pairing-check  `pairing.pairing_check`, the multi-pairing primitive, over
           the 2 × 128 affine pairs of the valid and of the tampered batch:
           the path that runs K2 (one launch per check) and K3-fe.
+12. serve  the port's `DeviceBlsVerifier` facade with a recording observer:
+          `epoch_table_populate` with the phase's 128 keys (rows, device
+          bytes, seconds), `warm_h2c` over its 16 roots, one full 128-set
+          job (grouped 16 × 8) valid and with three bad signatures, then
+          `verify_signature_sets_individual` on the tampered job. Every
+          verdict equals the host tier's; no pubkey is decompressed (a spy
+          on `native.g1_decompress`: the table serves them all); the
+          observer sees two root-grouped and one individual planner path,
+          every stage, a bisection with rounds, hash-cache hits and 128
+          epoch-table hits; K2p and K3-fe launch once per batch verdict.
 
-The main-path verdicts of phases 6-11 run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-12 run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
 (per part of a split one, per chunk of a flat one), both on bisection;
 every verdict of phases 7-9 is counted so and also checks which planner
 paths ran.
 
-12. the `kernels` line, the card line, and the last line
+13. the `kernels` line, the card line, and the last line
           {"ok": true, "device": {"platform": "gpu", ...}}. K1's and K4's
           entries give their device times (`ms`) and call times
           (`call_ms`) per launch over the product counts that their
           main-path verdict gave them (the grouped (64, 64) verdict for K1,
           the pk-grouped one for K4), each count checked limb for limb and
-          timed anew. K2p's entry is timed at 192 lanes, K3-fe's at 1 and
-          K3's at 128 sets, their main-path shapes; the three also give
-          their call time, rounds, µs per round and their schedule's Fp
-          multiplies per lane.
+          timed anew. K2's entry is timed at 256 lanes, K2p's at 192,
+          K3-fe's at 1 and K3's at 128 sets, their main-path shapes; the
+          four also give their call time, rounds, µs per round and their
+          schedule's Fp multiplies per lane.
 """
 
 from __future__ import annotations
@@ -532,9 +547,10 @@ def _event_ms(torch, fn, iters: int = 1) -> float:
 
 def _device_bytes_taken(torch, fn):
     """(fn(), device bytes that the call took outside PyTorch's allocator).
-    Around a tower kernel's first launch this is the local memory that the
-    raised per-thread stack limit reserves for every resident thread (and
-    the module's code, a few hundred KB)."""
+    Around a tower kernel's first launch this is the memory the launch
+    itself takes: a raised per-thread stack limit would reserve local
+    memory for every resident thread; the lazily loaded code of the
+    module's kernel takes one 2 MiB granule or nothing."""
     torch.cuda.synchronize()
     free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
     out = fn()
@@ -580,34 +596,84 @@ def _miller_inputs(np, n: int, seed: int):
     return xp, yp, xq, yq
 
 
-def phase_k2(torch, np, muls: int):
+def stack_limit() -> int:
+    """The current device's per-thread stack limit (`cudaLimitStackSize`),
+    read through the CUDA runtime that this process loaded."""
+    import ctypes
+
+    with open("/proc/self/maps") as f:
+        paths = sorted({line.split()[-1] for line in f if "libcudart" in line})
+    lib = ctypes.CDLL(paths[0] if paths else "libcudart.so")
+    value = ctypes.c_size_t(0)
+    rc = lib.cudaDeviceGetLimit(ctypes.byref(value), 0)  # 0: cudaLimitStackSize
+    if rc != 0:
+        raise RuntimeError(f"cudaDeviceGetLimit failed: CUDA error {rc}")
+    return int(value.value)
+
+
+def _high_half(np, cols):
+    """The odd lanes' coordinates as their value plus p, in [p, 2p)."""
+    from lodestar_tpu_torch.bls.fields import P
+    from lodestar_tpu_torch.ops.limbs import int_to_limbs, limbs_to_int
+
+    for a in cols:
+        flat = a.reshape(a.shape[0], -1, 32)
+        for i in range(1, a.shape[0], 2):
+            for j in range(flat.shape[1]):
+                flat[i, j] = int_to_limbs(limbs_to_int(flat[i, j]) + P)
+    return cols
+
+
+def phase_k2(torch, np, muls: dict, ptxas: dict, stack_at_start: int):
+    """K2 against its plain version; returns (max_err, {lanes: row})."""
     from lodestar_tpu_torch.ops import cuda_tower
 
+    figs = _kernel_ptxas(ptxas, "miller_warp_kernel")
+    rounds = muls["miller_loop_warp_rounds"]
+    log(f"[k2] miller_warp_kernel: {figs.get('registers')} registers, "
+        f"{figs.get('smem')} B shared, {figs.get('stack')} B stack frame, "
+        f"{figs.get('spill_stores')} B spill stores, {figs.get('spill_loads')} B spill loads; "
+        f"{muls['miller_loop_warp']} Fp multiplies and {rounds} dependent rounds per lane in "
+        f"its schedule, {muls['miller_loop']} in the one-thread lane; the bound counts the "
+        f"fewer, {muls['miller_loop_fewest']} (host counts)")
+    if figs.get("stack", 0) or figs.get("spill_stores", 0) or figs.get("spill_loads", 0):
+        raise AssertionError("K2's kernel uses a stack or spills: its launcher raises no limit")
     dev = torch.device("cuda")
     max_err = 0
-    row = None
-    stack_bytes = None
+    rows = {}
+    first_bytes = None
     for n in K2_LANES:
-        args = [torch.as_tensor(a).to(dev) for a in _miller_inputs(np, n, SEED + n)]
+        cols = _high_half(np, list(_miller_inputs(np, n, SEED + n)))
+        args = [torch.as_tensor(a).to(dev) for a in cols]
         got, taken = _device_bytes_taken(torch, lambda: cuda_tower.miller_loop_cuda(*args))
-        if stack_bytes is None:
-            stack_bytes = taken
-            log(f"[k2] first launch took {taken} B of device memory "
-                f"({taken / 2**20:.1f} MiB): the per-thread stack limit raised for K2")
+        if first_bytes is None:
+            first_bytes = taken
+            log(f"[k2] first launch took {taken} B of device memory ({taken / 2**20:.1f} MiB)")
         want = cuda_tower.miller_loop_plain(*args)
         torch.cuda.synchronize()
         err = _canonical_err(torch, got, want)
         max_err = max(max_err, err)
         if err != 0:
             raise AssertionError(f"K2 differs from its plain version at {n} lanes")
-        ms = _event_ms(torch, lambda: cuda_tower.miller_loop_cuda(*args), 5)
+        if not bool((got[0] == 0).all()):
+            raise AssertionError("K2's all-zero lane did not give 0")
+        ms = _device_ms(torch, lambda: cuda_tower.miller_loop_cuda(*args), 20)
+        call_ms = _time_ms(torch, lambda: cuda_tower.miller_loop_cuda(*args), 20)
         plain_ms = _event_ms(torch, lambda: cuda_tower.miller_loop_plain(*args))
-        bound_ms, bound_by = _bound(muls, K2_BYTES_PER_LANE, n)
-        row = dict(lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   stack_bytes=stack_bytes)
-        log(f"[k2] lanes={n} match=canonical ms={ms:.6f} plain_ms={plain_ms:.6f} "
-            f"bound_ms={bound_ms:.8f} ({bound_by}) share_of_bound={bound_ms / ms:.6f}")
-    return max_err, row
+        bound_ms, bound_by = _bound(muls["miller_loop_fewest"], K2_BYTES_PER_LANE, n)
+        rows[n] = dict(lanes=n, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, rounds=rounds, us_per_round=ms * 1e3 / rounds,
+                       schedule_fp_muls=muls["miller_loop_warp"],
+                       first_launch_bytes=first_bytes, ptxas=figs)
+        log(f"[k2] lanes={n} match=canonical (zero lane 0, odd lanes in [p, 2p)) "
+            f"device_ms={ms:.6f} call_ms={call_ms:.6f} plain_ms={plain_ms:.6f} "
+            f"bound_ms={bound_ms:.8f} ({bound_by}) share_of_bound={bound_ms / ms:.6f} "
+            f"us_per_round={ms * 1e3 / rounds:.4f}")
+    limit = stack_limit()
+    log(f"[k2] stack limit {limit} B after the phase, {stack_at_start} B at the start")
+    if limit > stack_at_start:
+        raise AssertionError("the per-thread stack limit was raised")
+    return max_err, rows
 
 
 def _tamper_one(sets, k: int, field: str, donor: int):
@@ -678,7 +744,7 @@ def phase_k3(torch, np, muls: dict, ptxas: dict, bad, host_bad):
         if first_bytes is None:
             first_bytes = taken
             log(f"[k3] first launch took {taken} B of device memory "
-                f"({taken / 2**20:.1f} MiB), before K2 ran")
+                f"({taken / 2**20:.1f} MiB)")
         want = cuda_tower.pairing_fused_plain(*args)
         torch.cuda.synchronize()
         err = _canonical_err(torch, got, want)
@@ -776,7 +842,7 @@ def phase_k2p(torch, np, muls: dict, ptxas: dict):
         if first_bytes is None:
             first_bytes = taken
             log(f"[k2p] first launch took {taken} B of device memory "
-                f"({taken / 2**20:.1f} MiB), before K2 and K3 ran")
+                f"({taken / 2**20:.1f} MiB)")
         want = cuda_tower.miller_loop_proj_plain(*args)
         torch.cuda.synchronize()
         if not bool((got[:2] >= 0).all() & (got[:2] < 4096).all()):
@@ -1062,6 +1128,164 @@ def phase_pairing_check(torch, np, sets, host_ok, bad, host_bad):
     return result
 
 
+SERVE_ROOTS, SERVE_PER_ROOT = 16, 8  # one full 128-set job: the grouped (16, 8) shape
+
+
+class ServeObserver:
+    """A recording observer for the facade: counts of planner paths,
+    stages, cache and epoch-table events, and the bisection outcomes.
+    Thread-safe: the marshal pool's threads call it."""
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.Lock()
+        self.counts = Counter()
+        self.bisects = []
+
+    def _add(self, key, n: int = 1):
+        with self._lock:
+            self.counts[key] += n
+
+    def stage(self, name):
+        from contextlib import nullcontext
+
+        self._add(("stage", name))
+        return nullcontext()
+
+    def observe_stage(self, name, seconds):
+        self._add(("stage", name))
+
+    def planner(self, path, n_sets, group_sizes=None):
+        self._add(("planner", path))
+
+    def cache_event(self, cache, hit, n=1):
+        self._add((cache, "hit" if hit else "miss"), n)
+
+    def epoch_table_event(self, hit, n=1):
+        self._add(("epoch_table", "hit" if hit else "miss"), n)
+
+    def epoch_table_occupancy(self, rows):
+        self._add(("epoch_table", "occupancy_updates"))
+
+    def epoch_table_eviction(self, n=1):
+        self._add(("epoch_table", "eviction"), n)
+
+    def bisect(self, rounds, probes):
+        with self._lock:
+            self.bisects.append((rounds, probes))
+
+    def device_busy_sample(self, busy_s):
+        self._add(("device_busy_sample",))
+
+    def decompress_fallback(self, n=1):
+        self._add(("decompress_fallback",), n)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"/".join(k): v for k, v in sorted(self.counts.items())}
+
+
+def phase_serve(torch, np):
+    """The port's `DeviceBlsVerifier` on the card, as a serving stack calls
+    it: the epoch table populated with the phase's 128 keys, the hash
+    cache warmed over its 16 roots, then one full 128-set job (grouped
+    16 × 8) valid and with three bad signatures, and the per-set verdicts
+    of the tampered job. Every verdict equals the host tier's, every
+    pubkey comes from the table (no G1 decompression), and the observer
+    sees the planner paths and the stage, bisect and cache events."""
+    from lodestar_tpu_torch import native
+    from lodestar_tpu_torch.chain.bls_verifier import DeviceBlsVerifier
+    from lodestar_tpu_torch.profile_verdict import make_sets
+
+    tag = "[serve]"
+    sets = make_sets(SERVE_ROOTS, SERVE_PER_ROOT, seed=SEED + 50, threads=THREADS)
+    bad = sets
+    for k in (5, 64, 127):  # another key's signature over the same root
+        bad = _tamper_one(bad, k, "signature", k - 1)
+    host_ok, host_bad = _host_verdicts(sets), _host_verdicts(bad)
+    if not all(host_ok) or [i for i, ok in enumerate(host_bad) if not ok] != [5, 64, 127]:
+        raise AssertionError(f"{tag} the host tier's verdicts are not the expected ones")
+    obs = ServeObserver()
+    dev = DeviceBlsVerifier(device="cuda", observer=obs, rng=np.random.default_rng(SEED))
+    out = {}
+
+    t0 = time.perf_counter()
+    rows = dev.epoch_table_populate(0, [s.pubkey.to_bytes() for s in sets])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    snap = dev.epoch_table_snapshot()
+    table = dev._inner._epoch_table
+    out["populate"] = dict(rows=rows, device_bytes=table.device_bytes(), seconds=secs)
+    log(f"{tag} epoch_table_populate: {rows} rows, {table.device_bytes()} B on the device, "
+        f"{secs:.6f} s; snapshot {json.dumps(snap)}")
+    if rows != len(sets) or not snap["entries"][0]["device_resident"]:
+        raise AssertionError(f"{tag} the epoch table does not hold every key on the device")
+    gathered = table.gather_device(0, [0, rows - 1])
+    want = []
+    for s in (sets[0], sets[-1]):
+        rc, limbs = native.g1_decompress(s.pubkey.to_bytes(), check_subgroup=False)
+        want.append(np.concatenate(limbs))
+    if rc != 0 or not np.array_equal(gathered.cpu().numpy(), np.stack(want)):
+        raise AssertionError(f"{tag} the device rows differ from the decompressed keys")
+
+    t0 = time.perf_counter()
+    hashed = dev.warm_h2c({s.message for s in sets})
+    secs = time.perf_counter() - t0
+    out["warm_h2c"] = dict(hashed=hashed, seconds=secs)
+    log(f"{tag} warm_h2c: {hashed} roots hashed in {secs:.6f} s; cache {dev.h2c_cache_size()}")
+    if hashed != SERVE_ROOTS:
+        raise AssertionError(f"{tag} warm_h2c hashed {hashed} roots, expected {SERVE_ROOTS}")
+
+    decompressions = Counter()
+    real = native.g1_decompress
+
+    def spy(*args, **kwargs):
+        decompressions["g1"] += 1
+        return real(*args, **kwargs)
+
+    native.g1_decompress = spy
+    try:
+        for name, batch, want in (("valid", sets, True), ("three bad signatures", bad, False)):
+            got, secs, counts = _run_counted(
+                torch, lambda: dev.verify_signature_sets(batch), dev._inner)
+            log(f"{tag} {len(batch)}-set job, {name}: port {got}, host tier {want}, "
+                f"{secs:.3f} s; launches {json.dumps(counts)}")
+            if got is not want:
+                raise AssertionError(f"{tag} {name}: the port says {got}, the host tier {want}")
+            _need_main(counts, f"{tag} {name}")
+            out[name] = dict(seconds=secs, counts=counts)
+        got, secs, counts = _run_counted(
+            torch, lambda: dev.verify_signature_sets_individual(bad), dev._inner)
+        log(f"{tag} verify_signature_sets_individual: invalid at "
+            f"{[i for i, ok in enumerate(got) if not ok]} = host tier, {secs:.3f} s; "
+            f"bisection {json.dumps(dev._inner.last_bisect)}; launches {json.dumps(counts)}")
+        if got != host_bad:
+            raise AssertionError(f"{tag} the per-set verdicts differ from the host tier's")
+        _need(counts, f"{tag} individual", "K2p", "K3-fe")
+        out["individual"] = dict(seconds=secs, counts=counts, **dev._inner.last_bisect)
+    finally:
+        native.g1_decompress = real
+    seen = obs.snapshot()
+    log(f"{tag} observer {json.dumps(seen)}; bisections {obs.bisects}; "
+        f"G1 decompressions during the verdicts {decompressions['g1']}")
+    if decompressions["g1"] != 0:
+        raise AssertionError(f"{tag} a pubkey was decompressed: the table did not serve it")
+    need = {"planner/root_grouped": 2, "planner/individual": 1,
+            "epoch_table/hit": len(sets), "epoch_table/miss": 0}
+    for key, n in need.items():
+        if seen.get(key, 0) != n:
+            raise AssertionError(f"{tag} observer {key} = {seen.get(key, 0)}, expected {n}")
+    for key in ("stage/marshal", "stage/rand", "stage/dispatch", "stage/device_wait",
+                "stage/bisect", "stage/hash_to_curve", "h2c/hit"):
+        if not seen.get(key):
+            raise AssertionError(f"{tag} the observer saw no {key}")
+    if len(obs.bisects) != 1 or obs.bisects[0][0] <= 0:
+        raise AssertionError(f"{tag} expected one bisection with rounds, got {obs.bisects}")
+    out["observer"] = seen
+    return out
+
+
 def make_key_sets(np, key_ids, roots, seed: int):
     """Sets signed by key key_ids[i] over roots[i], with the secret keys
     drawn from `seed`, signed by the host tier."""
@@ -1270,6 +1494,9 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_env(torch)
+    torch.cuda.init()
+    stack_at_start = stack_limit()
+    log(f"[env] per-thread stack limit at the start: {stack_at_start} B")
     ptxas = phase_build()
     muls = cuda_tower.fp_muls_per_lane()
     log(f"[build] Fp multiplies per lane (host harness): {json.dumps(muls)}")
@@ -1281,7 +1508,8 @@ def main() -> int:
     sets, host_ok, bad, host_bad = per_set_batches(np)
     k3_err, k3_rows = phase_k3(torch, np, muls, ptxas, bad, host_bad)
     k3_row = k3_rows[PER_SET_N]
-    k2_err, k2_row = phase_k2(torch, np, muls["miller_loop"])
+    k2_err, k2_rows = phase_k2(torch, np, muls, ptxas, stack_at_start)
+    k2_row = k2_rows[K2_LANES[-1]]
     grouped_counts, wall, n_sets, grouped_products = phase_slice(torch, np, 64, 64)
     log(f"[slice] main path (64, 64): {wall:.3f} s per {n_sets}-set verdict, "
         f"{n_sets / wall:.1f} sets/s, launches per verdict {json.dumps(grouped_counts)}")
@@ -1291,6 +1519,7 @@ def main() -> int:
     split = phase_split(torch, np)
     per_set = phase_per_set(torch, np, sets, host_ok, bad, host_bad)
     checks = phase_pairing_check(torch, np, sets, host_ok, bad, host_bad)
+    serve = phase_serve(torch, np)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -1299,18 +1528,26 @@ def main() -> int:
     log(f"[summary] per-set {PER_SET_N}: bisection valid {per_set['a']['seconds']:.3f} s, "
         f"bisection 3 invalid {per_set['b']['seconds']:.3f} s, K3 route "
         f"{per_set['c']['seconds']:.6f} s; script {time.perf_counter() - t_start:.1f} s")
+    log(f"[summary] serve: populate {serve['populate']['rows']} rows "
+        f"{serve['populate']['seconds']:.6f} s, warm_h2c {serve['warm_h2c']['hashed']} roots; "
+        f"128-set job valid {serve['valid']['seconds']:.3f} s, three bad "
+        f"{serve['three bad signatures']['seconds']:.3f} s, per-set "
+        f"{serve['individual']['seconds']:.3f} s")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "
         f"ptxas {json.dumps(k1_ptxas)}")
     log(f"[summary] k4 and k1 by products (device and call ms): {json.dumps(k4_rows)}")
-    stack = k2_row["stack_bytes"]
-    log(f"[summary] device memory held by the raised stack limit: {stack} B "
-        f"({stack / 2**30:.3f} GiB, K2's alone); the first launches of K3-fe, K2p and K3, "
-        f"before it, took {fe_rows[FE_LANES[0]]['first_launch_bytes']} B, "
-        f"{k2p_row['first_launch_bytes']} B and {k3_row['first_launch_bytes']} B")
+    stack_end = stack_limit()
+    log(f"[summary] per-thread stack limit {stack_end} B at the end, {stack_at_start} B at "
+        f"the start; the first launches of K3-fe, K2p, K3 and K2 took "
+        f"{fe_rows[FE_LANES[0]]['first_launch_bytes']} B, {k2p_row['first_launch_bytes']} B, "
+        f"{k3_row['first_launch_bytes']} B and {k2_row['first_launch_bytes']} B")
+    if stack_end > stack_at_start:
+        raise AssertionError("the per-thread stack limit was raised")
     log(f"[summary] k3-fe by lanes: {json.dumps(fe_rows)}")
     log(f"[summary] k2p by lanes: {json.dumps(k2p_rows)}")
     log(f"[summary] k3 by sets: {json.dumps(k3_rows)}")
+    log(f"[summary] k2 by lanes: {json.dumps(k2_rows)}")
 
     from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu
 
@@ -1355,6 +1592,10 @@ def main() -> int:
             "launches": checks["valid"]["counts"]["K2"],
             "max_abs_err": k2_err,
             "ms": k2_row["ms"],
+            "call_ms": k2_row["call_ms"],
+            "rounds": k2_row["rounds"],
+            "us_per_round": k2_row["us_per_round"],
+            "schedule_fp_muls": k2_row["schedule_fp_muls"],
             "plain_ms": k2_row["plain_ms"],
             "bound_ms": k2_row["bound_ms"],
             "bound_by": k2_row["bound_by"],

@@ -6,7 +6,8 @@ package's four Pallas kernels as hand-written sm_90a kernels: the
 Montgomery multiply on the CUDA cores (`ops/cuda_fp.py`) and on the
 integer tensor cores (`ops/cuda_mxu.py`), the Miller loop and the fused
 per-set pairing (`ops/cuda_tower.py`).
-It imports neither JAX nor `lodestar_tpu`. The entry point is
-`parallel.verifier.TorchBlsVerifier`; it runs on the GPU unless the
+It imports neither JAX nor `lodestar_tpu`. The entry points are
+`parallel.verifier.TorchBlsVerifier` and the serving facade over it,
+`chain.bls_verifier.DeviceBlsVerifier`; they run on the GPU unless the
 caller passes `device="cpu"`.
 """

@@ -1,7 +1,7 @@
-// The projective Miller loop with one warp per lane (K2p), shared by the
-// CUDA kernel (tower.cu) and the host harness (tower_host.cpp), which
-// emulates the warp, over tower_warp.cuh's Fp operations and its `Warp`
-// phase runner.
+// The projective Miller loop with one warp per lane (K2p; K2 and K3 run it
+// at unit Z), shared by the CUDA kernels (tower.cu) and the host harness
+// (tower_host.cpp), which emulates the warp, over tower_warp.cuh's Fp
+// operations and its `Warp` phase runner.
 //
 // The lane's values live in a buffer of ml::kSlots Fp slots (12 words each,
 // fully reduced Montgomery form): P and Q as loaded, f, T, the lane's
@@ -25,10 +25,11 @@
 // loop (`_line_and_double` with zp, `_line_and_add_projq`), so the result
 // equals tower.cuh's one-thread `miller_loop_proj` limb for limb.
 //
-// K3 runs the same program (`miller_slots`) on two warps per set, loaded
-// affine at unit Z by `pairing_load`, and ends with `pairing_tail`: the
-// product of the two values, its conjugate and tower_warp.cuh's final
-// exponentiation on the first warp's slots.
+// K2 (`miller_warp`) runs the same program on one warp per affine lane,
+// loaded at unit Z by `pairing_load`. K3 runs it on two warps per set,
+// loaded so, and ends with `pairing_tail`: the product of the two values,
+// its conjugate and tower_warp.cuh's final exponentiation on the first
+// warp's slots.
 #pragma once
 
 #include <stdint.h>
@@ -175,6 +176,19 @@ TWW_INL void miller_slots(Warp& w, uint32_t* S) {
   }
 }
 
+// f_{|x|,Q}(P) out of slots ml::kF .. ml::kF + 11, as miller_slots leaves
+// it, conjugated (x < 0), as (2, 3, 2, 32) canonical limbs
+template <class Warp>
+TWW_INL void miller_store(Warp& w, const uint32_t* S, int32_t* out) {
+  w.phase([&](int t) {
+    if (t >= 12) return;
+    Fp x;
+    ld(x, S, ml::kF + t);
+    if (t >= 6) neg(x, x);
+    fpm::unpack(out + fpm::kLimbs * t, x.w);
+  });
+}
+
 // conj(f_{|x|,Q}(P)) of one lane, P = (xp, yp, zp) (32,) and Q = (xq, yq,
 // zq) (2, 32) limbs homogeneous projective, as (2, 3, 2, 32) canonical
 // limbs, by the warp `w` over the ml::kSlotWords-word buffer S: the load
@@ -190,13 +204,7 @@ TWW_INL void miller_proj_warp(Warp& w, uint32_t* S, const int32_t* xp, const int
     load_limbs(x, src);
   });
   miller_slots(w, S);
-  w.phase([&](int t) {
-    if (t >= 12) return;
-    Fp x;
-    ld(x, S, ml::kF + t);
-    if (t >= 6) neg(x, x);  // x < 0
-    fpm::unpack(out + fpm::kLimbs * t, x.w);
-  });
+  miller_store(w, S, out);
 }
 
 // K3's Miller lanes: the load phase of (pk, H(m)) (`g1` false) or of (-g1,
@@ -221,6 +229,17 @@ TWW_INL void pairing_load(Warp& w, uint32_t* S, bool g1, const int32_t* xp, cons
     }
     x = c;  // k == 5: Zq's zero imaginary part
   });
+}
+
+// K2's lane: conj(f_{|x|,Q}(P)) for affine P = (xp, yp) (32,) and Q = (xq,
+// yq) (2, 32) limbs, loaded at unit Z as K3's (pk, H(m)) warp loads them,
+// by the warp `w` over the ml::kSlotWords-word buffer S.
+template <class Warp>
+TWW_INL void miller_warp(Warp& w, uint32_t* S, const int32_t* xp, const int32_t* yp,
+                         const int32_t* xq, const int32_t* yq, int32_t* out) {
+  pairing_load(w, S, false, xp, yp, xq, yq);
+  miller_slots(w, S);
+  miller_store(w, S, out);
 }
 
 // K3's tail on a set's two Miller regions, f_1 in the first (S) and f_2 in

@@ -1,12 +1,20 @@
 // K2 and K3: the Miller loop and the fused per-set pairing on Hopper
 // (sm_90a), each with a second entry point for the batch verdicts' main
-// path (K2p, K3-fe).
+// path (K2p, K3-fe). All four run one lane per warp.
 //
-// K2 (`miller_kernel`) replaces lodestar_tpu/ops/pallas_tower.py::_miller_tiles,
+// K2 (`miller_warp_kernel`) replaces lodestar_tpu/ops/pallas_tower.py::_miller_tiles,
 // the Pallas TPU kernel behind pairing.miller_loop when
 // LODESTAR_TPU_PALLAS_MILLER resolves on (on a TPU): conj(f_{|x|,Q}(P)) for
 // affine P in G1 and affine Q on the twist, 63 doubling steps plus the
-// additions on the set bits of |x|.
+// additions on the set bits of |x|. It runs K2p's Miller program (below) at
+// unit Z: each warp loads P = (xp, yp, 1) and Q = (xq, yq, 1) as K3's
+// Miller warps do (miller_warp.cuh `pairing_load`), runs `miller_slots` and
+// stores conj(f) (`miller_store`). At Zp = Zq = 1 the projective loop is
+// the affine one line for line, so K2 equals the one-thread affine lane of
+// tower.cuh (`tw::miller_lane`, kept in the host build as its oracle) limb
+// for limb; an all-zero lane gives f = 0, as the Pallas kernel does. The
+// affine loop needs 8,282 Fp multiplies per lane on one thread, the
+// schedule 8,182 in 268 dependent rounds.
 //
 // K3 (`pairing_warp_kernel`) replaces lodestar_tpu/ops/pallas_tower.py::_pairing_tiles,
 // the Pallas TPU kernel behind individual_verify_kernel when
@@ -35,32 +43,24 @@
 // chord through projective Q, every line scaled as the plain loop scales
 // it, one lane per WARP over miller_warp.cuh (below).
 //
-// K2 alone is one thread per lane, over tower.cuh (fully reduced
-// 12 x 32-bit words, CIOS multiply), which tower_host.cpp also builds for
-// the CPU tests and as the warp kernels' oracles. One K2 lane runs 8,282
-// Fp multiplies (counted by the host build), each about 576 32-bit integer
-// operations, against 2.3 KB in and out per lane: the byte bound is two
-// orders of magnitude below the operation bound. Its tower functions are
-// real calls (__noinline__), so the working set lives on the stack, and
-// `ensure_stack` raises the device-wide stack limit before the launch.
-// That leaves most of the card idle and serialises every lane's
-// multiplies on one thread's latency.
-//
-// K2p, K3-fe and K3 run one lane per warp (blocks sized from the device's
-// SM count), the lane's values in shared memory, every step split into
-// phases in which each thread does at most one register-resident Fp
-// multiply: nothing on their path is a call (no stack, no `ensure_stack`,
-// nothing in local memory), so their launchers set no device limit and
-// can be captured in a CUDA graph.
-// - K2p: a lane's 63 doubling and 5 addition steps need 8,182 Fp multiplies
-//   (the one-thread lane of tower.cuh runs 8,493), under 0.1 us of the
-//   card's int32 rate, but as a chain: f is squared and multiplied by the
-//   line at every step. The schedule (miller_sched.cuh, generated by
-//   gen_miller_sched.py) packs them into 268 dependent rounds of at most
-//   32 products: per doubling the Fp12 squaring's 36 products, the line's
-//   second level beside its last 4, the sparse line product's 39 with the
-//   next step's first level of line products; 539 phases in all, run by
-//   one loop over tables, so each phase kind is code once.
+// The one-thread tower of tower.cuh (fully reduced 12 x 32-bit words,
+// CIOS multiply, real calls) is built by tower_host.cpp for the CPU tests
+// and as the warp kernels' oracles; no kernel here runs it. K2, K2p, K3-fe
+// and K3 run one lane per warp (blocks sized from the device's SM count),
+// the lane's values in shared memory, every step split into phases in
+// which each thread does at most one register-resident Fp multiply:
+// nothing on their path is a call (no stack, nothing in local memory), so
+// their launchers set no device limit and can be captured in a CUDA graph.
+// - K2 and K2p: a lane's 63 doubling and 5 addition steps need 8,182 Fp
+//   multiplies (the one-thread lanes of tower.cuh run 8,282 affine and
+//   8,493 projective), under 0.1 us of the card's int32 rate, but as a
+//   chain: f is squared and multiplied by the line at every step. The
+//   schedule (miller_sched.cuh, generated by gen_miller_sched.py) packs
+//   them into 268 dependent rounds of at most 32 products: per doubling
+//   the Fp12 squaring's 36 products, the line's second level beside its
+//   last 4, the sparse line product's 39 with the next step's first level
+//   of line products; 539 phases in all, run by one loop over tables, so
+//   each phase kind is code once.
 // K3-fe (`final_exp_warp_kernel`) is K3's tail in the main path's form:
 // the final exponentiation of one Fp12 lane (pairing.final_exponentiation_batch,
 // JAX lodestar_tpu/ops/pairing.py:343) per WARP, over tower_warp.cuh.
@@ -75,7 +75,7 @@
 //   phases in which each thread does at most one register-resident Fp
 //   multiply: a cyclotomic squaring is one round of 27 products, an Fp12
 //   product two rounds of 54, 398 rounds in all. Nothing on the path is a
-//   call (no stack, no `ensure_stack`, nothing in local memory), and the
+//   call (no stack, nothing in local memory), and the
 //   easy part's one Fp inversion is a variable-time binary extended Euclid
 //   on thread 0 instead of Fermat's chain of 610 dependent
 //   multiplies. It equals the batch form, which shares one inversion, by
@@ -90,22 +90,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tower.cuh"
 #include "miller_warp.cuh"
 #include "tower_warp.cuh"
 
 namespace {
-
-constexpr int kThreads = 32;
-
-__global__ void __launch_bounds__(kThreads)
-miller_kernel(const int32_t* __restrict__ xp, const int32_t* __restrict__ yp,
-              const int32_t* __restrict__ xq, const int32_t* __restrict__ yq,
-              int32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  tw::miller_lane(xp + 32 * i, yp + 32 * i, xq + 64 * i, yq + 64 * i, out + 384 * i);
-}
 
 // The warp of tower_warp.cuh's phases on the card: every thread runs the
 // phase for its lane index, then the warp synchronises, which also orders
@@ -119,7 +107,7 @@ struct DeviceWarp {
   }
 };
 
-constexpr int kMaxWarps = 4;  // the most warps (lanes) per K2p or K3-fe block
+constexpr int kMaxWarps = 4;  // the most warps (lanes) per K2, K2p or K3-fe block
 
 __global__ void __launch_bounds__(32 * kMaxWarps)
 final_exp_warp_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long n) {
@@ -143,6 +131,20 @@ miller_proj_warp_kernel(const int32_t* __restrict__ xp, const int32_t* __restric
   DeviceWarp w{(int)(threadIdx.x & 31)};
   tww::miller_proj_warp(w, slots[warp], xp + 32 * i, yp + 32 * i, zp + 32 * i, xq + 64 * i,
                         yq + 64 * i, zq + 64 * i, out + 384 * i);
+}
+
+// K2: one warp per lane, as K2p, the lane loaded at unit Z
+__global__ void __launch_bounds__(32 * kMaxWarps)
+miller_warp_kernel(const int32_t* __restrict__ xp, const int32_t* __restrict__ yp,
+                   const int32_t* __restrict__ xq, const int32_t* __restrict__ yq,
+                   int32_t* __restrict__ out, long long n) {
+  __shared__ __align__(16) uint32_t slots[kMaxWarps][tww::ml::kSlotWords];
+  const int warp = threadIdx.x >> 5;
+  const long long i = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (i >= n) return;  // the whole warp: nothing below waits on another warp
+  DeviceWarp w{(int)(threadIdx.x & 31)};
+  tww::miller_warp(w, slots[warp], xp + 32 * i, yp + 32 * i, xq + 64 * i, yq + 64 * i,
+                   out + 384 * i);
 }
 
 constexpr int kMaxSets = 2;  // the most sets per K3 block: two warps each
@@ -172,26 +174,6 @@ pairing_warp_kernel(const int32_t* __restrict__ pk_x, const int32_t* __restrict_
   __syncthreads();
   if (i < n && !second) tww::pairing_tail(w, slots[warp], out + 384 * i);
 }
-
-// K2's tower functions are calls, so each thread needs a stack
-// as deep as the deepest call chain (several Fp12 values per frame). Raise
-// the per-thread stack limit to what the kernel reports, never lower it.
-template <typename K>
-int ensure_stack(K kernel) {
-  cudaFuncAttributes attr;
-  cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
-  if (rc != cudaSuccess) return (int)rc;
-  size_t cur = 0;
-  rc = cudaDeviceGetLimit(&cur, cudaLimitStackSize);
-  if (rc != cudaSuccess) return (int)rc;
-  if (attr.localSizeBytes > cur) {
-    rc = cudaDeviceSetLimit(cudaLimitStackSize, attr.localSizeBytes);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  return 0;
-}
-
-unsigned grid_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 constexpr int kMaxDevices = 64;
 
@@ -230,13 +212,16 @@ int lane_grid(long long n, int max_lanes, int threads_per_lane, unsigned& blocks
 
 // K2: out[i] = conj(f_{|x|,Q_i}(P_i)) for n lanes of (32,) xp, yp and
 // (2, 32) xq, yq int32 limbs; out (n, 2, 3, 2, 32) canonical limbs, on
-// `stream`. Returns the CUDA error of the launch (0 on success).
+// `stream`. One warp per lane; blocks of as many warps as spread the lanes
+// over the device's SMs, at most 4. Sets no device limit. Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int lodestar_miller(const int32_t* xp, const int32_t* yp, const int32_t* xq,
                                const int32_t* yq, int32_t* out, long long n, void* stream) {
   if (n <= 0) return 0;
-  const int rc = ensure_stack(miller_kernel);
+  unsigned blocks = 0, threads = 0;
+  const int rc = lane_grid(n, kMaxWarps, 32, blocks, threads);
   if (rc != 0) return rc;
-  miller_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(xp, yp, xq, yq, out, n);
+  miller_warp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(xp, yp, xq, yq, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,11 @@
 // The BLS12-381 tower, the optimal ate Miller loop and the final
-// exponentiation on 12 x 32-bit words: one thread per lane for the CUDA
-// kernel K2 (tower.cu), the types and constants of K2p's, K3-fe's and
-// K3's warp schedules (miller_warp.cuh, tower_warp.cuh), and the host
-// harness (tower_host.cpp) that the CPU tests build with a C++ compiler,
-// where the one-thread lanes of K2p (`miller_proj_lane`), K3-fe
+// exponentiation on 12 x 32-bit words, one thread per lane: the types and
+// constants of K2's, K2p's, K3-fe's and K3's warp schedules
+// (miller_warp.cuh, tower_warp.cuh, run by tower.cu), and the host harness
+// (tower_host.cpp) that the CPU tests build with a C++ compiler, where the
+// one-thread lanes of K2 (`miller_lane`), K2p (`miller_proj_lane`), K3-fe
 // (`final_exp_lane`) and K3 (`pairing_lane`) stay as their oracles and
-// give their bounds' counts.
+// give their bounds' counts. No kernel runs a one-thread lane.
 //
 // Representation: an Fp element is 12 little-endian 32-bit words in
 // Montgomery form (R = 2^384), the value of the tensor tower's 32 x 12-bit
@@ -31,10 +31,9 @@
 // zero out: the zero-lane guard of `final_exponentiation_batch`) and the
 // HHT hard part with Granger-Scott cyclotomic squarings (pairing^3).
 //
-// In device code every non-trivial function is __noinline__: K2 is one
-// thread per lane, and inlining the whole loop would make code of
-// hundreds of thousands of instructions (slow to compile, no faster while
-// the working set lives in local memory anyway). Defining TOWER_COUNT_MULS
+// In device code every non-trivial function is __noinline__: inlining a
+// whole one-thread loop would make code of hundreds of thousands of
+// instructions, and no kernel calls one. Defining TOWER_COUNT_MULS
 // (the host harness does) counts Fp multiplies in `tw_fp_muls`, which gives
 // the kernels' operation bound.
 #pragma once

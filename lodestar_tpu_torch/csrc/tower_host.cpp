@@ -2,11 +2,11 @@
 // miller_warp.cuh) with a plain C interface, so that the CPU tests hold the
 // exact code of K2, K2p, K3 and K3-fe against the plain PyTorch versions
 // without a GPU, and so that the operation bound of the kernels can be
-// counted: this build alone defines TOWER_COUNT_MULS. The warps of K2p,
-// K3-fe and K3 are emulated: each phase runs its 32 threads one after the
-// other, in either order. The one-thread lanes of tower.cuh
-// (`tw::miller_proj_lane`, `final_exp_lane`, `pairing_lane`) are kept here
-// as the warp kernels' oracles.
+// counted: this build alone defines TOWER_COUNT_MULS. The warps of K2,
+// K2p, K3-fe and K3 are emulated: each phase runs its 32 threads one after
+// the other, in either order. The one-thread lanes of tower.cuh
+// (`tw::miller_lane`, `miller_proj_lane`, `final_exp_lane`, `pairing_lane`)
+// are kept here as the warp kernels' oracles.
 // Build:
 //   c++ -O2 -std=c++17 -shared -fPIC -o libtower_host.so tower_host.cpp
 #include <stdint.h>
@@ -25,7 +25,7 @@ unsigned long long tw_warp_phases = 0, tw_warp_rounds = 0, tw_warp_overfull = 0;
 
 namespace {
 
-// the warp of K2p and K3-fe on the host: phase f runs for tid 0..31, or 31..0
+// the warp of the tower kernels on the host: phase f runs for tid 0..31, or 31..0
 struct HostWarp {
   bool reverse;
   template <class F>
@@ -45,14 +45,33 @@ struct HostWarp {
 
 }  // namespace
 
-// K2 on the host: n lanes of (32,) xp, yp and (2, 32) xq, yq limbs ->
-// (n, 2, 3, 2, 32) canonical limbs.
+// K2's one-thread oracle on the host (`tw::miller_lane`, the affine loop):
+// n lanes of (32,) xp, yp and (2, 32) xq, yq limbs -> (n, 2, 3, 2, 32)
+// canonical limbs.
 extern "C" void lodestar_miller_host(const int32_t* xp, const int32_t* yp,
                                      const int32_t* xq, const int32_t* yq,
                                      int32_t* out, long long n) {
   for (long long i = 0; i < n; i++)
     tw::miller_lane(xp + 32 * i, yp + 32 * i, xq + 64 * i, yq + 64 * i,
                     out + 384 * i);
+}
+
+// K2 on the host, as miller_warp_kernel runs it, the warp emulated in
+// thread order 0..31 (reverse = 0) or 31..0: n lanes of (32,) xp, yp and
+// (2, 32) xq, yq limbs loaded at unit Z -> (n, 2, 3, 2, 32) canonical
+// limbs. The slot buffer starts filled with a pattern that depends on the
+// order, so a read of a slot before it is written shows as a difference
+// between the orders.
+extern "C" void lodestar_miller_warp_host(const int32_t* xp, const int32_t* yp,
+                                          const int32_t* xq, const int32_t* yq,
+                                          int32_t* out, long long n, int reverse) {
+  uint32_t slots[tww::ml::kSlotWords];
+  for (long long i = 0; i < n; i++) {
+    for (int k = 0; k < tww::ml::kSlotWords; k++) slots[k] = reverse ? 0xffffffffu : 0x5a5a5a5au;
+    HostWarp w{reverse != 0};
+    tww::miller_warp(w, slots, xp + 32 * i, yp + 32 * i, xq + 64 * i, yq + 64 * i,
+                     out + 384 * i);
+  }
 }
 
 // K2p's one-thread oracle on the host: n lanes of projective P (32,) xp, yp, zp and Q (2, 32)

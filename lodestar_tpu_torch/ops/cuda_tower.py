@@ -5,10 +5,11 @@ versions and their host builds.
 - `miller_loop_kernel` replaces the JAX package's Pallas kernel
   `ops/pallas_tower.py::_miller_tiles` (reached through `pairing.miller_loop`
   when `LODESTAR_TPU_PALLAS_MILLER` resolves on, as it does on a TPU: the
-  port hard-codes that default). On CUDA tensors it launches `miller_kernel`
-  of `csrc/tower.cu` (built at first use by `build.tower_cuda`) or raises;
-  on CPU tensors it runs `miller_loop_plain`, `pairing._miller_loop_impl`
-  on affine P and Q.
+  port hard-codes that default). On CUDA tensors it launches
+  `miller_warp_kernel` of `csrc/tower.cu` (built at first use by
+  `build.tower_cuda`; one warp per lane running K2p's Miller program with
+  P and Q loaded at unit Z) or raises; on CPU tensors it runs
+  `miller_loop_plain`, `pairing._miller_loop_impl` on affine P and Q.
 - `miller_loop_proj_kernel` is K2 in the form the batch verdicts and the
   bisection tree call (`pairing.miller_loop_proj_pq`, P and Q homogeneous
   projective; XLA in the JAX package, whose Pallas kernel takes affine
@@ -52,6 +53,9 @@ programs, its warps emulated in either order.
 `miller_loop_proj_host` is the one-thread projective Miller lane
 (`tower.cuh` `miller_proj_lane`), K2p's oracle; `miller_loop_proj_warp_host`
 is K2p's own schedule, its warp emulated in either order.
+`miller_loop_host` is the one-thread affine lane (`tower.cuh`
+`miller_lane`), K2's oracle; `miller_loop_warp_host` is K2's own kernel
+body, the schedule at unit Z, its warp emulated in either order.
 """
 
 from __future__ import annotations
@@ -309,6 +313,8 @@ def _host():
             fn = getattr(lib, name)
             fn.argtypes = [_VP] * n_ptr + [_LL]
             fn.restype = None
+        lib.lodestar_miller_warp_host.argtypes = [_VP] * 5 + [_LL, ctypes.c_int]
+        lib.lodestar_miller_warp_host.restype = None
         lib.lodestar_miller_proj_warp_host.argtypes = [_VP] * 7 + [_LL, ctypes.c_int]
         lib.lodestar_miller_proj_warp_host.restype = None
         lib.lodestar_pairing_warp_host.argtypes = [_VP] * 7 + [_LL, ctypes.c_int]
@@ -332,16 +338,26 @@ def _np(x) -> np.ndarray:
     return np.ascontiguousarray(x, dtype=np.int32)
 
 
-def _run_host(name: str, ins: list, n: int) -> np.ndarray:
+def _run_host(name: str, ins: list, n: int, *extra) -> np.ndarray:
     arrs = [_np(x) for x in ins]
     out = np.zeros((n,) + FP12_SHAPE, np.int32)
-    getattr(_host(), name)(*(a.ctypes.data for a in arrs), out.ctypes.data, n)
+    getattr(_host(), name)(*(a.ctypes.data for a in arrs), out.ctypes.data, n, *extra)
     return out
 
 
 def miller_loop_host(xp, yp, xq, yq) -> np.ndarray:
-    """K2's arithmetic on the CPU: (n, 32) ×2, (n, 2, 32) ×2 → (n, 2, 3, 2, 32)."""
+    """K2's one-thread oracle on the CPU (`tower.cuh` `miller_lane`):
+    (n, 32) ×2, (n, 2, 32) ×2 → (n, 2, 3, 2, 32)."""
     return _run_host("lodestar_miller_host", [xp, yp, xq, yq], int(np.shape(xp)[0]))
+
+
+def miller_loop_warp_host(xp, yp, xq, yq, reverse: bool = False) -> np.ndarray:
+    """K2's arithmetic on the CPU as `miller_warp_kernel` runs it (K2p's
+    schedule, P and Q loaded at unit Z), its warp emulated: each phase runs
+    thread 0..31 in turn, or 31..0 with `reverse`; (n, 32) ×2, (n, 2, 32)
+    ×2 → (n, 2, 3, 2, 32)."""
+    return _run_host("lodestar_miller_warp_host", [xp, yp, xq, yq], int(np.shape(xp)[0]),
+                     int(reverse))
 
 
 def miller_loop_proj_host(xp, yp, zp, xq, yq, zq) -> np.ndarray:
@@ -354,12 +370,8 @@ def miller_loop_proj_warp_host(xp, yp, zp, xq, yq, zq, reverse: bool = False) ->
     """K2p's arithmetic on the CPU, its warp emulated: each phase runs
     thread 0..31 in turn, or 31..0 with `reverse`; (n, 32) ×3, (n, 2, 32)
     ×3 → (n, 2, 3, 2, 32)."""
-    arrs = [_np(x) for x in (xp, yp, zp, xq, yq, zq)]
-    n = int(arrs[0].shape[0])
-    out = np.zeros((n,) + FP12_SHAPE, np.int32)
-    _host().lodestar_miller_proj_warp_host(*(a.ctypes.data for a in arrs), out.ctypes.data, n,
-                                           int(reverse))
-    return out
+    return _run_host("lodestar_miller_proj_warp_host", [xp, yp, zp, xq, yq, zq],
+                     int(np.shape(xp)[0]), int(reverse))
 
 
 def pairing_fused_host(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y) -> np.ndarray:
@@ -375,12 +387,8 @@ def pairing_warp_host(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y,
     the two Miller warps, then the tail, each phase's threads run 0..31 in
     turn, or 31..0 (and the second Miller warp first) with `reverse`;
     n sets → (n, 2, 3, 2, 32)."""
-    arrs = [_np(x) for x in (pk_x, pk_y, msg_x, msg_y, sig_x, sig_y)]
-    n = int(arrs[0].shape[0])
-    out = np.zeros((n,) + FP12_SHAPE, np.int32)
-    _host().lodestar_pairing_warp_host(*(a.ctypes.data for a in arrs), out.ctypes.data, n,
-                                       int(reverse))
-    return out
+    return _run_host("lodestar_pairing_warp_host", [pk_x, pk_y, msg_x, msg_y, sig_x, sig_y],
+                     int(np.shape(pk_x)[0]), int(reverse))
 
 
 def final_exp_host(fs) -> np.ndarray:
@@ -391,11 +399,7 @@ def final_exp_host(fs) -> np.ndarray:
 def final_exp_warp_host(fs, reverse: bool = False) -> np.ndarray:
     """K3-fe's arithmetic on the CPU, per lane, its warp emulated: each
     phase runs thread 0..31 in turn, or 31..0 with `reverse`."""
-    a = _np(fs)
-    n = int(a.shape[0])
-    out = np.zeros((n,) + FP12_SHAPE, np.int32)
-    _host().lodestar_final_exp_warp_host(a.ctypes.data, out.ctypes.data, n, int(reverse))
-    return out
+    return _run_host("lodestar_final_exp_warp_host", [fs], int(np.shape(fs)[0]), int(reverse))
 
 
 def fp_inv_host(x, euclid: bool = True) -> np.ndarray:
@@ -437,7 +441,11 @@ def fp_muls_per_lane() -> dict[str, int]:
     the final exponentiation needs among the repo's schedules, the count
     of K3-fe's bound: the one-thread lane (`final_exp`, 18 products per
     cyclotomic squaring) with its Fermat inverse replaced by the Euclid
-    inverse. `miller_loop_proj` is the one-thread projective lane,
+    inverse. `miller_loop` is the one-thread affine lane and
+    `miller_loop_warp` K2's kernel (the schedule at unit Z) and
+    `miller_loop_warp_rounds` its dependent rounds;
+    `miller_loop_fewest`, the smaller of the two, is the count of K2's
+    bound. `miller_loop_proj` is the one-thread projective lane,
     `miller_loop_proj_warp` K2p's schedule and `miller_loop_proj_warp_rounds`
     its dependent rounds; `miller_loop_proj_fewest`, the smaller of the two
     counts, is the count of K2p's bound. `pairing_fused` is the one-thread
@@ -453,6 +461,10 @@ def fp_muls_per_lane() -> dict[str, int]:
     lib.lodestar_tower_fp_muls(1)
     miller_loop_host(zp, zp, zq, zq)
     miller = int(lib.lodestar_tower_fp_muls(1))
+    warp_stats(reset=True)
+    miller_loop_warp_host(zp, zp, zq, zq)
+    miller_warp = int(lib.lodestar_tower_fp_muls(1))
+    miller_warp_rounds = warp_stats(reset=True)["rounds"]
     miller_loop_proj_host(zp, zp, zp, zq, zq, zq)
     miller_proj = int(lib.lodestar_tower_fp_muls(1))
     warp_stats(reset=True)
@@ -476,7 +488,10 @@ def fp_muls_per_lane() -> dict[str, int]:
     fp_inv_host(zp, euclid=True)
     euclid = int(lib.lodestar_tower_fp_muls(1))
     fewest_fe = final_exp - fermat + euclid
-    return {"miller_loop": miller, "miller_loop_proj": miller_proj,
+    return {"miller_loop": miller, "miller_loop_warp": miller_warp,
+            "miller_loop_warp_rounds": miller_warp_rounds,
+            "miller_loop_fewest": min(miller, miller_warp),
+            "miller_loop_proj": miller_proj,
             "miller_loop_proj_warp": miller_proj_warp,
             "miller_loop_proj_warp_rounds": miller_rounds,
             "miller_loop_proj_fewest": min(miller_proj, miller_proj_warp),

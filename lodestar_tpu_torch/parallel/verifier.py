@@ -62,6 +62,7 @@ import torch
 
 from ..bls.api import DST_G2
 from ..device import resolve_device
+from ..observability.stages import NULL_OBSERVER
 from ..ops import cuda_tower, fp, fp2, fp12, msm
 from ..ops.g2_decompress import decompress, planes_in_subgroup
 from ..ops.pairing import (
@@ -80,6 +81,7 @@ from ..ops.points import (
     g2,
     g2_psi,
 )
+from .epoch_table import EpochPubkeyTable
 
 N_LIMBS = 32
 R_BITS = 64  # the per-set random coefficients of the bisection tree
@@ -568,7 +570,22 @@ class TorchBlsVerifier:
     accumulates host time per stage (marshal, hash_to_curve, rand,
     dispatch, device_wait, bisect; hash_to_curve sums the seconds of the
     marshal pool's threads); `last_bisect` holds the rounds and probes of
-    the last per-set call."""
+    the last per-set call.
+
+    `observer` (duck-typed, as the JAX package's `PipelineMetrics`; by
+    default `NullObserver`) is called where `TpuBlsVerifier` calls its
+    observer: stage timers, planner paths, h2c and pk cache events,
+    device-wait and busy samples, bisection outcomes, and through the
+    epoch table its events. It is called from the marshal pool's threads
+    too, so it must be thread-safe, as `PipelineMetrics` is. `faults`
+    (duck-typed, as the JAX package's `testing.faults`; by default none)
+    is called as `on_device_dispatch(n)` before each dispatch and
+    `flaky_verdict(v)` / `flaky_verdicts(vs)` on each verdict. The epoch
+    pubkey table is on (the JAX package's LODESTAR_TPU_EPOCH_TABLE
+    default), and so is device decompression of the signatures
+    (LODESTAR_TPU_DEVICE_DECOMPRESS: `_device_decompress`, hard-coded)."""
+
+    _device_decompress = True
 
     def __init__(
         self,
@@ -576,8 +593,12 @@ class TorchBlsVerifier:
         grouped_configs: tuple[tuple[int, int], ...] = ((16, 8), (64, 64)),
         rng=None,
         pk_grouped_configs: tuple[tuple[int, int], ...] = ((128, 32),),
+        observer=None,
+        faults=None,
     ):
         self.device = resolve_device(device)
+        self.observer = observer if observer is not None else NULL_OBSERVER
+        self._faults = faults
         self.grouped_configs = tuple(sorted(grouped_configs, key=lambda c: c[0] * c[1]))
         self.pk_grouped_configs = tuple(sorted(pk_grouped_configs, key=lambda c: c[0] * c[1]))
         for _, lanes in self.grouped_configs + self.pk_grouped_configs:
@@ -597,11 +618,34 @@ class TorchBlsVerifier:
         self._pk_lock = threading.Lock()
         self.stage_seconds: dict[str, float] = {}
         self._stage_lock = threading.Lock()
+        # decompressed G1 limbs of the active validator set, per epoch:
+        # `_pk_rows` consults it before paying for a decompression
+        self._epoch_table = EpochPubkeyTable(observer=self.observer, device=self.device)
 
-    def _stage(self, name: str, t0: float) -> None:
-        dt = time.perf_counter() - t0
+    def _add_stage(self, name: str, dt: float) -> None:
         with self._stage_lock:  # the marshal pool's threads add hash_to_curve
             self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + dt
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """The observer's stage timer around the block, whose host seconds
+        also go to `stage_seconds`."""
+        t0 = time.perf_counter()
+        with self.observer.stage(name):
+            yield
+        self._add_stage(name, time.perf_counter() - t0)
+
+    # -- fault-injection seam --------------------------------------------------
+
+    def _on_device_dispatch(self, n_sets: int) -> None:
+        if self._faults is not None:
+            self._faults.on_device_dispatch(n_sets)
+
+    def _flaky(self, verdict: bool) -> bool:
+        return verdict if self._faults is None else self._faults.flaky_verdict(verdict)
+
+    def _flaky_all(self, verdicts: list[bool]) -> list[bool]:
+        return verdicts if self._faults is None else self._faults.flaky_verdicts(verdicts)
 
     # -- host marshalling ---------------------------------------------------
 
@@ -612,10 +656,10 @@ class TorchBlsVerifier:
 
         with self._h2c_lock:
             hit = self._h2c_cache.get(key)
+        self.observer.cache_event("h2c", hit is not None)
         if hit is None:
-            t0 = time.perf_counter()
-            rc, limbs = native.hash_to_g2(key, DST_G2)
-            self._stage("hash_to_curve", t0)
+            with self._stage("hash_to_curve"):
+                rc, limbs = native.hash_to_g2(key, DST_G2)
             if rc != 0:
                 return None
             hit = (limbs[0], limbs[1])
@@ -628,8 +672,9 @@ class TorchBlsVerifier:
 
     def _pk_rows(self, sets):
         """(pk_x, pk_y) rows for every set via the pubkey cache; None if any
-        pubkey is malformed or infinity. A miss pays one C-tier G1
-        decompression without the subgroup check, as the JAX path does."""
+        pubkey is malformed or infinity. A miss looks in the epoch table,
+        then pays one C-tier G1 decompression without the subgroup check,
+        as the JAX path does."""
         from .. import native
 
         try:
@@ -639,8 +684,18 @@ class TorchBlsVerifier:
         with self._pk_lock:
             rows = [self._pk_cache.get(k) for k in keys]
         misses = {k for k, r in zip(keys, rows) if r is None}
+        self.observer.cache_event("pk", True, n=len(keys) - len(misses))
+        self.observer.cache_event("pk", False, n=len(misses))
         if misses:
             fresh = {}
+            # the epoch table first: a hit is a copy off its host mirror
+            # instead of an Fp square root
+            if self._epoch_table is not None:
+                miss_keys = list(misses)
+                for k, row in zip(miss_keys, self._epoch_table.lookup_rows(miss_keys)):
+                    if row is not None:
+                        fresh[k] = row
+                        misses.discard(k)
             for k in misses:
                 if len(k) != 48:
                     return None
@@ -657,6 +712,52 @@ class TorchBlsVerifier:
             rows = [r if r is not None else fresh[k] for k, r in zip(keys, rows)]
         packed = np.stack(rows)
         return packed[:, :N_LIMBS], packed[:, N_LIMBS:]
+
+    # -- epoch-scoped precomputation --------------------------------------------
+
+    def warm_h2c(self, messages) -> int:
+        """Fill the hash-to-curve cache for 32-byte signing roots (the lane
+        dispatcher's H(m) dedup seam: one hash per unique root of a
+        coalesced flush); returns the number of roots hashed (misses)."""
+        hashed = 0
+        for m in messages:
+            if len(m) != 32:
+                continue
+            with self._h2c_lock:
+                hit = m in self._h2c_cache
+            if not hit:
+                if self._hash_root(m) is not None:
+                    hashed += 1
+        return hashed
+
+    def epoch_table_populate(self, epoch: int, pubkeys) -> int:
+        """Install one epoch's entry of the pubkey table from compressed
+        pubkey bytes (the node calls this at the epoch transition with the
+        active validator set), each decompressed once here, off the
+        dispatch path, or taken from `_pk_cache`; malformed and infinity
+        keys are skipped. Returns the rows installed."""
+        from .. import native
+
+        if self._epoch_table is None:
+            return 0
+        items = []
+        for k in pubkeys:
+            k = bytes(k)
+            with self._pk_lock:
+                row = self._pk_cache.get(k)
+            if row is None:
+                rc, limbs = native.g1_decompress(k, check_subgroup=False)
+                if rc != 0:
+                    continue
+                row = np.concatenate((limbs[0], limbs[1]))
+            items.append((k, row))
+        return self._epoch_table.populate(epoch, items)
+
+    def epoch_table_snapshot(self):
+        """The epoch table's state (`/debug/epoch_table`)."""
+        if self._epoch_table is None:
+            return {"enabled": False}
+        return self._epoch_table.snapshot()
 
     @staticmethod
     def _plan_runs(keys, configs):
@@ -791,104 +892,114 @@ class TorchBlsVerifier:
         resolver for the verdict. The planner's order is the JAX package's:
         root-grouped, pk-grouped, split (shared roots grouped, the rest
         pk-grouped or flat), flat."""
+        self._on_device_dispatch(len(sets))
         if sets and self._native_eligible(sets):
             plan = self._plan_groups(sets)
             if plan is not None:
-                return self._resolver(self._submit_grouped(sets, plan))
+                t = time.perf_counter()
+                return self._resolver(self._submit_grouped(sets, plan), t)
             pk_plan = self._plan_pk_groups(sets)
             if pk_plan is not None:
-                return self._resolver(self._submit_pk_grouped(sets, pk_plan))
+                t = time.perf_counter()
+                return self._resolver(self._submit_pk_grouped(sets, pk_plan), t)
             shared, unique = self._split_shared_unique(sets)
             if shared and unique:
                 shared_sets = [sets[i] for i in shared]
                 sub_plan = self._plan_groups(shared_sets)
                 if sub_plan is not None:
+                    # the parts also count under their own paths
+                    self.observer.planner("split", len(sets))
+                    t = time.perf_counter()
                     grouped = self._submit_grouped(shared_sets, sub_plan)
                     if grouped is None:
                         return lambda: False
                     unique_sets = [sets[i] for i in unique]
                     pk_plan = self._plan_pk_groups(unique_sets)
                     if pk_plan is not None:
-                        rest = self._resolver(self._submit_pk_grouped(unique_sets, pk_plan))
+                        rest = self._resolver(self._submit_pk_grouped(unique_sets, pk_plan), t)
                     else:
                         rest = self._submit_flat(unique_sets)
-                    return lambda: self._resolve(grouped) and rest()
+                    return lambda: self._resolve(grouped, t) and rest()
         return self._submit_flat(sets)
 
-    def _resolver(self, result):
+    def _resolver(self, result, t_submit: float):
         """The resolver of one dispatch; None (an invalid set) is False."""
         if result is None:
             return lambda: False
-        return lambda: self._resolve(result)
+        return lambda: self._resolve(result, t_submit)
 
     def _submit_grouped(self, sets, plan):
         """Dispatch one root-grouped batch; None marks an invalid set."""
+        self.observer.planner("root_grouped", len(sets), group_sizes=[len(r) for r in plan[2]])
         return self._submit_rows(sets, plan, self._marshal_grouped, grouped_verify_kernel_raw)
 
     def _submit_pk_grouped(self, sets, plan):
         """Dispatch one pk-grouped batch; None marks an invalid set."""
+        self.observer.planner("pk_grouped", len(sets), group_sizes=[len(r) for r in plan[2]])
         return self._submit_rows(sets, plan, self._marshal_pk_grouped,
                                  pk_grouped_verify_kernel_raw)
 
     def _submit_rows(self, sets, plan, marshal, kernel):
         """Marshal a (rows × lanes) plan, draw its GLS bits and dispatch
         `kernel` on the raw signatures; None marks an invalid set."""
-        t0 = time.perf_counter()
-        marshalled = marshal(sets, plan)
-        self._stage("marshal", t0)
+        with self._stage("marshal"):
+            marshalled = marshal(sets, plan)
         if marshalled is None:
             return None
         g, sig_raw = marshalled
-        t0 = time.perf_counter()
-        a_bits, b_bits = _rand_pairs(g.valid.shape, self._rng)
-        self._stage("rand", t0)
-        t0 = time.perf_counter()
+        with self._stage("rand"):
+            a_bits, b_bits = _rand_pairs(g.valid.shape, self._rng)
         dev = self.device
-        result = kernel(
-            *(torch.as_tensor(x).to(dev) for x in (g.pk_x, g.pk_y, g.msg_x, g.msg_y)),
-            torch.as_tensor(sig_raw).to(dev),
-            torch.as_tensor(a_bits).to(dev),
-            torch.as_tensor(b_bits).to(dev),
-            torch.as_tensor(g.valid).to(dev),
-        )
-        self._stage("dispatch", t0)
-        return result
+        with self._stage("dispatch"):
+            return kernel(
+                *(torch.as_tensor(x).to(dev) for x in (g.pk_x, g.pk_y, g.msg_x, g.msg_y)),
+                torch.as_tensor(sig_raw).to(dev),
+                torch.as_tensor(a_bits).to(dev),
+                torch.as_tensor(b_bits).to(dev),
+                torch.as_tensor(g.valid).to(dev),
+            )
 
     def _submit_flat(self, sets):
         """The flat verdict in chunks of the largest bucket; the resolver
         ANDs the chunks' verdicts (all or nothing, as one dispatch). Sets
         in the 32 B root / 96 B signature shape keep their signatures as
         bytes for the device; others are decoded on the host."""
+        if sets:
+            self.observer.planner("per_set", len(sets))
         cap = BUCKETS[-1]
         raw = self._native_eligible(sets)
         results = []
         dev = self.device
+        t_submit = time.perf_counter()
         for lo in range(0, max(len(sets), 1), cap):
             chunk = sets[lo: lo + cap]
-            t0 = time.perf_counter()
-            marshalled = self._marshal(chunk, raw=raw)
-            self._stage("marshal", t0)
+            with self._stage("marshal"):
+                marshalled = self._marshal(chunk, raw=raw)
             if marshalled is None:
                 return lambda: False
             arrs, sig_raw = marshalled if raw else (marshalled, None)
-            t0 = time.perf_counter()
-            r_bits = torch.as_tensor(_rand_bits(arrs.pk_x.shape[0], self._rng)).to(dev)
-            self._stage("rand", t0)
-            t0 = time.perf_counter()
-            t = self._tensors(arrs)
-            if raw:
-                results.append(batch_verify_kernel_raw(
-                    *t[:4], torch.as_tensor(sig_raw).to(dev), r_bits, t[6]))
-            else:
-                results.append(batch_verify_kernel(*t[:6], r_bits, t[6]))
-            self._stage("dispatch", t0)
-        return lambda: all(self._resolve(r) for r in results)
+            with self._stage("rand"):
+                r_bits = torch.as_tensor(_rand_bits(arrs.pk_x.shape[0], self._rng)).to(dev)
+            with self._stage("dispatch"):
+                t = self._tensors(arrs)
+                if raw:
+                    results.append(batch_verify_kernel_raw(
+                        *t[:4], torch.as_tensor(sig_raw).to(dev), r_bits, t[6]))
+                else:
+                    results.append(batch_verify_kernel(*t[:6], r_bits, t[6]))
+        return lambda: all(self._resolve(r, t_submit) for r in results)
 
-    def _resolve(self, result) -> bool:
+    def _resolve(self, result, t_submit: float) -> bool:
+        """Block on one device verdict: the wait is the `device_wait` stage,
+        and the busy sampler gets the whole span from submit to resolve
+        (the device computes through the gap)."""
         t0 = time.perf_counter()
         verdict = bool(result)
-        self._stage("device_wait", t0)
-        return verdict
+        now = time.perf_counter()
+        self.observer.observe_stage("device_wait", now - t0)
+        self.observer.device_busy_sample(now - t_submit)
+        self._add_stage("device_wait", now - t0)
+        return self._flaky(verdict)
 
     # -- per-set verdicts ---------------------------------------------------
 
@@ -1007,26 +1118,27 @@ class TorchBlsVerifier:
         `individual_verify_kernel` and of the host C tier. A batch that
         does not marshal (a malformed set, or more sets than the largest
         bucket) is verified one set at a time (`_verify_one`)."""
-        t0 = time.perf_counter()
-        arrs = self._marshal(sets)
-        self._stage("marshal", t0)
+        self.observer.planner("individual", len(sets))
+        self._on_device_dispatch(len(sets))
+        with self._stage("marshal"):
+            arrs = self._marshal(sets)
         if arrs is None:
             # as the reference does: each set on its own, malformed ones False
             return [self._verify_one(s) for s in sets]
-        t0 = time.perf_counter()
-        r_bits = _rand_bits(arrs.pk_x.shape[0], self._rng)
-        self._stage("rand", t0)
-        t0 = time.perf_counter()
-        root_ok, levels = self.verify_bisect_tree(arrs, r_bits)
-        self._stage("dispatch", t0)
-        t0 = time.perf_counter()
-        root_ok = bool(root_ok)
-        self._stage("device_wait", t0)
+        with self._stage("rand"):
+            r_bits = _rand_bits(arrs.pk_x.shape[0], self._rng)
+        t = time.perf_counter()
+        with self._stage("dispatch"):
+            root_ok, levels = self.verify_bisect_tree(arrs, r_bits)
+        with self._stage("device_wait"):
+            root_ok = bool(root_ok)
+        self.observer.device_busy_sample(time.perf_counter() - t)
         if root_ok:
             self.last_bisect = {"rounds": 0, "probes": 0}
-            return [True] * arrs.n
+            self.observer.bisect(rounds=0, probes=0)
+            return self._flaky_all([True] * arrs.n)
         verdicts = self._bisect(arrs, levels)
-        return [bool(v) for v in verdicts[: arrs.n]]
+        return self._flaky_all([bool(v) for v in verdicts[: arrs.n]])
 
     def _bisect(self, arrs: SetArrays, levels) -> np.ndarray:
         """Binary-search a failed product tree for the invalid leaves.
@@ -1042,7 +1154,6 @@ class TorchBlsVerifier:
         verdicts[arrs.n:] = False  # padding lanes report False
         frontier = [(len(levels) - 1, 0)]
         rounds = probes = 0
-        t0 = time.perf_counter()
         while frontier:
             if frontier[0][0] == 0:
                 for _, i in frontier:
@@ -1053,20 +1164,23 @@ class TorchBlsVerifier:
             failed = []
             for lo in range(0, len(children), PROBE_LANES):
                 chunk = children[lo: lo + PROBE_LANES]
-                batch = torch.stack([levels[lvl][i] for lvl, i in chunk])
-                if len(chunk) < PROBE_LANES:
-                    pad = fp12.one((PROBE_LANES - len(chunk),), batch.device)
-                    batch = torch.cat([batch, pad], 0)
-                out = self.probe_nodes(batch).cpu().numpy()
+                t0 = time.perf_counter()
+                with self._stage("bisect"):
+                    batch = torch.stack([levels[lvl][i] for lvl, i in chunk])
+                    if len(chunk) < PROBE_LANES:
+                        pad = fp12.one((PROBE_LANES - len(chunk),), batch.device)
+                        batch = torch.cat([batch, pad], 0)
+                    out = self.probe_nodes(batch).cpu().numpy()
+                self.observer.device_busy_sample(time.perf_counter() - t0)
                 probes += len(chunk)
                 failed.extend(node for node, ok in zip(chunk, out[: len(chunk)]) if not ok)
             if not failed:
-                self._stage("bisect", t0)
                 self.last_bisect = {"rounds": rounds, "probes": probes}
+                self.observer.bisect(rounds=rounds, probes=probes)
                 return self.verify_individual(arrs).cpu().numpy()
             frontier = failed
-        self._stage("bisect", t0)
         self.last_bisect = {"rounds": rounds, "probes": probes}
+        self.observer.bisect(rounds=rounds, probes=probes)
         return verdicts
 
     def _verify_one(self, s) -> bool:
