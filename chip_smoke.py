@@ -115,8 +115,24 @@ Phases (any failure raises and the script exits non-zero):
           observer sees two root-grouped and one individual planner path,
           every stage, a bisection with rounds, hash-cache hits and 128
           epoch-table hits; K2p and K3-fe launch once per batch verdict.
+12a. observe  the port's observability: serve's valid 128-set job through
+          `DeviceBlsVerifier(device="cuda")` with a `PipelineMetrics` (A)
+          and with `NullObserver` (B), in the order A B B A B A A B twice
+          (8 jobs a side, each counted), the two medians and their
+          difference; the host cost of observing one job, replayed (its
+          observer calls on a fresh `PipelineMetrics`, 7 named scopes and
+          one ledger-wrapped call, each timed over 2,000 repetitions);
+          the stage histogram must
+          count marshal, rand, dispatch and device_wait. Then one job
+          under `start_profiling` / `stop_profiling`: its Chrome trace
+          must hold the scopes bls/g2_decompress, bls/msm_planes,
+          bls/miller_loop, bls/product_tree and bls/final_exp_batch, and
+          every K2p (K3-fe) launch the job counted, issued inside
+          bls/miller_loop (bls/final_exp_batch). The device ledger must
+          read the card's in-use and total bytes, and the compile ledger
+          hold one event (hit or miss) per library built or found.
 
-The main-path verdicts of phases 6-12 run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-12a run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
 (per part of a split one, per chunk of a flat one), both on bisection;
@@ -1286,6 +1302,231 @@ def phase_serve(torch, np):
     return out
 
 
+OBSERVE_ORDER = "ABBABAAB" * 2  # A: PipelineMetrics, B: NullObserver; 8 jobs a side
+OBSERVE_SCOPES = ("bls/g2_decompress", "bls/msm_planes", "bls/miller_loop",
+                  "bls/product_tree", "bls/final_exp_batch")
+# kernel -> (its name in the trace, the scope its launch must lie in)
+OBSERVE_KERNELS = {"K2p": ("miller_proj_warp_kernel", "bls/miller_loop"),
+                   "K3-fe": ("final_exp_warp_kernel", "bls/final_exp_batch")}
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
+
+
+class _CallLog:
+    """An observer that forwards every call to `target` and logs it
+    (method, args, kwargs), to replay one job's calls. Thread-safe: the
+    marshal pool's threads call the observer."""
+
+    def __init__(self, target):
+        import threading
+
+        self._target = target
+        self._lock = threading.Lock()
+        self.calls = []
+
+    def __getattr__(self, name):
+        fn = getattr(self._target, name)
+
+        def call(*args, **kwargs):
+            with self._lock:
+                self.calls.append((name, args, kwargs))
+            return fn(*args, **kwargs)
+
+        return call
+
+
+def _host_cost_us(torch, calls, reps: int = 2000) -> dict:
+    """What observing one job costs the host, in µs: its observer calls
+    replayed on a fresh `PipelineMetrics` (stage timers entered and
+    left), one `named_scope` (record_function + NVTX) entered and left,
+    and one call through the compile ledger's wrap of a function that
+    does nothing, on the 8 tensors of a (16, 8) grouped verdict, less the
+    same call unwrapped; each the mean over `reps`."""
+    from lodestar_tpu_torch.observability import PipelineMetrics, compile_ledger, trace
+
+    pm = PipelineMetrics()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for name, args, kwargs in calls:
+            out = getattr(pm, name)(*args, **kwargs)
+            if name == "stage":
+                with out:
+                    pass
+    observer = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with trace.named_scope("bls/miller_loop"):
+            pass
+    scope = (time.perf_counter() - t0) / reps
+    args = [torch.zeros((16, 8, 32), dtype=torch.int32, device="cuda") for _ in range(7)]
+    args.append(torch.zeros((16, 8), dtype=torch.bool, device="cuda"))
+    fn = lambda *a: None  # noqa: E731
+    wrapped = compile_ledger.CompileLedger().wrap(fn, "grouped_raw")
+    wrapped(*args)  # the first call is the event
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        wrapped(*args)
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    ledger = ((t1 - t0) - (time.perf_counter() - t1)) / reps
+    return {"observer_calls": len(calls), "observer_us": observer * 1e6,
+            "scope_us": scope * 1e6, "ledger_call_us": ledger * 1e6}
+
+
+def _trace_check(path: str) -> dict:
+    """The scopes and kernels of one exported Chrome trace: per scope its
+    host spans (`user_annotation`), per kernel its launches and how many
+    of them were issued inside the scope it belongs to (the launch's
+    runtime call, matched by correlation id, inside one of the scope's
+    spans)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {s: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("name") == s and e.get("cat") == "user_annotation" and "dur" in e]
+             for s in OBSERVE_SCOPES}
+    issued = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = {"scopes": {s: len(v) for s, v in spans.items()}, "kernels": {}}
+    for k, (name, scope) in OBSERVE_KERNELS.items():
+        launches = [e for e in events if e.get("cat") == "kernel" and name in e.get("name", "")]
+        inside = sum(
+            1 for e in launches
+            if any(a <= issued.get(e.get("args", {}).get("correlation"), -1) <= b
+                   for a, b in spans[scope]))
+        out["kernels"][k] = {"launches": len(launches), "in_scope": inside, "scope": scope}
+    out["categories"] = sorted({str(e.get("cat")) for e in events})
+    return out
+
+
+def phase_observe(torch, np):
+    """The port's observability on the card: serve-128's valid 128-set job
+    (grouped 16 × 8) through `DeviceBlsVerifier(device="cuda")` with a
+    `PipelineMetrics` and with `NullObserver`, alternating (A B B A B A A
+    B, twice: 8 jobs a side, each counted), then one job under
+    `start_profiling` / `stop_profiling`; the device and compile ledgers
+    after. Fails unless every verdict is the host tier's, the stage
+    histogram counts marshal, rand, dispatch and device_wait, the trace
+    holds the verdict's five scopes and K2p and K3-fe launched inside
+    theirs, the device ledger reads the card's in-use and total bytes,
+    and the compile ledger holds one event per library built or found."""
+    from lodestar_tpu_torch import build
+    from lodestar_tpu_torch.chain.bls_verifier import DeviceBlsVerifier
+    from lodestar_tpu_torch.observability import (
+        NULL_OBSERVER,
+        PipelineMetrics,
+        compile_ledger,
+        device_ledger,
+        runtime_info,
+    )
+    from lodestar_tpu_torch.profile_verdict import make_sets
+
+    tag = "[observe]"
+    sets = make_sets(SERVE_ROOTS, SERVE_PER_ROOT, seed=SEED + 50, threads=THREADS)
+    if not all(_host_verdicts(sets)):
+        raise AssertionError(f"{tag} the host tier rejects the valid job")
+    pm = PipelineMetrics()
+    pm.set_build_info(runtime_info())
+    arms = {"A": DeviceBlsVerifier(device="cuda", observer=pm,
+                                   rng=np.random.default_rng(SEED)),
+            "B": DeviceBlsVerifier(device="cuda", observer=NULL_OBSERVER,
+                                   rng=np.random.default_rng(SEED))}
+    log_obs = _CallLog(PipelineMetrics())
+    arms["log"] = DeviceBlsVerifier(device="cuda", observer=log_obs,
+                                    rng=np.random.default_rng(SEED))
+    for v in arms.values():  # as serve: the table, the roots, one warm job
+        v.epoch_table_populate(0, [s.pubkey.to_bytes() for s in sets])
+        v.warm_h2c({s.message for s in sets})
+        if v.verify_signature_sets(sets) is not True:
+            raise AssertionError(f"{tag} the warm-up job was rejected")
+    pm_warm = {k: v["count"] for k, v in pm.stage_snapshot().items()}
+    log_obs.calls.clear()  # one warm job's observer calls, for the replay
+    if arms.pop("log").verify_signature_sets(sets) is not True:
+        raise AssertionError(f"{tag} the logged job was rejected")
+    cost = _host_cost_us(torch, log_obs.calls)
+    # a grouped job enters 7 named scopes (g2_decompress, msm_g1, msm_g2,
+    # miller_loop, product_tree, final_exp, plane_subgroup) and makes one
+    # ledger-wrapped call (grouped_raw)
+    cost["job_us"] = cost["observer_us"] + 7 * cost["scope_us"] + cost["ledger_call_us"]
+    log(f"{tag} host cost of observing one job: {cost['observer_calls']} observer calls "
+        f"{cost['observer_us']:.1f} us replayed on PipelineMetrics; a named scope "
+        f"{cost['scope_us']:.2f} us; a ledger-wrapped call {cost['ledger_call_us']:.2f} us over "
+        f"the unwrapped one; {cost['job_us']:.1f} us per job in all")
+    secs = {"A": [], "B": []}
+    for arm in OBSERVE_ORDER:
+        v = arms[arm]
+        got, t, counts = _run_counted(torch, lambda: v.verify_signature_sets(sets), v._inner)
+        if got is not True:
+            raise AssertionError(f"{tag} arm {arm}: the port says {got}, the host tier True")
+        _need_main(counts, f"{tag} arm {arm}")
+        secs[arm].append(t)
+    med = {arm: _median(ts) for arm, ts in secs.items()}
+    log(f"{tag} 128-set job, PipelineMetrics: median {med['A']:.6f} s of "
+        f"{json.dumps([round(t, 6) for t in secs['A']])}")
+    log(f"{tag} 128-set job, NullObserver: median {med['B']:.6f} s of "
+        f"{json.dumps([round(t, 6) for t in secs['B']])}")
+    log(f"{tag} observer cost: median difference {med['A'] - med['B']:+.6f} s per job "
+        f"(PipelineMetrics - NullObserver), order {OBSERVE_ORDER}")
+    stages = pm.stage_snapshot()
+    log(f"{tag} stage histogram {json.dumps(stages)}")
+    for stage in ("marshal", "rand", "dispatch", "device_wait"):
+        if stages.get(stage, {}).get("count", 0) - pm_warm.get(stage, 0) < len(secs["A"]):
+            raise AssertionError(f"{tag} the stage histogram did not count {stage} per job")
+    log(f"{tag} planner {json.dumps(pm.planner_snapshot())}")
+
+    v = arms["A"]
+    trace_dir = os.path.join(build.BUILD_DIR, "observe_trace")
+    if v.start_profiling(trace_dir) != trace_dir:
+        raise AssertionError(f"{tag} the profiler did not start")
+    try:
+        got, t, counts = _run_counted(torch, lambda: v.verify_signature_sets(sets), v._inner)
+    finally:
+        stopped = v.stop_profiling()
+    traces = sorted(
+        (os.path.join(stopped, f) for f in os.listdir(stopped) if f.endswith(".json")),
+        key=os.path.getmtime)
+    t0 = time.perf_counter()
+    seen = _trace_check(traces[-1])
+    log(f"{tag} profiled job: {got}, {t:.3f} s; launches {json.dumps(counts)}; trace "
+        f"{os.path.getsize(traces[-1])} B, read in {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps(seen)}")
+    if got is not True:
+        raise AssertionError(f"{tag} the profiled job was rejected")
+    missing = [s for s, n in seen["scopes"].items() if n == 0]
+    if missing:
+        raise AssertionError(f"{tag} the trace lacks the scopes {missing}")
+    for k, row in seen["kernels"].items():
+        if row["launches"] != counts[k] or row["in_scope"] != row["launches"]:
+            raise AssertionError(f"{tag} {k}: {row} in the trace, {counts[k]} launches counted")
+
+    led = device_ledger.ledger()
+    led.sample_memory(force=True)
+    dev_snap = led.snapshot()
+    log(f"{tag} device ledger memory {json.dumps(dev_snap['memory'])}")
+    card = dev_snap["memory"].get("0", {})
+    if not (card.get("in_use", 0) > 0 and card.get("limit", 0) > 0):
+        raise AssertionError(f"{tag} the device ledger read no in_use or limit bytes")
+
+    events = compile_ledger.ledger().snapshot()["events"]
+    libs = sorted(build._LIBS)
+    builds = {name: [e["cache"] for e in events if e["kernel"] == f"build/{name}"]
+              for name in libs}
+    firsts = [(e["kernel"], e["key"], e["seconds"], e["cache"]) for e in events
+              if not e["kernel"].startswith("build/")]
+    log(f"{tag} compile ledger: builds {json.dumps(builds)}; first calls {json.dumps(firsts)}")
+    for name, outcomes in builds.items():
+        if len(outcomes) != 1 or outcomes[0] not in ("hit", "miss"):
+            raise AssertionError(f"{tag} library {name}: ledger events {outcomes}")
+    build_info = [ln for ln in pm.registry.expose().splitlines()
+                  if ln.startswith("lodestar_tpu_build_info")]
+    log(f"{tag} {build_info[0]}")
+    return dict(median_s=med, seconds=secs, trace=seen, builds=builds, host_cost_us=cost)
+
+
 def make_key_sets(np, key_ids, roots, seed: int):
     """Sets signed by key key_ids[i] over roots[i], with the secret keys
     drawn from `seed`, signed by the host tier."""
@@ -1520,6 +1761,7 @@ def main() -> int:
     per_set = phase_per_set(torch, np, sets, host_ok, bad, host_bad)
     checks = phase_pairing_check(torch, np, sets, host_ok, bad, host_bad)
     serve = phase_serve(torch, np)
+    observe = phase_observe(torch, np)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -1533,6 +1775,9 @@ def main() -> int:
         f"128-set job valid {serve['valid']['seconds']:.3f} s, three bad "
         f"{serve['three bad signatures']['seconds']:.3f} s, per-set "
         f"{serve['individual']['seconds']:.3f} s")
+    log(f"[summary] observe: 128-set job median {observe['median_s']['A']:.6f} s with "
+        f"PipelineMetrics, {observe['median_s']['B']:.6f} s with NullObserver; observing "
+        f"costs the host {observe['host_cost_us']['job_us']:.1f} us per job")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "
         f"ptxas {json.dumps(k1_ptxas)}")

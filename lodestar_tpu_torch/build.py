@@ -85,22 +85,32 @@ def build_shared(name: str, compiler: str | None, flags: list[str],
                  sources: list[str], headers: list[str] = ()) -> str:
     """Compile `sources` (paths under csrc/) into lib<name>-<hash>.so and
     return its path; raises BuildError when there is no compiler or the
-    compiler fails."""
+    compiler fails. Each call is one event of the compile ledger (kernel
+    `build/<name>`, key the digest): `hit` when the library was already
+    built, `miss` when it was compiled now."""
+    from .observability import compile_ledger, flight_recorder
+
     if compiler is None:
         raise BuildError(f"{name}: no compiler found")
+    t0 = time.monotonic()
     srcs = [os.path.join(CSRC, s) for s in sources]
     deps = srcs + [os.path.join(CSRC, h) for h in headers]
     cmd = [os.path.basename(compiler)] + list(flags)
-    out = os.path.join(BUILD_DIR, f"lib{name}-{_digest(cmd, deps)}.so")
+    digest = _digest(cmd, deps)
+    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    kernel = f"build/{name}"
     if os.path.exists(out):
+        compile_ledger.ledger().record(kernel, digest, time.monotonic() - t0, "hit")
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(out):
+        if os.path.exists(out):  # another process built it meanwhile
+            compile_ledger.ledger().record(kernel, digest, time.monotonic() - t0, "hit")
             return out
         tmp = f"{out}.{os.getpid()}.tmp"
-        t0 = time.monotonic()
+        flight_recorder.record("compile_start", kernel=kernel, key=digest)
+        t1 = time.monotonic()
         proc = subprocess.run(
             [compiler] + list(flags) + ["-I", CSRC, "-o", tmp] + srcs,
             capture_output=True, text=True,
@@ -108,7 +118,8 @@ def build_shared(name: str, compiler: str | None, flags: list[str],
         if proc.returncode != 0:
             raise BuildError(f"{name}: build failed\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
-        BUILD_LOG[name] = (time.monotonic() - t0, proc.stdout + proc.stderr)
+        BUILD_LOG[name] = (time.monotonic() - t1, proc.stdout + proc.stderr)
+    compile_ledger.ledger().record(kernel, digest, time.monotonic() - t0, "miss")
     return out
 
 

@@ -9,7 +9,10 @@ over the JAX one:
 - `verify_signature_sets` and `verify_signature_sets_individual`, in jobs
   of at most `max_sets_per_job` sets (the JAX facade's `buckets[-1]`,
   128: the reference's chunkifyMaximizeChunkSize), each job inside a
-  `torch.profiler.record_function` scope;
+  `trace.annotation` (`torch.profiler.record_function`) scope;
+- `start_profiling(trace_dir)` / `stop_profiling()`, the process-wide
+  `torch.profiler` switch of `observability.trace` (the JAX facade also
+  starts a trace from LODESTAR_TPU_PROFILE; the port only when asked);
 - `observer`, `h2c_cache_size`, `warm_h2c`, `epoch_table_populate` and
   `epoch_table_snapshot`, passed through to `TorchBlsVerifier`;
 - the mesh and fleet seams, answered as the JAX verifier answers them
@@ -27,8 +30,7 @@ from __future__ import annotations
 import logging
 import time
 
-import torch
-
+from ..observability import trace
 from ..parallel.verifier import TorchBlsVerifier
 
 MAX_SIGNATURE_SETS_PER_JOB = 128
@@ -40,9 +42,9 @@ class DeviceBlsVerifier:
     """Device-tier verifier over the port's batch and per-set verdicts.
 
     `device` (default: the GPU; raises without one), `grouped_configs`,
-    `pk_grouped_configs`, `observer`, `faults` and `rng` go to
-    `TorchBlsVerifier`; `max_sets_per_job` is the most sets one call of it
-    verifies."""
+    `pk_grouped_configs`, `observer` (default: the port's
+    `default_pipeline()`), `faults` and `rng` go to `TorchBlsVerifier`;
+    `max_sets_per_job` is the most sets one call of it verifies."""
 
     _FALLBACK_LOG_INTERVAL_S = 60.0
 
@@ -65,7 +67,15 @@ class DeviceBlsVerifier:
         self._last_fallback_log = float("-inf")
 
     def _annotate(self, label: str):
-        return torch.profiler.record_function(label)
+        return trace.annotation(label)
+
+    def start_profiling(self, trace_dir: str | None = None) -> str | None:
+        """Start the process-wide trace; None if one is already running."""
+        return trace.start_profiling(trace_dir)
+
+    def stop_profiling(self) -> str | None:
+        """Stop it and write its Chrome trace; returns the directory."""
+        return trace.stop_profiling()
 
     def h2c_cache_size(self) -> int:
         return len(self._inner._h2c_cache)

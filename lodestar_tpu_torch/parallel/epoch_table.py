@@ -34,12 +34,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..observability.stages import NULL_OBSERVER
+from ..observability.stages import default_pipeline
 
 N_LIMBS = 32
 ROW_WIDTH = 2 * N_LIMBS  # packed x‖y limbs, the _pk_cache row format
 EPOCHS = 2
 MAX_ROWS = 1 << 21
+
+
+def _gather_kernel(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Device gather of packed pubkey rows: the epoch table's unit of the
+    compile ledger (`epoch_table`)."""
+    return torch.index_select(table, 0, idx)
 
 
 class _EpochEntry:
@@ -58,7 +64,9 @@ class _EpochEntry:
 class EpochPubkeyTable:
     """Decompressed G1 limbs keyed by epoch, LRU over `epochs` entries of
     at most `max_rows` rows, on `device` (default: the GPU; raises without
-    one) with a host mirror for the marshal path.
+    one) with a host mirror for the marshal path. `observer` (default: the
+    port's `default_pipeline()`) gets the hit, miss, occupancy and
+    eviction events.
 
     Thread-safe: gossip threads look rows up while the epoch-transition
     thread populates the next entry."""
@@ -67,9 +75,11 @@ class EpochPubkeyTable:
                  device=None):
         self.epochs = int(epochs)
         self.max_rows = int(max_rows)
-        self.observer = observer if observer is not None else NULL_OBSERVER
+        self.observer = observer if observer is not None else default_pipeline()
         self.device = resolve_device(device)
         self._lock = threading.Lock()
+        self._gather = None  # the ledger-wrapped gather, made at first use
+        self._gather_lock = threading.Lock()
         self._entries: OrderedDict[int, _EpochEntry] = OrderedDict()  # guarded-by: _lock
         self._evictions = 0  # guarded-by: _lock
         self._device_failures = 0  # guarded-by: _lock
@@ -148,15 +158,22 @@ class EpochPubkeyTable:
         return hits
 
     def gather_device(self, epoch: int, idx) -> torch.Tensor | None:
-        """Rows `idx` of one epoch's device tensor (`torch.index_select`);
-        None when the entry is absent or host-only (callers use the host
+        """Rows `idx` of one epoch's device tensor (`torch.index_select`
+        through the compile ledger's wrap seam, kernel `epoch_table`); None
+        when the entry is absent or host-only (callers use the host
         mirror)."""
         with self._lock:
             entry = self._entries.get(int(epoch))
         if entry is None or not entry.device_resident:
             return None
+        if self._gather is None:
+            with self._gather_lock:
+                if self._gather is None:
+                    from ..observability.compile_ledger import ledger
+
+                    self._gather = ledger().wrap(_gather_kernel, "epoch_table")
         idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
-        return torch.index_select(entry.rows_dev, 0, idx)
+        return self._gather(entry.rows_dev, idx)
 
     def device_bytes(self) -> int:
         """Bytes of the device-resident rows."""
@@ -181,5 +198,4 @@ class EpochPubkeyTable:
                 "total_rows": sum(en["rows"] for en in entries),
                 "evictions": self._evictions,
                 "device_put_failures": self._device_failures,
-                "enabled": True,
             }

@@ -62,7 +62,9 @@ import torch
 
 from ..bls.api import DST_G2
 from ..device import resolve_device
-from ..observability.stages import NULL_OBSERVER
+from ..observability import compile_ledger
+from ..observability.stages import default_pipeline
+from ..observability.trace import named_scope
 from ..ops import cuda_tower, fp, fp2, fp12, msm
 from ..ops.g2_decompress import decompress, planes_in_subgroup
 from ..ops.pairing import (
@@ -243,8 +245,26 @@ def _rand_pairs(shape: tuple[int, ...], rng=None):
     return a_bits, b_bits
 
 
-def _no_stage(_name: str):
-    return contextlib.nullcontext()
+# the verdict functions' stage names -> the JAX package's named scopes at
+# the same places (`plane_subgroup` has no JAX scope)
+_SCOPES = {
+    "g2_decompress": "bls/g2_decompress",
+    "scalar_mul": "bls/scalar_mul",
+    "msm_g1": "bls/msm_planes",
+    "msm_g2": "bls/msm_planes",
+    "msm_msg": "bls/msm_planes",
+    "miller_loop": "bls/miller_loop",
+    "product_tree": "bls/product_tree",
+    "final_exp": "bls/final_exp_batch",
+    "plane_subgroup": "bls/plane_subgroup",
+}
+
+
+def _scope(name: str):
+    """The verdict functions' default `stage` hook: the stage's
+    `trace.named_scope` (a `record_function` span and an NVTX range,
+    host-side only)."""
+    return named_scope(_SCOPES[name])
 
 
 def grouped_verify_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits, valid):
@@ -256,12 +276,13 @@ def grouped_verify_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits
 
 
 def grouped_verify_kernel_raw(
-    pk_x, pk_y, msg_x, msg_y, sig_raw, a_bits, b_bits, valid, stage=_no_stage
+    pk_x, pk_y, msg_x, msg_y, sig_raw, a_bits, b_bits, valid, stage=_scope
 ):
     """`grouped_verify_kernel` on RAW 96-byte compressed signatures
     (R, L, 96): device decompression plus the plane subgroup checks.
-    `stage(name)` gives a context manager around each stage (the JAX
-    package's named scopes); `profile_verdict.py` times them with it."""
+    `stage(name)` gives a context manager around each stage: by default
+    the JAX package's named scope of the stage (`_SCOPES`);
+    `profile_verdict.py` times them with its own."""
     with stage("g2_decompress"):
         sig_x, sig_y, dec_ok = decompress(sig_raw)
         decode_fail = torch.any(valid & ~dec_ok)
@@ -274,7 +295,7 @@ def grouped_verify_kernel_raw(
 
 def _grouped_verify_impl(
     pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits, valid, check_planes,
-    stage=_no_stage,
+    stage=_scope,
 ):
     """Batch verification grouped by signing root.
 
@@ -346,7 +367,7 @@ def pk_grouped_verify_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_b
 
 
 def pk_grouped_verify_kernel_raw(
-    pk_x, pk_y, msg_x, msg_y, sig_raw, a_bits, b_bits, valid, stage=_no_stage
+    pk_x, pk_y, msg_x, msg_y, sig_raw, a_bits, b_bits, valid, stage=_scope
 ):
     """`pk_grouped_verify_kernel` on RAW 96-byte compressed signatures
     (R, L, 96): device decompression plus the plane subgroup checks; a
@@ -363,7 +384,7 @@ def pk_grouped_verify_kernel_raw(
 
 def _pk_grouped_verify_impl(
     pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits, valid, check_planes,
-    stage=_no_stage,
+    stage=_scope,
 ):
     """Batch verification grouped by PUBKEY, the dual of the root-grouped
     verdict: for unique roots signed by a bounded set of keys,
@@ -434,7 +455,7 @@ def batch_verify_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid):
 
 
 def batch_verify_kernel_raw(pk_x, pk_y, msg_x, msg_y, sig_raw, r_bits, valid,
-                            stage=_no_stage):
+                            stage=_scope):
     """`batch_verify_kernel` on RAW 96-byte compressed signatures (N, 96):
     device decompression plus the plane subgroup checks; a valid lane whose
     signature does not decode makes the verdict False."""
@@ -450,7 +471,7 @@ def batch_verify_kernel_raw(pk_x, pk_y, msg_x, msg_y, sig_raw, r_bits, valid,
 
 def _batch_verify_impl(
     pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid, check_planes,
-    stage=_no_stage,
+    stage=_scope,
 ):
     """All-or-nothing verification of N sets with nothing shared,
 
@@ -519,8 +540,9 @@ def bisect_tree_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid):
     contribute the identity; the caller reports them False."""
     n = pk_x.shape[0]
     dev = pk_x.device
-    rpk = g1.scalar_mul_bits(r_bits, (pk_x, pk_y))
-    rsig = g2.scalar_mul_bits(r_bits, (sig_x, sig_y))
+    with named_scope("bls/scalar_mul"):
+        rpk = g1.scalar_mul_bits(r_bits, (pk_x, pk_y))
+        rsig = g2.scalar_mul_bits(r_bits, (sig_x, sig_y))
     gx = fp.const(G1_GEN_X, dev).expand(n, N_LIMBS)
     neg_gy = fp.neg(fp.const(G1_GEN_Y, dev)).expand(n, N_LIMBS)
     px = torch.cat([rpk[0], gx], 0)
@@ -529,17 +551,20 @@ def bisect_tree_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid):
     qx = torch.cat([msg_x, rsig[0]], 0)
     qy = torch.cat([msg_y, rsig[1]], 0)
     qz = torch.cat([fp2.one((n,), dev), rsig[2]], 0)
-    fs = miller_loop_proj_pq((px, py, pz), (qx, qy, qz))
+    with named_scope("bls/miller_loop"):
+        fs = miller_loop_proj_pq((px, py, pz), (qx, qy, qz))
     f = fp12.mul(fs[:n], fs[n:])
     f = fp12.select(valid, f, fp12.one((n,), dev))
     m = 1 << max(0, (n - 1).bit_length())
     if m > n:
         f = torch.cat([f, fp12.one((m - n,), dev)], 0)
-    levels = [f]
-    while f.shape[0] > 1:
-        f = fp12.mul(f[0::2], f[1::2])
-        levels.append(f)
-    root_ok = fp12.is_one(final_exponentiation_one(levels[-1][0]))
+    with named_scope("bls/product_tree"):
+        levels = [f]
+        while f.shape[0] > 1:
+            f = fp12.mul(f[0::2], f[1::2])
+            levels.append(f)
+    with named_scope("bls/final_exp_batch"):
+        root_ok = fp12.is_one(final_exponentiation_one(levels[-1][0]))
     return root_ok, levels
 
 
@@ -547,11 +572,42 @@ def bisect_probe_kernel(fs):
     """(PROBE_LANES,) stacked tree nodes → (PROBE_LANES,) bool: is_one of
     each node's final exponentiation, the easy part's inversion shared by
     the probe. Identity padding lanes pass and are sliced off."""
-    return fp12.is_one(final_exponentiation_batch(fs))
+    with named_scope("bls/bisect"):
+        return fp12.is_one(final_exponentiation_batch(fs))
 
 
-# the JAX package's standalone compile unit of the same function
-final_exp_batch_kernel = bisect_probe_kernel
+def final_exp_batch_kernel(fs):
+    """(N,) stacked Fp12 values → (N,) bool, is_one of each one's final
+    exponentiation: the JAX package's standalone unit of the same
+    function as the probe, under its own scope."""
+    with named_scope("bls/final_exp_batch"):
+        return fp12.is_one(final_exponentiation_batch(fs))
+
+
+# the verdict functions behind the compile ledger's wrap seam, under the
+# JAX package's kernel names
+_LEDGER_KERNELS = {
+    "batch": "batch_verify_kernel",
+    "individual": "individual_verify_kernel",
+    "grouped": "grouped_verify_kernel",
+    "batch_raw": "batch_verify_kernel_raw",
+    "grouped_raw": "grouped_verify_kernel_raw",
+    "pk_grouped": "pk_grouped_verify_kernel",
+    "pk_grouped_raw": "pk_grouped_verify_kernel_raw",
+    "bisect_tree": "bisect_tree_kernel",
+    "bisect_probe": "bisect_probe_kernel",
+}
+
+
+def _module_function(name: str):
+    """A callable that calls this module's function `name` as it is bound
+    at the call (a function replaced on the module is the one that
+    runs)."""
+    def call(*args, **kwargs):
+        return globals()[name](*args, **kwargs)
+
+    call.__name__ = call.__qualname__ = name
+    return call
 
 
 class TorchBlsVerifier:
@@ -561,7 +617,10 @@ class TorchBlsVerifier:
     pk-grouped, split or flat, as the planner decides);
     verify_signature_sets_individual(sets) → per-set verdicts (bisection).
     Infinity or malformed pubkeys and signatures, or failed subgroup
-    checks, give False without raising. Runs on `device` (default: the
+    checks, give False without raising. Each verdict function runs
+    through the compile ledger's wrap seam under the JAX package's kernel
+    name (`_LEDGER_KERNELS`): its first call per shape is an event. Runs
+    on `device` (default: the
     GPU; raises without one). `grouped_configs` and `pk_grouped_configs`
     are the (rows, lanes) shapes of the two grouped verdicts (lanes a
     multiple of 4), tried smallest first. `rng` (a numpy Generator or a
@@ -573,7 +632,8 @@ class TorchBlsVerifier:
     the last per-set call.
 
     `observer` (duck-typed, as the JAX package's `PipelineMetrics`; by
-    default `NullObserver`) is called where `TpuBlsVerifier` calls its
+    default the port's `default_pipeline()`, and `NULL_OBSERVER` records
+    nothing) is called where `TpuBlsVerifier` calls its
     observer: stage timers, planner paths, h2c and pk cache events,
     device-wait and busy samples, bisection outcomes, and through the
     epoch table its events. It is called from the marshal pool's threads
@@ -597,7 +657,10 @@ class TorchBlsVerifier:
         faults=None,
     ):
         self.device = resolve_device(device)
-        self.observer = observer if observer is not None else NULL_OBSERVER
+        self.observer = observer if observer is not None else default_pipeline()
+        wrap = compile_ledger.ledger().wrap
+        self._kernels = {kernel: wrap(_module_function(fn), kernel)
+                         for kernel, fn in _LEDGER_KERNELS.items()}
         self._faults = faults
         self.grouped_configs = tuple(sorted(grouped_configs, key=lambda c: c[0] * c[1]))
         self.pk_grouped_configs = tuple(sorted(pk_grouped_configs, key=lambda c: c[0] * c[1]))
@@ -754,10 +817,13 @@ class TorchBlsVerifier:
         return self._epoch_table.populate(epoch, items)
 
     def epoch_table_snapshot(self):
-        """The epoch table's state (`/debug/epoch_table`)."""
+        """The epoch table's state (`/debug/epoch_table`), with
+        `"enabled"` added as the JAX verifier adds it."""
         if self._epoch_table is None:
             return {"enabled": False}
-        return self._epoch_table.snapshot()
+        snap = self._epoch_table.snapshot()
+        snap["enabled"] = True
+        return snap
 
     @staticmethod
     def _plan_runs(keys, configs):
@@ -931,13 +997,14 @@ class TorchBlsVerifier:
     def _submit_grouped(self, sets, plan):
         """Dispatch one root-grouped batch; None marks an invalid set."""
         self.observer.planner("root_grouped", len(sets), group_sizes=[len(r) for r in plan[2]])
-        return self._submit_rows(sets, plan, self._marshal_grouped, grouped_verify_kernel_raw)
+        return self._submit_rows(sets, plan, self._marshal_grouped,
+                                 self._kernels["grouped_raw"])
 
     def _submit_pk_grouped(self, sets, plan):
         """Dispatch one pk-grouped batch; None marks an invalid set."""
         self.observer.planner("pk_grouped", len(sets), group_sizes=[len(r) for r in plan[2]])
         return self._submit_rows(sets, plan, self._marshal_pk_grouped,
-                                 pk_grouped_verify_kernel_raw)
+                                 self._kernels["pk_grouped_raw"])
 
     def _submit_rows(self, sets, plan, marshal, kernel):
         """Marshal a (rows × lanes) plan, draw its GLS bits and dispatch
@@ -983,10 +1050,10 @@ class TorchBlsVerifier:
             with self._stage("dispatch"):
                 t = self._tensors(arrs)
                 if raw:
-                    results.append(batch_verify_kernel_raw(
+                    results.append(self._kernels["batch_raw"](
                         *t[:4], torch.as_tensor(sig_raw).to(dev), r_bits, t[6]))
                 else:
-                    results.append(batch_verify_kernel(*t[:6], r_bits, t[6]))
+                    results.append(self._kernels["batch"](*t[:6], r_bits, t[6]))
         return lambda: all(self._resolve(r, t_submit) for r in results)
 
     def _resolve(self, result, t_submit: float) -> bool:
@@ -1086,16 +1153,17 @@ class TorchBlsVerifier:
     def verify_individual(self, arrs: SetArrays) -> torch.Tensor:
         """Exact per-set verdicts of a marshalled bucket, (lanes,) bool on
         the device: one K3 launch on the GPU."""
-        return individual_verify_kernel(*self._tensors(arrs))
+        return self._kernels["individual"](*self._tensors(arrs))
 
     def verify_bisect_tree(self, arrs: SetArrays, r_bits: np.ndarray):
         """(root_ok, product-tree levels) of a marshalled bucket."""
         t = self._tensors(arrs)
-        return bisect_tree_kernel(*t[:6], torch.as_tensor(r_bits).to(self.device), t[6])
+        return self._kernels["bisect_tree"](*t[:6], torch.as_tensor(r_bits).to(self.device),
+                                            t[6])
 
     def probe_nodes(self, fs: torch.Tensor) -> torch.Tensor:
         """(PROBE_LANES,) stacked tree nodes → (PROBE_LANES,) bool."""
-        return bisect_probe_kernel(fs)
+        return self._kernels["bisect_probe"](fs)
 
     def miller_kernel(self, p_aff, q_aff) -> torch.Tensor:
         """The affine Miller loop on (xp, yp), (xq, yq) limb arrays: K2 on

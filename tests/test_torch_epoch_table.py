@@ -20,6 +20,7 @@ import torch
 
 from lodestar_tpu.bls import api as bls
 from lodestar_tpu.observability.stages import PipelineMetrics
+from lodestar_tpu.parallel.epoch_table import EpochPubkeyTable as JaxEpochPubkeyTable
 from lodestar_tpu.parallel.verifier import TpuBlsVerifier
 from lodestar_tpu_torch import native
 from lodestar_tpu_torch.parallel.epoch_table import ROW_WIDTH, EpochPubkeyTable
@@ -118,7 +119,10 @@ def test_rows_live_on_the_device_and_gather():
     t = _table()
     t.populate(0, _rows(4))
     snap = t.snapshot()
-    assert snap["enabled"] is True and snap["device_put_failures"] == 0
+    # the table's own snapshot has the JAX table's keys: "enabled" is the
+    # verifier's to add (test_table_rows_equal_the_jax_tables)
+    assert "enabled" not in snap and snap["device_put_failures"] == 0
+    assert set(snap) == set(JaxEpochPubkeyTable().snapshot())
     assert snap["entries"][0]["device_resident"] is True
     assert t.device_bytes() == 4 * ROW_WIDTH * 4
     out = t.gather_device(0, [3, 1])

@@ -37,7 +37,7 @@ from lodestar_tpu.parallel.verifier import TpuBlsVerifier
 from lodestar_tpu.testing import faults
 from lodestar_tpu_torch.bls.api import DST_G2
 from lodestar_tpu_torch.chain.bls_verifier import DeviceBlsVerifier
-from lodestar_tpu_torch.observability.stages import NULL_OBSERVER
+from lodestar_tpu_torch.observability.stages import default_pipeline
 from lodestar_tpu_torch.parallel import verifier as pv
 
 # several pytest workers share the host: one intra-op thread each keeps
@@ -347,7 +347,7 @@ def test_no_faults_object_calls_nothing(monkeypatch):
 def test_defaults_are_the_jax_facades():
     port = DeviceBlsVerifier(device="cpu")
     assert port.max_sets_per_job == 128
-    assert port.observer is NULL_OBSERVER
+    assert port.observer is default_pipeline()
     assert port._inner._device_decompress is True
     assert port._inner.grouped_configs == ((16, 8), (64, 64))
     assert port._inner.pk_grouped_configs == ((128, 32),)

@@ -1,10 +1,14 @@
 """The port stands alone: importing `lodestar_tpu_torch` and every one of
 its modules loads neither JAX nor any module of the JAX package (nor does
-importing the serving seams alone: the facade and the epoch table), and
-the verifier's entry points do not fall back to the CPU unasked."""
+importing the serving seams alone: the facade and the epoch table, nor
+the observability modules alone), no module of it reads a
+`LODESTAR_TPU_*` variable, and the verifier's entry points do not fall
+back to the CPU unasked."""
 
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -38,7 +42,10 @@ def test_import_loads_no_jax_and_no_jax_package():
     for name in ("ops.fp", "ops.cuda_fp", "ops.cuda_mxu", "ops.cuda_tower", "ops.pairing",
                  "ops.g2_decompress", "parallel.verifier", "native", "convert", "build",
                  "device", "gen_tower_consts", "chain.bls_verifier", "parallel.epoch_table",
-                 "observability.stages"):
+                 "observability.stages", "observability.trace",
+                 "observability.flight_recorder", "observability.compile_ledger",
+                 "observability.device_ledger", "observability.stage_profile",
+                 "observability.runtime", "metrics.registry"):
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
 
 
@@ -60,6 +67,43 @@ def test_serving_seams_load_no_jax_and_no_jax_package():
         capture_output=True, text=True, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+OBSERVABILITY_PROBE = r"""
+import json, sys
+import lodestar_tpu_torch.metrics.registry
+import lodestar_tpu_torch.observability.stages
+import lodestar_tpu_torch.observability.trace
+import lodestar_tpu_torch.observability.flight_recorder
+import lodestar_tpu_torch.observability.compile_ledger
+import lodestar_tpu_torch.observability.device_ledger
+import lodestar_tpu_torch.observability.stage_profile
+import lodestar_tpu_torch.observability.runtime
+from lodestar_tpu_torch.observability import default_pipeline
+default_pipeline().registry.expose()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_observability_loads_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", OBSERVABILITY_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_module_reads_a_lodestar_tpu_variable():
+    sources = glob.glob(os.path.join(REPO, "lodestar_tpu_torch", "**", "*.py"), recursive=True)
+    assert len(sources) > 30
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"(environ|getenv)\b[^\n]*LODESTAR_TPU_", text), path
 
 
 def test_verifier_without_a_device_does_not_run_on_the_cpu():
