@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero; every phase
+but the mesh phase builds its verifiers with `mesh=None`, so it runs the
+single-device path it names on a host of any card count):
 
 1. env    the card's name and power limit, the torch and CUDA versions, the
           per-thread stack limit (`cudaLimitStackSize`, read through the
@@ -131,11 +133,32 @@ Phases (any failure raises and the script exits non-zero):
           bls/miller_loop (bls/final_exp_batch). The device ledger must
           read the card's in-use and total bytes, and the compile ledger
           hold one event (hit or miss) per library built or found.
+12b. mesh  the sharded verdicts: `TorchBlsVerifier(mesh=...)` over a
+          `BlsMeshDispatcher(["cuda:0", "cuda:0"])`, two worker processes
+          on the one card (even where more are visible; the device count
+          is logged): grouped 64 x 64 (the slice phase's batch: valid, one
+          bad signature and one undecodable signature in the second
+          worker's rows), pk-grouped 128 x 32 (valid with the hash cache
+          emptied, one wrong message) and per-set 128 by bisection (valid,
+          three invalid at 5, 64 and 127). Each verdict equals the host
+          tier's (the per-set vectors set for set), the dispatcher's count
+          of each chip rises by one, the single-device verdict is never
+          called, and each worker launches K2p once and the first K3-fe
+          once (the workers' counts zeroed just before and read just
+          after through the pool; the controller launches nothing but
+          bisection's probes). Each cell's wall is printed beside the same
+          batch's single-device wall. Then the eviction drill: worker 2
+          killed, the next grouped dispatch raises within the pool's
+          timeout, `mesh_evict(1)` serves the verdict single-device,
+          `mesh_readmit()` starts a new pool that serves it again; the
+          seconds of each step and the pools' start times are printed,
+          and no worker process may be left.
 
-The main-path verdicts of phases 6-12a run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-12b run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
-(per part of a split one, per chunk of a flat one), both on bisection;
+(per part of a split one, per chunk of a flat one, per worker in phase
+12b, where K3-fe runs on the first worker only), both on bisection;
 every verdict of phases 7-9 is counted so and also checks which planner
 paths ran.
 
@@ -396,7 +419,7 @@ def phase_slice(torch, np, n_roots: int, per_root: int):
     if not host_valid:
         raise AssertionError("the host tier rejects the valid batch")
 
-    v = TorchBlsVerifier(device="cuda", grouped_configs=((16, 8), (64, 64)),
+    v = TorchBlsVerifier(device="cuda", mesh=None, grouped_configs=((16, 8), (64, 64)),
                          rng=np.random.default_rng(SEED))
     t0 = time.perf_counter()
     cold = v.verify_signature_sets(sets)
@@ -943,22 +966,16 @@ def phase_fe(torch, np, muls: dict, ptxas: dict):
 
 
 def _counts():
-    from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu, cuda_tower
+    """This process's launch counts of K1-K4, K2p and K3-fe."""
+    from lodestar_tpu_torch.parallel.mesh_pool import launch_counts
 
-    return {"K1": cuda_fp.LAUNCHES, "K2": cuda_tower.MILLER_LAUNCHES,
-            "K3": cuda_tower.PAIRING_LAUNCHES, "K4": cuda_mxu.LAUNCHES,
-            "K2p": cuda_tower.MILLER_PROJ_LAUNCHES, "K3-fe": cuda_tower.FINAL_EXP_LAUNCHES}
+    return launch_counts()
 
 
 def _reset_counts():
-    from lodestar_tpu_torch.ops import cuda_fp, cuda_mxu, cuda_tower
+    from lodestar_tpu_torch.parallel.mesh_pool import launch_counts
 
-    cuda_fp.LAUNCHES = 0
-    cuda_tower.MILLER_LAUNCHES = 0
-    cuda_tower.MILLER_PROJ_LAUNCHES = 0
-    cuda_tower.PAIRING_LAUNCHES = 0
-    cuda_tower.FINAL_EXP_LAUNCHES = 0
-    cuda_mxu.LAUNCHES = 0
+    launch_counts(reset=True)
 
 
 def _run_counted(torch, fn, verifier=None):
@@ -1061,7 +1078,7 @@ def phase_per_set(torch, np, sets, host_ok, bad, host_bad):
     from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
 
     tag = "[per-set]"
-    v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED))
+    v = TorchBlsVerifier(device="cuda", mesh=None, rng=np.random.default_rng(SEED))
     out = {}
 
     got, secs, counts = _run_counted(torch, lambda: v.verify_signature_sets_individual(sets), v)
@@ -1223,7 +1240,8 @@ def phase_serve(torch, np):
     if not all(host_ok) or [i for i, ok in enumerate(host_bad) if not ok] != [5, 64, 127]:
         raise AssertionError(f"{tag} the host tier's verdicts are not the expected ones")
     obs = ServeObserver()
-    dev = DeviceBlsVerifier(device="cuda", observer=obs, rng=np.random.default_rng(SEED))
+    dev = DeviceBlsVerifier(device="cuda", mesh=None, observer=obs,
+                            rng=np.random.default_rng(SEED))
     out = {}
 
     t0 = time.perf_counter()
@@ -1431,12 +1449,12 @@ def phase_observe(torch, np):
         raise AssertionError(f"{tag} the host tier rejects the valid job")
     pm = PipelineMetrics()
     pm.set_build_info(runtime_info())
-    arms = {"A": DeviceBlsVerifier(device="cuda", observer=pm,
+    arms = {"A": DeviceBlsVerifier(device="cuda", mesh=None, observer=pm,
                                    rng=np.random.default_rng(SEED)),
-            "B": DeviceBlsVerifier(device="cuda", observer=NULL_OBSERVER,
+            "B": DeviceBlsVerifier(device="cuda", mesh=None, observer=NULL_OBSERVER,
                                    rng=np.random.default_rng(SEED))}
     log_obs = _CallLog(PipelineMetrics())
-    arms["log"] = DeviceBlsVerifier(device="cuda", observer=log_obs,
+    arms["log"] = DeviceBlsVerifier(device="cuda", mesh=None, observer=log_obs,
                                     rng=np.random.default_rng(SEED))
     for v in arms.values():  # as serve: the table, the roots, one warm job
         v.epoch_table_populate(0, [s.pubkey.to_bytes() for s in sets])
@@ -1622,7 +1640,7 @@ def phase_pk_grouped(torch, np):
         f"tier's verdicts in {time.perf_counter() - t0:.1f} s")
     if not all(host):
         raise AssertionError("the host tier rejects the valid pk-grouped batch")
-    v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED))
+    v = TorchBlsVerifier(device="cuda", mesh=None, rng=np.random.default_rng(SEED))
     routes = _spy_routes(v)
     out = {}
     secs, counts = _verdict(torch, v, routes, tag, "(a) valid, first call", sets, True,
@@ -1668,7 +1686,7 @@ def phase_flat(torch, np):
     log(f"{tag} made 200 sets and the host tier's verdicts in {time.perf_counter() - t0:.1f} s")
     if not all(host):
         raise AssertionError("the host tier rejects the valid flat batch")
-    v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED))
+    v = TorchBlsVerifier(device="cuda", mesh=None, rng=np.random.default_rng(SEED))
     routes = _spy_routes(v)
     out = {}
     head = sets[:PER_SET_N]
@@ -1707,7 +1725,7 @@ def phase_split(torch, np):
         host = _host_verdicts(sets)
         if not all(host):
             raise AssertionError(f"{tag} the host tier rejects the valid batch")
-        v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED))
+        v = TorchBlsVerifier(device="cuda", mesh=None, rng=np.random.default_rng(SEED))
         routes = _spy_routes(v)
         secs, counts = _verdict(torch, v, routes, tag, f"grouped + {rest}, valid", sets, True,
                                 ["grouped", route])
@@ -1719,6 +1737,223 @@ def phase_split(torch, np):
             raise AssertionError(f"{tag} the host tier accepts the tampered batch")
         _verdict(torch, v, routes, tag, f"grouped + {rest}, one tampered unique set", bad, False,
                  ["grouped", route])
+    return out
+
+
+def _verdict_text(v) -> str:
+    """A batch verdict as it is, a per-set vector as its invalid sets."""
+    if isinstance(v, list):
+        return f"{len(v)} sets, invalid at {[i for i, ok in enumerate(v) if not ok]}"
+    return str(v)
+
+
+MESH_DEVICES = ("cuda:0", "cuda:0")  # two workers on the one card, even where more are visible
+
+
+def phase_mesh(torch, np, per_set_sets, per_set_host, per_set_bad, per_set_host_bad):
+    """The sharded verdicts over a `BlsMeshDispatcher` of two worker
+    processes on cuda:0, behind `TorchBlsVerifier(mesh=...)`: grouped
+    64 x 64 (valid, one bad signature in the second worker's rows, one
+    undecodable signature there too), pk-grouped 128 x 32 (valid, one
+    wrong message) and per-set 128 by bisection (valid, three invalid at
+    5, 64 and 127). Every verdict equals the host tier's, goes through the
+    mesh once (the dispatcher's per-chip count rises by one, the
+    single-device verdict is never called) and launches K2p once on each
+    worker and K3-fe once on the first (counts zeroed just before, read
+    just after, in the workers through the pool). Then the eviction drill:
+    worker 2 killed, the next grouped dispatch raises within the pool's
+    timeout, `mesh_evict(1)` serves single-device, `mesh_readmit()` starts
+    a new pool that serves again; no worker process is left."""
+    import multiprocessing
+
+    from lodestar_tpu_torch.observability.stages import PipelineMetrics
+    from lodestar_tpu_torch.parallel.mesh import BlsMeshDispatcher
+    from lodestar_tpu_torch.parallel.mesh_pool import MeshWorkerError
+    from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
+    from lodestar_tpu_torch.profile_verdict import make_sets
+
+    tag = "[mesh]"
+    log(f"{tag} torch.cuda.device_count() = {torch.cuda.device_count()}; the mesh runs two "
+        f"workers on {MESH_DEVICES[0]}; card: {card_line()}")
+    t0 = time.perf_counter()
+    grouped = make_sets(64, 64, seed=SEED + 64, threads=THREADS)  # the slice phase's batch
+    rng = np.random.default_rng(SEED + 21)
+    pk_n = PK_KEYS * PK_ROOTS
+    pk_sets = make_key_sets(np, [i // PK_ROOTS for i in range(pk_n)],
+                            [rng.bytes(32) for _ in range(pk_n)], SEED + 22)
+    grouped_host, pk_host = _host_verdicts(grouped), _host_verdicts(pk_sets)
+    if not (all(grouped_host) and all(pk_host)):
+        raise AssertionError("the host tier rejects a valid mesh batch")
+    log(f"{tag} made the grouped and pk-grouped batches and their host tier verdicts in "
+        f"{time.perf_counter() - t0:.1f} s")
+    obs = PipelineMetrics()
+    d = BlsMeshDispatcher(list(MESH_DEVICES), observer=obs)
+    v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED), mesh=d)
+    single = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED), mesh=None)
+    sharded_off = []  # single-device verdicts called on the mesh verifier
+    for kind in ("grouped_raw", "pk_grouped_raw", "bisect_tree"):
+        inner = v._kernels[kind]
+        v._kernels[kind] = lambda *a, _k=kind, _f=inner: sharded_off.append(_k) or _f(*a)
+    pool = d.start_pool()
+    log(f"{tag} pool of {pool.size} workers (pids {pool.pids}) started in "
+        f"{pool.start_seconds:.3f} s")
+    out = {"start_s": pool.start_seconds, "cells": {}}
+
+    def mesh_verdict(name, fn, want, clear_h2c=False, controller_idle=True):
+        if clear_h2c:
+            v._h2c_cache.clear()
+        chips_before = dict(obs.mesh_snapshot()["chip_dispatches"])
+        pool.counts(reset=True)
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        wall = time.perf_counter() - t0
+        workers = pool.counts()
+        controller = _counts()
+        chips = obs.mesh_snapshot()["chip_dispatches"]
+        log(f"{tag} {name}: mesh {_verdict_text(got)}, host tier {_verdict_text(want)}, "
+            f"{wall:.3f} s; worker launches {json.dumps(workers)}; controller launches "
+            f"{json.dumps(controller)}")
+        if got != want:
+            raise AssertionError(f"{tag} {name}: the mesh says {got}, the host tier {want}")
+        if sharded_off:
+            raise AssertionError(f"{tag} {name}: NOT_SHARDED taken ({sharded_off})")
+        for c in ("0", "1"):
+            if chips.get(c, 0) - chips_before.get(c, 0) != 1:
+                raise AssertionError(f"{tag} {name}: chip {c} dispatches {chips_before} -> {chips}")
+        for k, counts in enumerate(workers):
+            if counts["K2p"] != 1:
+                raise AssertionError(f"{tag} {name}: worker {k} launched K2p {counts['K2p']} times")
+            if counts["K3-fe"] != (1 if k == 0 else 0):
+                raise AssertionError(f"{tag} {name}: worker {k} launched K3-fe "
+                                     f"{counts['K3-fe']} times")
+        # the controller runs no shard; bisection's probes run there
+        busy = [kk for kk, n in controller.items() if n and (controller_idle or kk == "K2p")]
+        if busy:
+            raise AssertionError(f"{tag} {name}: the controller launched {busy}")
+        return wall, workers
+
+    def single_wall(name, fn, want, clear_h2c=False):
+        if clear_h2c:
+            single._h2c_cache.clear()
+        got, wall, counts = _run_counted(torch, fn, single)
+        log(f"{tag} {name} single-device: {_verdict_text(got)}, {wall:.3f} s; launches "
+            f"{json.dumps(counts)}")
+        if got != want:
+            raise AssertionError(f"{tag} {name} single-device: {got}, host tier {want}")
+        return wall
+
+    def cell_walls(cell, name, method, sets, want, **kw):
+        """A first (cold) sharded call, then the sharded and the
+        single-device verdict of the same batch in the order mesh,
+        single, single, mesh; the cell keeps both walls of each side."""
+        mesh_fn = lambda: getattr(v, method)(sets)  # noqa: E731
+        mesh_verdict(f"{name}, first call", mesh_fn, want, **kw)
+        single_wall(f"{name}, first call", lambda: getattr(single, method)(sets), want,
+                    kw.get("clear_h2c", False))
+        cell.update(mesh_s=[], single_s=[])
+        for side in ("mesh", "single", "single", "mesh"):
+            if side == "mesh":
+                wall, cell["workers"] = mesh_verdict(name, mesh_fn, want, **kw)
+                cell["mesh_s"].append(wall)
+            else:
+                cell["single_s"].append(single_wall(name, lambda: getattr(single, method)(sets),
+                                                    want, kw.get("clear_h2c", False)))
+
+    # grouped-64x64: rows are roots, sets [64j, 64j + 64) in row j; the
+    # second worker owns rows 32..63
+    cell = out["cells"]["grouped-64x64"] = {}
+    cell_walls(cell, "grouped-64x64 valid", "verify_signature_sets", grouped, True)
+    k = 40 * 64 + 3
+    bad_sig = _tamper_one(grouped, k, "signature", 10)
+    cell["bad_signature_s"], _ = mesh_verdict(
+        "grouped-64x64 one bad signature (row 40, worker 2)",
+        lambda: v.verify_signature_sets(bad_sig), all(_host_after(grouped_host, bad_sig, (k,))))
+    k = 50 * 64 + 7
+    undecodable = _bad_flags(grouped, k)
+    cell["undecodable_s"], _ = mesh_verdict(
+        "grouped-64x64 one undecodable signature (row 50, worker 2)",
+        lambda: v.verify_signature_sets(undecodable),
+        all(_host_after(grouped_host, undecodable, (k,))))
+
+    # pk-grouped-128x32: rows are keys; the second worker owns keys 64..127;
+    # every verdict hashes its 4096 roots anew, as a flood always does
+    cell = out["cells"]["pk-grouped-128x32"] = {}
+    cell_walls(cell, "pk-grouped-128x32 valid", "verify_signature_sets", pk_sets, True,
+               clear_h2c=True)
+    k = 100 * PK_ROOTS + 5
+    wrong = _wrong_message(pk_sets, k, rng.bytes(32))
+    cell["wrong_message_s"], _ = mesh_verdict(
+        "pk-grouped-128x32 one wrong message (key 100, worker 2)",
+        lambda: v.verify_signature_sets(wrong), all(_host_after(pk_host, wrong, (k,))))
+
+    # per-set-128 by bisection: lanes [0, 64) on the first worker; the
+    # probes run on the controller
+    cell = out["cells"]["per-set-128"] = {}
+    cell_walls(cell, "per-set-128 valid", "verify_signature_sets_individual", per_set_sets,
+               per_set_host, controller_idle=False)
+    bad_at = [i for i, ok in enumerate(per_set_host_bad) if not ok]
+    if bad_at != [5, 64, 127]:
+        raise AssertionError(f"the tampered per-set batch is invalid at {bad_at}")
+    cell["three_invalid_s"], _ = mesh_verdict(
+        "per-set-128 three invalid (5; 64, 127)",
+        lambda: v.verify_signature_sets_individual(per_set_bad), per_set_host_bad,
+        controller_idle=False)
+    cell["three_invalid_single_s"] = single_wall(
+        "per-set-128 three invalid", lambda: single.verify_signature_sets_individual(per_set_bad),
+        per_set_host_bad)
+    for name, c in out["cells"].items():
+        c["ratio"] = sum(c["mesh_s"]) / sum(c["single_s"])
+        log(f"{tag} {name}: mesh {c['mesh_s'][0]:.3f} / {c['mesh_s'][1]:.3f} s, single-device "
+            f"{c['single_s'][0]:.3f} / {c['single_s'][1]:.3f} s (order mesh, single, single, "
+            f"mesh), ratio of the sums {c['ratio']:.3f}; per-worker launches "
+            f"{json.dumps(c['workers'])}")
+
+    # the eviction drill
+    drill = out["drill"] = {}
+    pool.kill(1)
+    t0 = time.perf_counter()
+    try:
+        v.verify_signature_sets(grouped)
+    except MeshWorkerError as e:
+        drill["raise_s"] = time.perf_counter() - t0
+        log(f"{tag} drill: worker 2 killed; the next grouped dispatch raised in "
+            f"{drill['raise_s']:.6f} s (pool timeout {pool.timeout_s:.0f} s): chip {e.chip}")
+        if e.chip != 1 or drill["raise_s"] > pool.timeout_s:
+            raise AssertionError(f"{tag} drill: raised for chip {e.chip} after "
+                                 f"{drill['raise_s']:.3f} s")
+    else:
+        raise AssertionError(f"{tag} drill: the dispatch over a dead worker did not raise")
+    t0 = time.perf_counter()
+    size = v.mesh_evict(1, reason="drill")
+    drill["evict_s"] = time.perf_counter() - t0
+    if size != 1 or d.pool is not None or any(pool.alive()):
+        raise AssertionError(f"{tag} drill: evict left size {size}, pool {d.pool}")
+    sharded_off.clear()
+    got, drill["single_s"], counts = _run_counted(torch, lambda: v.verify_signature_sets(grouped), v)
+    if got is not True or sharded_off != ["grouped_raw"]:
+        raise AssertionError(f"{tag} drill: single-device verdict {got} via {sharded_off}")
+    _need_main(counts, f"{tag} drill single-device")
+    sharded_off.clear()
+    log(f"{tag} drill: mesh_evict(1) in {drill['evict_s']:.6f} s; serving size 1, the grouped "
+        f"verdict single-device True in {drill['single_s']:.3f} s; launches {json.dumps(counts)}")
+    t0 = time.perf_counter()
+    if v.mesh_readmit() != 1:
+        raise AssertionError(f"{tag} drill: readmit did not restore the chip")
+    drill["readmit_s"] = time.perf_counter() - t0
+    pool = d.start_pool()
+    drill["restart_s"] = pool.start_seconds
+    drill["served_s"], _ = mesh_verdict("grouped-64x64 valid after readmission",
+                                        lambda: v.verify_signature_sets(grouped), True)
+    log(f"{tag} drill: mesh_readmit() in {drill['readmit_s']:.6f} s, the new pool started in "
+        f"{drill['restart_s']:.3f} s, served again in {drill['served_s']:.3f} s; eviction to "
+        f"serving {drill['raise_s'] + drill['evict_s'] + drill['single_s']:.3f} s")
+    v.close()
+    single.close()
+    left = multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"{tag} worker processes left: {left}")
+    log(f"{tag} snapshot {json.dumps(d.snapshot())}; no worker process left")
     return out
 
 
@@ -1762,6 +1997,7 @@ def main() -> int:
     checks = phase_pairing_check(torch, np, sets, host_ok, bad, host_bad)
     serve = phase_serve(torch, np)
     observe = phase_observe(torch, np)
+    mesh = phase_mesh(torch, np, sets, host_ok, bad, host_bad)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -1778,6 +2014,12 @@ def main() -> int:
     log(f"[summary] observe: 128-set job median {observe['median_s']['A']:.6f} s with "
         f"PipelineMetrics, {observe['median_s']['B']:.6f} s with NullObserver; observing "
         f"costs the host {observe['host_cost_us']['job_us']:.1f} us per job")
+    log(f"[summary] mesh (two workers on cuda:0): pool start {mesh['start_s']:.3f} s; "
+        + "; ".join(f"{n} {min(c['mesh_s']):.3f} s against single-device "
+                    f"{min(c['single_s']):.3f} s (best of two each)"
+                    for n, c in mesh["cells"].items())
+        + f"; drill raise {mesh['drill']['raise_s']:.6f} s, evict {mesh['drill']['evict_s']:.6f} s, "
+        f"single-device {mesh['drill']['single_s']:.3f} s, restart {mesh['drill']['restart_s']:.3f} s")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "
         f"ptxas {json.dumps(k1_ptxas)}")

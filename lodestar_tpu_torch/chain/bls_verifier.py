@@ -15,9 +15,14 @@ over the JAX one:
   starts a trace from LODESTAR_TPU_PROFILE; the port only when asked);
 - `observer`, `h2c_cache_size`, `warm_h2c`, `epoch_table_populate` and
   `epoch_table_snapshot`, passed through to `TorchBlsVerifier`;
-- the mesh and fleet seams, answered as the JAX verifier answers them
-  without a mesh (its "auto" default on one chip): no eviction, nothing
-  to readmit, no snapshot.
+- the mesh and fleet seams (`mesh_evict`, `mesh_readmit`,
+  `mesh_has_evicted`, `mesh_snapshot`, `mesh_evict_host`,
+  `fleet_snapshot`, `fleet_attach_router`), passed through to
+  `TorchBlsVerifier` and its `BlsMeshDispatcher`, if it has one; without
+  one they answer as the JAX verifier does without a mesh (no eviction,
+  nothing to readmit, no snapshot). Unlike the JAX facade, this one takes
+  a `mesh` argument ("auto", a dispatcher or None) and passes it on;
+  `close()` stops the mesh's worker processes.
 
 Device decompression of the signatures is the default path; a batch
 outside its 32 B root / 96 B signature shape is marshalled on the host,
@@ -43,8 +48,9 @@ class DeviceBlsVerifier:
 
     `device` (default: the GPU; raises without one), `grouped_configs`,
     `pk_grouped_configs`, `observer` (default: the port's
-    `default_pipeline()`), `faults` and `rng` go to `TorchBlsVerifier`;
-    `max_sets_per_job` is the most sets one call of it verifies."""
+    `default_pipeline()`), `faults`, `rng` and `mesh` go to
+    `TorchBlsVerifier`; `max_sets_per_job` is the most sets one call of
+    it verifies."""
 
     _FALLBACK_LOG_INTERVAL_S = 60.0
 
@@ -57,10 +63,11 @@ class DeviceBlsVerifier:
         observer=None,
         faults=None,
         rng=None,
+        mesh="auto",
     ):
         self._inner = TorchBlsVerifier(
             device=device, grouped_configs=grouped_configs, rng=rng,
-            pk_grouped_configs=pk_grouped_configs, observer=observer, faults=faults,
+            pk_grouped_configs=pk_grouped_configs, observer=observer, faults=faults, mesh=mesh,
         )
         self.observer = self._inner.observer
         self.max_sets_per_job = int(max_sets_per_job)
@@ -80,28 +87,32 @@ class DeviceBlsVerifier:
     def h2c_cache_size(self) -> int:
         return len(self._inner._h2c_cache)
 
-    # -- mesh and fleet seams: one device, no mesh -----------------------------
+    def close(self) -> None:
+        """Stop the mesh's worker processes (none without a mesh)."""
+        self._inner.close()
+
+    # -- mesh and fleet seams (the supervisor's failure policy) ----------------
 
     def mesh_evict(self, chip: int | None = None, reason: str = "failure"):
-        return None
+        return self._inner.mesh_evict(chip=chip, reason=reason)
 
     def mesh_readmit(self) -> int:
-        return 0
+        return self._inner.mesh_readmit()
 
     def mesh_has_evicted(self) -> bool:
-        return False
+        return self._inner.mesh_has_evicted()
 
     def mesh_snapshot(self):
-        return None
+        return self._inner.mesh_snapshot()
 
     def mesh_evict_host(self, host: int | None = None, reason: str = "failure"):
-        return None
+        return self._inner.mesh_evict_host(host=host, reason=reason)
 
     def fleet_snapshot(self):
-        return None
+        return self._inner.fleet_snapshot()
 
     def fleet_attach_router(self, router) -> None:
-        pass
+        self._inner.fleet_attach_router(router)
 
     # -- epoch-scoped precomputation -------------------------------------------
 

@@ -84,6 +84,7 @@ from ..ops.points import (
     g2_psi,
 )
 from .epoch_table import EpochPubkeyTable
+from .mesh import NOT_SHARDED, auto_mesh
 
 N_LIMBS = 32
 R_BITS = 64  # the per-set random coefficients of the bisection tree
@@ -643,7 +644,20 @@ class TorchBlsVerifier:
     `flaky_verdict(v)` / `flaky_verdicts(vs)` on each verdict. The epoch
     pubkey table is on (the JAX package's LODESTAR_TPU_EPOCH_TABLE
     default), and so is device decompression of the signatures
-    (LODESTAR_TPU_DEVICE_DECOMPRESS: `_device_decompress`, hard-coded)."""
+    (LODESTAR_TPU_DEVICE_DECOMPRESS: `_device_decompress`, hard-coded;
+    set False, the grouped verdicts take the limb route, signatures
+    decoded by the C tier, as the JAX package's does).
+
+    `mesh` is the JAX verifier's: "auto" (a `BlsMeshDispatcher` over
+    every card when more than one CUDA device is visible and `device` is
+    CUDA, else none), a dispatcher, or None. With one, the grouped,
+    pk-grouped and bisection verdicts of a batch whose rows divide the
+    serving size run sharded over its worker processes
+    (`parallel/mesh.py`, `parallel/sharded.py`), and the mesh seams
+    (`mesh_evict`, `mesh_readmit`, ...) reach it. The controller draws
+    the random coefficients once and scatters them: the batch equation is
+    sound only with one unpredictable r across the combine. `close()`
+    stops the mesh's workers."""
 
     _device_decompress = True
 
@@ -655,9 +669,14 @@ class TorchBlsVerifier:
         pk_grouped_configs: tuple[tuple[int, int], ...] = ((128, 32),),
         observer=None,
         faults=None,
+        mesh="auto",
     ):
         self.device = resolve_device(device)
         self.observer = observer if observer is not None else default_pipeline()
+        if mesh == "auto":
+            self._mesh = auto_mesh(self.observer, self.device, faults)
+        else:
+            self._mesh = mesh or None
         wrap = compile_ledger.ledger().wrap
         self._kernels = {kernel: wrap(_module_function(fn), kernel)
                          for kernel, fn in _LEDGER_KERNELS.items()}
@@ -697,6 +716,49 @@ class TorchBlsVerifier:
         with self.observer.stage(name):
             yield
         self._add_stage(name, time.perf_counter() - t0)
+
+    # -- mesh passthroughs (the supervisor's failure policy) -------------------
+
+    def mesh_evict(self, chip: int | None = None, reason: str = "failure"):
+        """Evict a sick chip from the serving mesh; None when there is no
+        mesh or nothing left to evict (the supervisor then falls back
+        tiers)."""
+        if self._mesh is None:
+            return None
+        return self._mesh.evict(chip=chip, reason=reason)
+
+    def mesh_readmit(self) -> int:
+        return 0 if self._mesh is None else self._mesh.readmit()
+
+    def mesh_has_evicted(self) -> bool:
+        return self._mesh is not None and self._mesh.has_evicted()
+
+    def mesh_snapshot(self):
+        return None if self._mesh is None else self._mesh.snapshot()
+
+    def mesh_evict_host(self, host: int | None = None, reason: str = "failure"):
+        """Evict a whole host from a two-level serving fleet; None when
+        there is no mesh, a single-host census or nothing left to evict."""
+        if self._mesh is None:
+            return None
+        return self._mesh.evict_host(host=host, reason=reason)
+
+    def fleet_snapshot(self):
+        return None if self._mesh is None else self._mesh.fleet_snapshot()
+
+    def fleet_attach_router(self, router) -> None:
+        """Bind the FleetRouter so host evictions rebalance its subnet
+        slices (no-op without a mesh)."""
+        if self._mesh is not None:
+            self._mesh.attach_router(router)
+
+    def close(self) -> None:
+        """Stop the mesh's worker processes (none without a mesh)."""
+        if self._mesh is not None:
+            self._mesh.close()
+
+    def _mesh_shardable(self, rows: int) -> bool:
+        return self._mesh is not None and self._mesh.enabled and rows % self._mesh.size == 0
 
     # -- fault-injection seam --------------------------------------------------
 
@@ -997,20 +1059,26 @@ class TorchBlsVerifier:
     def _submit_grouped(self, sets, plan):
         """Dispatch one root-grouped batch; None marks an invalid set."""
         self.observer.planner("root_grouped", len(sets), group_sizes=[len(r) for r in plan[2]])
-        return self._submit_rows(sets, plan, self._marshal_grouped,
-                                 self._kernels["grouped_raw"])
+        return self._submit_rows(sets, plan, self._marshal_grouped, "grouped")
 
     def _submit_pk_grouped(self, sets, plan):
         """Dispatch one pk-grouped batch; None marks an invalid set."""
         self.observer.planner("pk_grouped", len(sets), group_sizes=[len(r) for r in plan[2]])
-        return self._submit_rows(sets, plan, self._marshal_pk_grouped,
-                                 self._kernels["pk_grouped_raw"])
+        return self._submit_rows(sets, plan, self._marshal_pk_grouped, "pk_grouped")
 
-    def _submit_rows(self, sets, plan, marshal, kernel):
-        """Marshal a (rows × lanes) plan, draw its GLS bits and dispatch
-        `kernel` on the raw signatures; None marks an invalid set."""
+    def _submit_rows(self, sets, plan, marshal, kind: str):
+        """Marshal a (rows × lanes) plan, draw its GLS bits and dispatch the
+        `kind` verdict ("grouped" or "pk_grouped"): sharded over the mesh
+        when its rows divide the serving size (the JAX verifier's
+        `_submit_grouped_mesh` / `_submit_pk_grouped_mesh`), else on the
+        device. The signatures stay raw bytes, or with device
+        decompression off are decoded by the C tier (the limb route).
+        None marks an invalid set."""
+        raw = self._device_decompress
         with self._stage("marshal"):
             marshalled = marshal(sets, plan)
+            if marshalled is not None and not raw and not self._decode_rows(*marshalled):
+                marshalled = None
         if marshalled is None:
             return None
         g, sig_raw = marshalled
@@ -1018,13 +1086,38 @@ class TorchBlsVerifier:
             a_bits, b_bits = _rand_pairs(g.valid.shape, self._rng)
         dev = self.device
         with self._stage("dispatch"):
-            return kernel(
-                *(torch.as_tensor(x).to(dev) for x in (g.pk_x, g.pk_y, g.msg_x, g.msg_y)),
-                torch.as_tensor(sig_raw).to(dev),
-                torch.as_tensor(a_bits).to(dev),
-                torch.as_tensor(b_bits).to(dev),
-                torch.as_tensor(g.valid).to(dev),
-            )
+            if self._mesh_shardable(g.valid.shape[0]):
+                if raw:
+                    result = getattr(self._mesh, f"dispatch_{kind}_raw")(g, sig_raw, a_bits,
+                                                                          b_bits)
+                else:
+                    result = getattr(self._mesh, f"dispatch_{kind}")(g, a_bits, b_bits)
+                if result is not NOT_SHARDED:
+                    return result
+            head = [torch.as_tensor(x).to(dev) for x in (g.pk_x, g.pk_y, g.msg_x, g.msg_y)]
+            tail = [torch.as_tensor(x).to(dev) for x in (a_bits, b_bits, g.valid)]
+            if raw:
+                return self._kernels[f"{kind}_raw"](*head, torch.as_tensor(sig_raw).to(dev),
+                                                    *tail)
+            sig = [torch.as_tensor(x).to(dev) for x in (g.sig_x, g.sig_y)]
+            return self._kernels[kind](*head, *sig, *tail)
+
+    def _decode_rows(self, g, sig_raw) -> bool:
+        """The limb route's marshal: the C tier decompresses (and
+        subgroup-checks) the signatures of the valid lanes into g.sig_x,
+        g.sig_y; False when one does not decode."""
+        from .. import native
+
+        idx = np.nonzero(g.valid)
+        sigs = sig_raw[idx]
+        n = len(sigs)
+        _, _, _, _, sig_x, sig_y, ok = native.bls_marshal_sets(
+            bytes(48 * n), bytes(32 * n), sigs.tobytes(), DST_G2, do_hash=False, do_pk=False,
+        )
+        if not ok.all():
+            return False
+        g.sig_x[idx], g.sig_y[idx] = sig_x, sig_y
+        return True
 
     def _submit_flat(self, sets):
         """The flat verdict in chunks of the largest bucket; the resolver
@@ -1197,7 +1290,16 @@ class TorchBlsVerifier:
             r_bits = _rand_bits(arrs.pk_x.shape[0], self._rng)
         t = time.perf_counter()
         with self._stage("dispatch"):
-            root_ok, levels = self.verify_bisect_tree(arrs, r_bits)
+            sharded = NOT_SHARDED
+            if self._mesh is not None and self._mesh.enabled:
+                sharded = self._mesh.dispatch_bisect(arrs, r_bits)
+            if sharded is NOT_SHARDED:
+                root_ok, levels = self.verify_bisect_tree(arrs, r_bits)
+            else:
+                # the first worker's levels come back as host arrays; the
+                # probes run here, single-device
+                root_ok, levels = sharded
+                levels = [torch.as_tensor(lvl).to(self.device) for lvl in levels]
         with self._stage("device_wait"):
             root_ok = bool(root_ok)
         self.observer.device_busy_sample(time.perf_counter() - t)

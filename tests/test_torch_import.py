@@ -1,7 +1,7 @@
 """The port stands alone: importing `lodestar_tpu_torch` and every one of
 its modules loads neither JAX nor any module of the JAX package (nor does
 importing the serving seams alone: the facade and the epoch table, nor
-the observability modules alone), no module of it reads a
+the observability modules alone, nor a spawned mesh worker), no module of it reads a
 `LODESTAR_TPU_*` variable, and the verifier's entry points do not fall
 back to the CPU unasked."""
 
@@ -45,7 +45,8 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "observability.stages", "observability.trace",
                  "observability.flight_recorder", "observability.compile_ledger",
                  "observability.device_ledger", "observability.stage_profile",
-                 "observability.runtime", "metrics.registry"):
+                 "observability.runtime", "metrics.registry", "parallel.mesh",
+                 "parallel.mesh_pool", "parallel.sharded"):
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
 
 
@@ -95,6 +96,40 @@ def test_observability_loads_no_jax_and_no_jax_package():
         capture_output=True, text=True, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+WORKER_PROBE = r"""
+import json, sys
+from lodestar_tpu_torch.parallel.mesh_pool import MeshPool
+
+def bad(names):
+    return sorted(m for m in names
+                  if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+                  or m == "lodestar_tpu" or m.startswith("lodestar_tpu."))
+
+if __name__ == "__main__":
+    pool = MeshPool(["cpu"])
+    try:
+        worker = pool.modules()[0]
+    finally:
+        pool.close()
+    print(json.dumps({"parent": bad(sys.modules), "worker": bad(worker),
+                      "sharded": "lodestar_tpu_torch.parallel.sharded" in worker}))
+"""
+
+
+def test_mesh_worker_loads_no_jax_and_no_jax_package(tmp_path):
+    # a spawned worker imports the pool's modules and `parallel/sharded.py`
+    script = tmp_path / "probe.py"
+    script.write_text(WORKER_PROBE)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, str(script)], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True, timeout=300,
+    )
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"parent": [], "worker": [], "sharded": True}
 
 
 def test_no_module_reads_a_lodestar_tpu_variable():
