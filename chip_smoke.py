@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero; every phase
-but the mesh phase builds its verifiers with `mesh=None`, so it runs the
-single-device path it names on a host of any card count):
+but the mesh and fleet phases builds its verifiers with `mesh=None`, so
+it runs the single-device path it names on a host of any card count):
 
 1. env    the card's name and power limit, the torch and CUDA versions, the
           per-thread stack limit (`cudaLimitStackSize`, read through the
@@ -138,27 +138,56 @@ single-device path it names on a host of any card count):
           on the one card (even where more are visible; the device count
           is logged): grouped 64 x 64 (the slice phase's batch: valid, one
           bad signature and one undecodable signature in the second
-          worker's rows), pk-grouped 128 x 32 (valid with the hash cache
-          emptied, one wrong message) and per-set 128 by bisection (valid,
-          three invalid at 5, 64 and 127). Each verdict equals the host
-          tier's (the per-set vectors set for set), the dispatcher's count
+          worker's rows), pk-grouped 128 x 32 (the pk-grouped phase's
+          batch: valid with the hash cache emptied; the fleet phase holds
+          its wrong message) and per-set 128 by bisection (valid, three
+          invalid at 5, 64 and 127). Each verdict equals the host tier's
+          (the per-set vectors set for set), the dispatcher's count
           of each chip rises by one, the single-device verdict is never
           called, and each worker launches K2p once and the first K3-fe
           once (the workers' counts zeroed just before and read just
           after through the pool; the controller launches nothing but
-          bisection's probes). Each cell's wall is printed beside the same
-          batch's single-device wall. Then the eviction drill: worker 2
+          bisection's probes). Each cell's walls are printed beside the
+          same batch's single-device walls. Then the eviction drill: worker 2
           killed, the next grouped dispatch raises within the pool's
           timeout, `mesh_evict(1)` serves the verdict single-device,
           `mesh_readmit()` starts a new pool that serves it again; the
           seconds of each step and the pools' start times are printed,
           and no worker process may be left.
+12c. fleet  the two-level fleet (hosts x GPUs per host) on cuda:0: a
+          `BlsMeshDispatcher` of hosts [[0, 1], [2, 3]], host 0's two
+          workers spawned by this process, host 1's two started by a
+          `lodestar_tpu_torch.parallel.fleet_host` agent subprocess that
+          joins the hub over TCP on 127.0.0.1 with a temporary authkey
+          file (host 1 emulated on this machine, as a second host would
+          run it). The mesh phase's grouped and pk-grouped batches and the
+          per-set batches through `TorchBlsVerifier(mesh=...)`: grouped
+          64 x 64 (valid, one bad signature in host 1's rows), pk-grouped
+          128 x 32 (valid with the hash cache emptied, one wrong message in
+          host 1's rows), per-set 128 by bisection (valid, three invalid).
+          Each verdict equals the host tier's, goes through the fleet once
+          (each host's and chip's dispatch count rises by one, never the
+          single-device verdict), launches K2p once on each of the four
+          workers and K3-fe once on worker 0 only. Each cell's walls are
+          printed beside the mesh phase's single-level and single-device
+          walls of the same batch. Then the host drill: the agent killed,
+          the next grouped dispatch raises `MeshWorkerError` with host 1,
+          `mesh_evict_host(1)` serves from a single-level pool of host 0's
+          two workers, the attached `FleetRouter` moved only host 1's
+          subnets, a new agent (started after the raise) and
+          `mesh_readmit()` serve the two-level verdict again; the seconds
+          of each step are printed, and no worker or agent process may be
+          left. To stay in its time, the mesh phase reuses the slice and
+          pk-grouped phases' batches, its pk-grouped cell is the valid
+          batch alone, its pk-grouped and per-set cells time one verdict a
+          side (grouped keeps mesh, single, single, mesh) and no cell
+          repeats a warm single-device first call.
 
-The main-path verdicts of phases 6-12b run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-12c run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
-(per part of a split one, per chunk of a flat one, per worker in phase
-12b, where K3-fe runs on the first worker only), both on bisection;
+(per part of a split one, per chunk of a flat one, per worker in phases
+12b and 12c, where K3-fe runs on the first worker only), both on bisection;
 every verdict of phases 7-9 is counted so and also checks which planner
 paths ran.
 
@@ -404,7 +433,8 @@ def _host_verdicts(sets):
 
 def phase_slice(torch, np, n_roots: int, per_root: int):
     """Drive TorchBlsVerifier on one batch shape; returns the launch counts
-    of the main-path verdict and its wall time."""
+    of the main-path verdict, its wall time, the batch's size, its products
+    per launch and the batch with its host tier verdicts."""
     from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
     from lodestar_tpu_torch.profile_verdict import make_sets
 
@@ -461,7 +491,7 @@ def phase_slice(torch, np, n_roots: int, per_root: int):
         log(f"{tag} {name}: port {got}, host tier {want} ({secs:.3f} s)")
         if got is not False or want is not False:
             raise AssertionError(f"{name}: the tampered batch was not rejected by both")
-    return counts, wall, len(sets), products
+    return counts, wall, len(sets), products, (sets, per_set)
 
 
 # K4 computes K1's function, REDC(a·b), with its constant products on the
@@ -1670,6 +1700,7 @@ def phase_pk_grouped(torch, np):
         if want:
             raise AssertionError(f"{tag} {name}: the host tier accepts the tampered batch")
         _verdict(torch, v, routes, tag, name, bad, False, ["pk_grouped"])
+    out["batch"] = (sets, host)
     return out
 
 
@@ -1747,17 +1778,72 @@ def _verdict_text(v) -> str:
     return str(v)
 
 
+def _sharded_verdict(tag, d, obs, spied, name, fn, want, controller_idle=True):
+    """One verdict through the pool of the dispatcher `d`: it must equal the
+    host tier's (`want`), go through the mesh once (each serving chip's
+    dispatch count rises by one, and on a fleet each serving host's) and
+    never through the single-device verdict (`spied`: the calls seen
+    there), and launch K2p once on every worker and K3-fe once on worker 0
+    only (the workers' counts zeroed just before and read just after,
+    through the pool); the controller launches nothing, bisection's probes
+    aside (`controller_idle=False`: anything but K2p). Returns (wall,
+    every worker's launch counts)."""
+    pool = d.pool
+    chips = [str(c) for c in d.snapshot()["serving"]]
+    layout = (d.fleet_snapshot() or {}).get("layout", {})
+    hosts = list(layout) if len(layout) > 1 else []
+    chips_before = dict(obs.mesh_snapshot()["chip_dispatches"])
+    hosts_before = dict(obs.fleet_snapshot()["host_dispatches"]) if hosts else {}
+    pool.counts(reset=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = fn()
+    wall = time.perf_counter() - t0
+    workers = pool.counts()
+    controller = _counts()
+    chips_after = obs.mesh_snapshot()["chip_dispatches"]
+    hosts_after = obs.fleet_snapshot()["host_dispatches"] if hosts else {}
+    log(f"{tag} {name}: mesh {_verdict_text(got)}, host tier {_verdict_text(want)}, "
+        f"{wall:.3f} s; worker launches {json.dumps(workers)}; controller launches "
+        f"{json.dumps(controller)}")
+    if got != want:
+        raise AssertionError(f"{tag} {name}: the mesh says {got}, the host tier {want}")
+    if spied:
+        raise AssertionError(f"{tag} {name}: NOT_SHARDED taken ({spied})")
+    for c in chips:
+        if chips_after.get(c, 0) - chips_before.get(c, 0) != 1:
+            raise AssertionError(f"{tag} {name}: chip {c} dispatches {chips_before} -> "
+                                 f"{chips_after}")
+    for h in hosts:
+        if hosts_after.get(h, 0) - hosts_before.get(h, 0) != 1:
+            raise AssertionError(f"{tag} {name}: host {h} dispatches {hosts_before} -> "
+                                 f"{hosts_after}")
+    if len(workers) != len(chips):
+        raise AssertionError(f"{tag} {name}: {len(workers)} workers for chips {chips}")
+    for k, counts in enumerate(workers):
+        if counts["K2p"] != 1:
+            raise AssertionError(f"{tag} {name}: worker {k} launched K2p {counts['K2p']} times")
+        if counts["K3-fe"] != (1 if k == 0 else 0):
+            raise AssertionError(f"{tag} {name}: worker {k} launched K3-fe "
+                                 f"{counts['K3-fe']} times")
+    busy = [kk for kk, n in controller.items() if n and (controller_idle or kk == "K2p")]
+    if busy:
+        raise AssertionError(f"{tag} {name}: the controller launched {busy}")
+    return wall, workers
+
+
 MESH_DEVICES = ("cuda:0", "cuda:0")  # two workers on the one card, even where more are visible
 
 
-def phase_mesh(torch, np, per_set_sets, per_set_host, per_set_bad, per_set_host_bad):
+def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, per_set_bad,
+               per_set_host_bad):
     """The sharded verdicts over a `BlsMeshDispatcher` of two worker
     processes on cuda:0, behind `TorchBlsVerifier(mesh=...)`: grouped
     64 x 64 (valid, one bad signature in the second worker's rows, one
-    undecodable signature there too), pk-grouped 128 x 32 (valid, one
-    wrong message) and per-set 128 by bisection (valid, three invalid at
-    5, 64 and 127). Every verdict equals the host tier's, goes through the
-    mesh once (the dispatcher's per-chip count rises by one, the
+    undecodable signature there too), pk-grouped 128 x 32 (valid) and
+    per-set 128 by bisection (valid, three invalid at 5, 64 and 127).
+    Every verdict equals the host tier's, goes through the mesh once (the
+    dispatcher's per-chip count rises by one, the
     single-device verdict is never called) and launches K2p once on each
     worker and K3-fe once on the first (counts zeroed just before, read
     just after, in the workers through the pool). Then the eviction drill:
@@ -1770,22 +1856,12 @@ def phase_mesh(torch, np, per_set_sets, per_set_host, per_set_bad, per_set_host_
     from lodestar_tpu_torch.parallel.mesh import BlsMeshDispatcher
     from lodestar_tpu_torch.parallel.mesh_pool import MeshWorkerError
     from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
-    from lodestar_tpu_torch.profile_verdict import make_sets
 
     tag = "[mesh]"
     log(f"{tag} torch.cuda.device_count() = {torch.cuda.device_count()}; the mesh runs two "
         f"workers on {MESH_DEVICES[0]}; card: {card_line()}")
-    t0 = time.perf_counter()
-    grouped = make_sets(64, 64, seed=SEED + 64, threads=THREADS)  # the slice phase's batch
-    rng = np.random.default_rng(SEED + 21)
-    pk_n = PK_KEYS * PK_ROOTS
-    pk_sets = make_key_sets(np, [i // PK_ROOTS for i in range(pk_n)],
-                            [rng.bytes(32) for _ in range(pk_n)], SEED + 22)
-    grouped_host, pk_host = _host_verdicts(grouped), _host_verdicts(pk_sets)
-    if not (all(grouped_host) and all(pk_host)):
-        raise AssertionError("the host tier rejects a valid mesh batch")
-    log(f"{tag} made the grouped and pk-grouped batches and their host tier verdicts in "
-        f"{time.perf_counter() - t0:.1f} s")
+    # the slice and pk-grouped phases' batches, with their host tier verdicts
+    (grouped, grouped_host), (pk_sets, pk_host) = grouped_batch, pk_batch
     obs = PipelineMetrics()
     d = BlsMeshDispatcher(list(MESH_DEVICES), observer=obs)
     v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED), mesh=d)
@@ -1797,41 +1873,14 @@ def phase_mesh(torch, np, per_set_sets, per_set_host, per_set_bad, per_set_host_
     pool = d.start_pool()
     log(f"{tag} pool of {pool.size} workers (pids {pool.pids}) started in "
         f"{pool.start_seconds:.3f} s")
-    out = {"start_s": pool.start_seconds, "cells": {}}
+    out = {"start_s": pool.start_seconds, "cells": {},
+           "batches": dict(grouped=grouped, grouped_host=grouped_host, pk=pk_sets,
+                           pk_host=pk_host)}
 
     def mesh_verdict(name, fn, want, clear_h2c=False, controller_idle=True):
         if clear_h2c:
             v._h2c_cache.clear()
-        chips_before = dict(obs.mesh_snapshot()["chip_dispatches"])
-        pool.counts(reset=True)
-        _reset_counts()
-        t0 = time.perf_counter()
-        got = fn()
-        wall = time.perf_counter() - t0
-        workers = pool.counts()
-        controller = _counts()
-        chips = obs.mesh_snapshot()["chip_dispatches"]
-        log(f"{tag} {name}: mesh {_verdict_text(got)}, host tier {_verdict_text(want)}, "
-            f"{wall:.3f} s; worker launches {json.dumps(workers)}; controller launches "
-            f"{json.dumps(controller)}")
-        if got != want:
-            raise AssertionError(f"{tag} {name}: the mesh says {got}, the host tier {want}")
-        if sharded_off:
-            raise AssertionError(f"{tag} {name}: NOT_SHARDED taken ({sharded_off})")
-        for c in ("0", "1"):
-            if chips.get(c, 0) - chips_before.get(c, 0) != 1:
-                raise AssertionError(f"{tag} {name}: chip {c} dispatches {chips_before} -> {chips}")
-        for k, counts in enumerate(workers):
-            if counts["K2p"] != 1:
-                raise AssertionError(f"{tag} {name}: worker {k} launched K2p {counts['K2p']} times")
-            if counts["K3-fe"] != (1 if k == 0 else 0):
-                raise AssertionError(f"{tag} {name}: worker {k} launched K3-fe "
-                                     f"{counts['K3-fe']} times")
-        # the controller runs no shard; bisection's probes run there
-        busy = [kk for kk, n in controller.items() if n and (controller_idle or kk == "K2p")]
-        if busy:
-            raise AssertionError(f"{tag} {name}: the controller launched {busy}")
-        return wall, workers
+        return _sharded_verdict(tag, d, obs, sharded_off, name, fn, want, controller_idle)
 
     def single_wall(name, fn, want, clear_h2c=False):
         if clear_h2c:
@@ -1843,16 +1892,15 @@ def phase_mesh(torch, np, per_set_sets, per_set_host, per_set_bad, per_set_host_
             raise AssertionError(f"{tag} {name} single-device: {got}, host tier {want}")
         return wall
 
-    def cell_walls(cell, name, method, sets, want, **kw):
+    def cell_walls(cell, name, method, sets, want, order=("mesh", "single"), **kw):
         """A first (cold) sharded call, then the sharded and the
-        single-device verdict of the same batch in the order mesh,
-        single, single, mesh; the cell keeps both walls of each side."""
+        single-device verdict of the same batch in `order`; the cell keeps
+        the walls of each side (the single-device verdicts are warm from
+        the earlier phases)."""
         mesh_fn = lambda: getattr(v, method)(sets)  # noqa: E731
         mesh_verdict(f"{name}, first call", mesh_fn, want, **kw)
-        single_wall(f"{name}, first call", lambda: getattr(single, method)(sets), want,
-                    kw.get("clear_h2c", False))
-        cell.update(mesh_s=[], single_s=[])
-        for side in ("mesh", "single", "single", "mesh"):
+        cell.update(mesh_s=[], single_s=[], order=" ".join(order))
+        for side in order:
             if side == "mesh":
                 wall, cell["workers"] = mesh_verdict(name, mesh_fn, want, **kw)
                 cell["mesh_s"].append(wall)
@@ -1863,7 +1911,8 @@ def phase_mesh(torch, np, per_set_sets, per_set_host, per_set_bad, per_set_host_
     # grouped-64x64: rows are roots, sets [64j, 64j + 64) in row j; the
     # second worker owns rows 32..63
     cell = out["cells"]["grouped-64x64"] = {}
-    cell_walls(cell, "grouped-64x64 valid", "verify_signature_sets", grouped, True)
+    cell_walls(cell, "grouped-64x64 valid", "verify_signature_sets", grouped, True,
+               order=("mesh", "single", "single", "mesh"))
     k = 40 * 64 + 3
     bad_sig = _tamper_one(grouped, k, "signature", 10)
     cell["bad_signature_s"], _ = mesh_verdict(
@@ -1877,18 +1926,15 @@ def phase_mesh(torch, np, per_set_sets, per_set_host, per_set_bad, per_set_host_
         all(_host_after(grouped_host, undecodable, (k,))))
 
     # pk-grouped-128x32: rows are keys; the second worker owns keys 64..127;
-    # every verdict hashes its 4096 roots anew, as a flood always does
+    # every verdict hashes its 4096 roots anew, as a flood always does (the
+    # valid batch alone, one wall a side: the fleet phase holds a wrong
+    # message)
     cell = out["cells"]["pk-grouped-128x32"] = {}
     cell_walls(cell, "pk-grouped-128x32 valid", "verify_signature_sets", pk_sets, True,
                clear_h2c=True)
-    k = 100 * PK_ROOTS + 5
-    wrong = _wrong_message(pk_sets, k, rng.bytes(32))
-    cell["wrong_message_s"], _ = mesh_verdict(
-        "pk-grouped-128x32 one wrong message (key 100, worker 2)",
-        lambda: v.verify_signature_sets(wrong), all(_host_after(pk_host, wrong, (k,))))
 
     # per-set-128 by bisection: lanes [0, 64) on the first worker; the
-    # probes run on the controller
+    # probes run on the controller (one wall a side)
     cell = out["cells"]["per-set-128"] = {}
     cell_walls(cell, "per-set-128 valid", "verify_signature_sets_individual", per_set_sets,
                per_set_host, controller_idle=False)
@@ -1899,14 +1945,11 @@ def phase_mesh(torch, np, per_set_sets, per_set_host, per_set_bad, per_set_host_
         "per-set-128 three invalid (5; 64, 127)",
         lambda: v.verify_signature_sets_individual(per_set_bad), per_set_host_bad,
         controller_idle=False)
-    cell["three_invalid_single_s"] = single_wall(
-        "per-set-128 three invalid", lambda: single.verify_signature_sets_individual(per_set_bad),
-        per_set_host_bad)
     for name, c in out["cells"].items():
         c["ratio"] = sum(c["mesh_s"]) / sum(c["single_s"])
-        log(f"{tag} {name}: mesh {c['mesh_s'][0]:.3f} / {c['mesh_s'][1]:.3f} s, single-device "
-            f"{c['single_s'][0]:.3f} / {c['single_s'][1]:.3f} s (order mesh, single, single, "
-            f"mesh), ratio of the sums {c['ratio']:.3f}; per-worker launches "
+        log(f"{tag} {name}: mesh {' / '.join(f'{w:.3f}' for w in c['mesh_s'])} s, "
+            f"single-device {' / '.join(f'{w:.3f}' for w in c['single_s'])} s (order "
+            f"{c['order']}), ratio of the sums {c['ratio']:.3f}; per-worker launches "
             f"{json.dumps(c['workers'])}")
 
     # the eviction drill
@@ -1957,6 +2000,232 @@ def phase_mesh(torch, np, per_set_sets, per_set_host, per_set_bad, per_set_host_
     return out
 
 
+FLEET_HOSTS = [[0, 1], [2, 3]]  # host 0: two workers of the controller; host 1: the agent's two
+FLEET_DEVICE = "cuda:0"  # every worker of both hosts on the one card
+
+
+def _start_agent(coordinator: str, key_file: str):
+    """Host 1's agent, as a second host would run it: its own process,
+    reaching the controller over TCP on the loopback interface."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "lodestar_tpu_torch.parallel.fleet_host", "--coordinator",
+         coordinator, "--rank", "1", "--devices", f"{FLEET_DEVICE},{FLEET_DEVICE}",
+         "--authkey-file", key_file],
+        cwd=ROOT)
+
+
+def _left(pids, wait_s: float = 10.0) -> list:
+    """The processes of `pids` still running after up to `wait_s`."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        left = []
+        for pid in pids:
+            try:
+                os.kill(pid, 0)
+                left.append(pid)
+            except ProcessLookupError:
+                pass
+        if not left or time.monotonic() >= deadline:
+            return left
+        time.sleep(0.1)
+
+
+def phase_fleet(torch, np, mesh, per_set_sets, per_set_host, per_set_bad, per_set_host_bad):
+    """The two-level fleet: `TorchBlsVerifier(mesh=...)` over a
+    `BlsMeshDispatcher` of hosts [[0, 1], [2, 3]] on cuda:0, host 0's two
+    workers spawned by this process, host 1's two started by a
+    `fleet_host` agent subprocess that joins the hub over TCP on
+    127.0.0.1 with a temporary authkey file. The verdicts: grouped 64 x 64
+    (valid, one bad signature in host 1's rows), pk-grouped 128 x 32
+    (valid with the hash cache emptied, one wrong message in host 1's
+    rows) and per-set 128 by bisection (valid, three invalid at 5, 64 and
+    127). Each equals the host tier's, goes through the fleet once (each
+    host's dispatch count rises by one, the single-device verdict is
+    never called), launches K2p once on each of the four workers and
+    K3-fe once on worker 0 only. Each cell's walls are printed beside the
+    mesh phase's single-level and single-device walls of the same batch.
+    Then the host drill: the agent killed (host 1's workers exit with
+    it), the next grouped dispatch raises `MeshWorkerError` with host 1
+    within the pool's timeout, `mesh_evict_host(1)` serves from a
+    single-level pool of host 0's two workers, the attached `FleetRouter`
+    moved only host 1's subnets, a new agent (started after the raise, so
+    that it joins while host 0 serves alone) and `mesh_readmit()` serve
+    the two-level verdict again; no worker or agent process is left."""
+    import multiprocessing
+    import socket
+    import tempfile
+
+    from lodestar_tpu_torch.observability.stages import PipelineMetrics
+    from lodestar_tpu_torch.parallel.fleet import FleetRouter, FleetTopology
+    from lodestar_tpu_torch.parallel.mesh import BlsMeshDispatcher
+    from lodestar_tpu_torch.parallel.mesh_pool import MeshWorkerError
+    from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
+
+    tag = "[fleet]"
+    b = mesh["batches"]
+    grouped, grouped_host, pk_sets, pk_host = b["grouped"], b["grouped_host"], b["pk"], b["pk_host"]
+    key_dir = tempfile.mkdtemp(prefix="lodestar-fleet-")
+    key_file = os.path.join(key_dir, "authkey")
+    with open(key_file, "wb") as f:
+        f.write(os.urandom(32).hex().encode())
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    topo = FleetTopology.parse(coordinator, hosts=2, rank=0, authkey_file=key_file)
+    agents = [_start_agent(coordinator, key_file)]
+    pids, d, v = set(), None, None
+    out = {"cells": {}, "drill": {}}
+    try:
+        t0 = time.perf_counter()
+        if not topo.ensure_initialized(300):
+            raise AssertionError(f"{tag} host 1's agent did not join {coordinator}")
+        out["join_s"] = time.perf_counter() - t0
+        devices = [FLEET_DEVICE, FLEET_DEVICE] + topo.hub.devices()
+        hosts = topo.group_devices(devices)
+        if hosts != FLEET_HOSTS:
+            raise AssertionError(f"{tag} census {devices} grouped as {hosts}")
+        obs = PipelineMetrics()
+        router = FleetRouter(2, 0, observer=obs)
+        d = BlsMeshDispatcher(devices, observer=obs, hosts=hosts, hub=topo.hub, router=router)
+        v = TorchBlsVerifier(device=torch.device(FLEET_DEVICE).type,
+                             rng=np.random.default_rng(SEED + 31), mesh=d)
+        spied = []  # single-device verdicts called on the fleet verifier
+        for kind in ("grouped_raw", "pk_grouped_raw", "bisect_tree"):
+            inner = v._kernels[kind]
+            v._kernels[kind] = lambda *a, _k=kind, _f=inner: spied.append(_k) or _f(*a)
+        pool = d.start_pool()
+        pids.update(pool.pids)
+        out["start_s"] = pool.start_seconds
+        log(f"{tag} agent of host 1 joined {coordinator} in {out['join_s']:.3f} s; census "
+            f"{devices}, hosts {hosts}; pool of {pool.size} workers (pids {pool.pids}, places "
+            f"{pool.places()}) started in {pool.start_seconds:.3f} s; card: {card_line()}")
+
+        def verdict(name, fn, want, clear_h2c=False, controller_idle=True):
+            if clear_h2c:
+                v._h2c_cache.clear()
+            return _sharded_verdict(tag, d, obs, spied, name, fn, want, controller_idle)
+
+        def cell(name, method, sets, want, bad_name, bad_sets, bad_want, **kw):
+            """A first call, two more of the valid batch and the tampered one."""
+            c = out["cells"][name] = {}
+            fn = lambda: getattr(v, method)(sets)  # noqa: E731
+            c["first_s"], _ = verdict(f"{name} valid, first call", fn, want, **kw)
+            c["fleet_s"] = [verdict(f"{name} valid", fn, want, **kw)[0] for _ in range(2)]
+            c["bad_s"], c["workers"] = verdict(f"{name} {bad_name}",
+                                               lambda: getattr(v, method)(bad_sets), bad_want,
+                                               **kw)
+            return c
+
+        # grouped-64x64: rows are roots, host 1's workers own the second half
+        # of them: a bad signature in row 40 of 64 (set 40·64 + 3)
+        k = len(grouped) * 5 // 8 + 3
+        bad_sig = _tamper_one(grouped, k, "signature", 10)
+        cell("grouped-64x64", "verify_signature_sets", grouped, True,
+             f"one bad signature (set {k}, host 1)", bad_sig,
+             all(_host_after(grouped_host, bad_sig, (k,))))
+        # pk-grouped-128x32: rows are keys, host 1 owns the second half: a
+        # wrong message under key 100 of 128 (set 100·32 + 1)
+        k = len(pk_sets) * 25 // 32 + 1
+        wrong = _wrong_message(pk_sets, k, np.random.default_rng(SEED + 32).bytes(32))
+        cell("pk-grouped-128x32", "verify_signature_sets", pk_sets, True,
+             f"one wrong message (set {k}, host 1)", wrong,
+             all(_host_after(pk_host, wrong, (k,))), clear_h2c=True)
+        # per-set-128 by bisection: the first half of the lanes on host 0;
+        # the probes run on the controller
+        bad_at = [i for i, ok in enumerate(per_set_host_bad) if not ok]
+        cell("per-set-128", "verify_signature_sets_individual", per_set_sets, per_set_host,
+             f"three invalid {bad_at}", per_set_bad, per_set_host_bad, controller_idle=False)
+        for name, c in out["cells"].items():
+            m = mesh["cells"][name]
+            c["single_level_s"], c["single_device_s"] = min(m["mesh_s"]), min(m["single_s"])
+            log(f"{tag} {name}: fleet (2 hosts x 2 workers) {c['fleet_s'][0]:.3f} / "
+                f"{c['fleet_s'][1]:.3f} s, first call {c['first_s']:.3f} s; single-level "
+                f"(2 workers) {c['single_level_s']:.3f} s, single-device "
+                f"{c['single_device_s']:.3f} s (the mesh phase's, same batch); "
+                f"per-worker launches {json.dumps(c['workers'])}; card: {card_line()}")
+
+        # the host drill
+        drill = out["drill"]
+        owners = [router.owner(s) for s in range(router.subnet_count)]
+        agents[0].kill()
+        agents[0].wait(30)
+        t0 = time.perf_counter()
+        try:
+            v.verify_signature_sets(grouped)
+        except MeshWorkerError as e:
+            drill["raise_s"] = time.perf_counter() - t0
+            log(f"{tag} drill: host 1's agent killed; the next grouped dispatch raised in "
+                f"{drill['raise_s']:.6f} s (pool timeout {pool.timeout_s:.0f} s): host {e.host}, "
+                f"chip {e.chip}: {str(e).splitlines()[0]}")
+            if e.host != 1 or drill["raise_s"] > pool.timeout_s:
+                raise AssertionError(f"{tag} drill: raised for host {e.host} after "
+                                     f"{drill['raise_s']:.3f} s")
+        else:
+            raise AssertionError(f"{tag} drill: the dispatch over a dead host did not raise")
+        t_rejoin = time.perf_counter()
+        agents.append(_start_agent(coordinator, key_file))  # joins while host 0 serves alone
+        t0 = time.perf_counter()
+        size = v.mesh_evict_host(1, reason="drill")
+        drill["evict_s"] = time.perf_counter() - t0
+        if size != 2 or d.pool is not None or d.hosts_serving != 1:
+            raise AssertionError(f"{tag} drill: evict_host left size {size}, pool {d.pool}")
+        moved = [s for s, (a, b2) in enumerate(zip(owners, [router.owner(s) for s in
+                                                           range(router.subnet_count)]))
+                 if a != b2]
+        if moved != [s for s, o in enumerate(owners) if o == 1] or not moved:
+            raise AssertionError(f"{tag} drill: the router moved subnets {moved}")
+        single_pool = d.start_pool()
+        pids.update(single_pool.pids)
+        drill["single_level_start_s"] = single_pool.start_seconds
+        if single_pool.layout != ((FLEET_DEVICE, FLEET_DEVICE),):
+            raise AssertionError(f"{tag} drill: the pool after eviction is {single_pool.layout}")
+        drill["single_level_s"], _ = verdict("grouped-64x64 valid on host 0 alone",
+                                             lambda: v.verify_signature_sets(grouped), True)
+        log(f"{tag} drill: mesh_evict_host(1) in {drill['evict_s']:.6f} s; the router moved "
+            f"host 1's {len(moved)} subnets and no other; host 0's single-level pool started "
+            f"in {drill['single_level_start_s']:.3f} s and served in "
+            f"{drill['single_level_s']:.3f} s")
+        if not topo.hub.wait_agents(300):
+            raise AssertionError(f"{tag} drill: the new agent did not join")
+        drill["rejoin_s"] = time.perf_counter() - t_rejoin
+        if v.mesh_readmit() != 1 or d.hosts_serving != 2:
+            raise AssertionError(f"{tag} drill: readmit did not restore host 1")
+        if router.snapshot()["evicted_hosts"]:
+            raise AssertionError(f"{tag} drill: the router kept host 1 evicted")
+        pool = d.start_pool()
+        pids.update(pool.pids)
+        drill["restart_s"] = pool.start_seconds
+        drill["served_s"], _ = verdict("grouped-64x64 valid after readmission",
+                                       lambda: v.verify_signature_sets(grouped), True)
+        log(f"{tag} drill: a new agent (started after the raise) had joined by "
+            f"{drill['rejoin_s']:.3f} s after its start (while host 0 served alone), "
+            f"mesh_readmit() "
+            f"started a two-level pool in {drill['restart_s']:.3f} s, served again in "
+            f"{drill['served_s']:.3f} s; card: {card_line()}")
+        out["snapshot"] = d.fleet_snapshot()
+    finally:
+        if d is not None:
+            d.close()
+        if topo.hub is not None:
+            topo.hub.close()  # each agent stops its workers and exits
+        for agent in agents:
+            try:
+                agent.wait(30)
+            except subprocess.TimeoutExpired:
+                agent.kill()
+                agent.wait(30)
+        import shutil
+
+        shutil.rmtree(key_dir, ignore_errors=True)
+    codes = [a.returncode for a in agents]
+    left = _left(pids) + multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"{tag} processes left: {left}")
+    log(f"{tag} agents exited with {codes}; no worker or agent left ({len(pids)} workers "
+        f"started); fleet snapshot {json.dumps(out['snapshot'])}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1986,7 +2255,7 @@ def main() -> int:
     k3_row = k3_rows[PER_SET_N]
     k2_err, k2_rows = phase_k2(torch, np, muls, ptxas, stack_at_start)
     k2_row = k2_rows[K2_LANES[-1]]
-    grouped_counts, wall, n_sets, grouped_products = phase_slice(torch, np, 64, 64)
+    grouped_counts, wall, n_sets, grouped_products, grouped = phase_slice(torch, np, 64, 64)
     log(f"[slice] main path (64, 64): {wall:.3f} s per {n_sets}-set verdict, "
         f"{n_sets / wall:.1f} sets/s, launches per verdict {json.dumps(grouped_counts)}")
     phase_slice(torch, np, 16, 8)
@@ -1997,7 +2266,8 @@ def main() -> int:
     checks = phase_pairing_check(torch, np, sets, host_ok, bad, host_bad)
     serve = phase_serve(torch, np)
     observe = phase_observe(torch, np)
-    mesh = phase_mesh(torch, np, sets, host_ok, bad, host_bad)
+    mesh = phase_mesh(torch, np, grouped, pk["batch"], sets, host_ok, bad, host_bad)
+    fleet = phase_fleet(torch, np, mesh, sets, host_ok, bad, host_bad)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -2016,10 +2286,20 @@ def main() -> int:
         f"costs the host {observe['host_cost_us']['job_us']:.1f} us per job")
     log(f"[summary] mesh (two workers on cuda:0): pool start {mesh['start_s']:.3f} s; "
         + "; ".join(f"{n} {min(c['mesh_s']):.3f} s against single-device "
-                    f"{min(c['single_s']):.3f} s (best of two each)"
+                    f"{min(c['single_s']):.3f} s (best of {len(c['mesh_s'])} each)"
                     for n, c in mesh["cells"].items())
         + f"; drill raise {mesh['drill']['raise_s']:.6f} s, evict {mesh['drill']['evict_s']:.6f} s, "
         f"single-device {mesh['drill']['single_s']:.3f} s, restart {mesh['drill']['restart_s']:.3f} s")
+    log(f"[summary] fleet (2 hosts x 2 workers on cuda:0, host 1 over TCP): agent join "
+        f"{fleet['join_s']:.3f} s, pool start {fleet['start_s']:.3f} s; "
+        + "; ".join(f"{n} {min(c['fleet_s']):.3f} s against single-level "
+                    f"{c['single_level_s']:.3f} s and single-device {c['single_device_s']:.3f} s"
+                    for n, c in fleet["cells"].items())
+        + f"; drill raise {fleet['drill']['raise_s']:.6f} s, evict_host "
+        f"{fleet['drill']['evict_s']:.6f} s, single-level start "
+        f"{fleet['drill']['single_level_start_s']:.3f} s, rejoined by {fleet['drill']['rejoin_s']:.3f} s, "
+        f"restart {fleet['drill']['restart_s']:.3f} s; script {time.perf_counter() - t_start:.1f} s; "
+        f"card: {card_line()}")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "
         f"ptxas {json.dumps(k1_ptxas)}")

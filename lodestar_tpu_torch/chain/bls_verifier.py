@@ -21,8 +21,9 @@ over the JAX one:
   `TorchBlsVerifier` and its `BlsMeshDispatcher`, if it has one; without
   one they answer as the JAX verifier does without a mesh (no eviction,
   nothing to readmit, no snapshot). Unlike the JAX facade, this one takes
-  a `mesh` argument ("auto", a dispatcher or None) and passes it on;
-  `close()` stops the mesh's worker processes.
+  a `mesh` argument ("auto", a dispatcher or None) and a `fleet` argument
+  (a `FleetTopology`, which the JAX facade reads from its environment)
+  and passes them on; `close()` stops the mesh's worker processes.
 
 Device decompression of the signatures is the default path; a batch
 outside its 32 B root / 96 B signature shape is marshalled on the host,
@@ -48,7 +49,7 @@ class DeviceBlsVerifier:
 
     `device` (default: the GPU; raises without one), `grouped_configs`,
     `pk_grouped_configs`, `observer` (default: the port's
-    `default_pipeline()`), `faults`, `rng` and `mesh` go to
+    `default_pipeline()`), `faults`, `rng`, `mesh` and `fleet` go to
     `TorchBlsVerifier`; `max_sets_per_job` is the most sets one call of
     it verifies."""
 
@@ -64,10 +65,12 @@ class DeviceBlsVerifier:
         faults=None,
         rng=None,
         mesh="auto",
+        fleet=None,
     ):
         self._inner = TorchBlsVerifier(
             device=device, grouped_configs=grouped_configs, rng=rng,
             pk_grouped_configs=pk_grouped_configs, observer=observer, faults=faults, mesh=mesh,
+            fleet=fleet,
         )
         self.observer = self._inner.observer
         self.max_sets_per_job = int(max_sets_per_job)

@@ -11,8 +11,8 @@ host-side policy that makes them the serving path:
   single-device verdicts keep serving. A multi-host census (`hosts=`
   rows) gives a two-level layout, as in the JAX package: a power-of-two
   host count × a uniform power-of-two width per host whose product
-  divides 64. The census serves it to a verifier factory; the default
-  factory refuses it until the fleet slice (`NotImplementedError`),
+  divides 64, served by the two-level twins over a pool of rows (each
+  host's combines first; `parallel/sharded.py`),
 - a lazy per-(kind, shape, layout) cache of sharded verifiers, each
   bound to the chip set it was built for,
 - the failure policy's mesh half: `evict()` removes a sick chip and
@@ -102,18 +102,20 @@ class BlsMeshDispatcher:
     devices, axis)` builds a verifier with `submit(...)`; by default the
     `parallel/sharded.py` verifier of `kind` over this dispatcher's pool;
     a dead or hung worker makes the dispatch raise within the pool's
-    collective timeout (`mesh_pool.TIMEOUT_S`)."""
+    collective timeout (`mesh_pool.TIMEOUT_S`). `hub` is the fleet's
+    `FleetHub` (`parallel/fleet.py`), through which the pool starts the
+    workers of rows on other hosts (devices named ``host<rank>/...``)."""
 
     def __init__(self, devices, axis: str = "dp", observer=None,
                  verifier_factory=None, hosts=None,
                  dcn_axis: str = "dcn", ici_axis: str = "ici",
-                 router=None, faults=None):
+                 router=None, faults=None, hub=None):
         self.axis = axis
         self.dcn_axis = dcn_axis
         self.ici_axis = ici_axis
         self.observer = observer if observer is not None else default_pipeline()
         self._faults = faults
-        self._pools = PoolSlot()
+        self._pools = PoolSlot(hub)
         self._factory = verifier_factory or self._default_factory
         self._devices = list(devices)
         self._lock = threading.Lock()
@@ -140,11 +142,10 @@ class BlsMeshDispatcher:
         self._publish()
 
     def _default_factory(self, kind: str, devices, axis):
-        """The sharded verifier of `kind` over this dispatcher's pool."""
+        """The sharded verifier of `kind` over this dispatcher's pool: a
+        chip list under one axis, per-host rows under (dcn, ici)."""
         from . import sharded
 
-        if not isinstance(axis, str):
-            raise NotImplementedError("two-level fleet pools come with the fleet slice")
         return sharded.VERIFIERS[kind](devices, axis, pools=self._pools)
 
     # -- census -------------------------------------------------------------
@@ -270,7 +271,10 @@ class BlsMeshDispatcher:
             try:
                 return self._submit_timed(rows, lambda: v.submit(*args))
             except MeshWorkerError as e:
-                e.chip = chips[e.chip]  # the pool's worker index → this census
+                # the pool's worker and row indices → this census
+                e.chip = chips[e.chip]
+                if e.host is not None:
+                    e.host = rows[e.host][0]
                 raise
 
     def dispatch_grouped(self, g, a_bits, b_bits):
@@ -420,15 +424,14 @@ class BlsMeshDispatcher:
         return self._pools.pool
 
     def start_pool(self):
-        """Start the pool of the serving chips now rather than at the first
-        dispatch (a warm-up; `pool.start_seconds` times it); returns it."""
-        if self.hosts_serving > 1:
-            raise NotImplementedError("two-level fleet pools come with the fleet slice")
+        """Start the pool of the serving layout now rather than at the
+        first dispatch (a warm-up; `pool.start_seconds` times it): one row
+        of chips, or one row per serving host; returns it."""
         if not self.enabled:
             return None
         with self._lock:
-            devices = [self._devices[c] for c in self._serving_chips()]
-        return self._pools.acquire(devices)
+            rows = [[self._devices[c] for c in row] for row in self._serving_layout()]
+        return self._pools.acquire(rows if len(rows) > 1 else rows[0])
 
     # -- introspection ------------------------------------------------------
 
@@ -477,26 +480,39 @@ class BlsMeshDispatcher:
         return doc
 
 
-def auto_mesh(observer=None, device=None, faults=None):
+def auto_mesh(observer=None, device=None, faults=None, fleet=None):
     """The mesh policy at verifier construction: the JAX package's
     LODESTAR_TPU_MESH default, `auto`, hard-coded. A dispatcher over every
     visible CUDA device when more than one is visible and the verifier
     runs on CUDA; None otherwise (the CPU never meshes unless a
-    dispatcher is passed in; one card serves single-device). Never
-    raises: a verifier must construct even when device enumeration is
-    broken."""
+    dispatcher is passed in; one card serves single-device).
+
+    `fleet` (a `FleetTopology`, default None: exactly the above) that is
+    active groups the census into per-host rows (`group_devices`): in
+    emulation this host's cards split into virtual hosts; in a
+    distributed fleet, after the rendezvous (`ensure_initialized`), the
+    census is this host's cards and every joined agent's, and the
+    dispatcher starts those through the fleet's hub. Never raises: a
+    verifier must construct even when device enumeration or the
+    rendezvous fails (it then serves single-host)."""
     try:
         if device is None or torch.device(device).type != "cuda":
             return None
-        n = torch.cuda.device_count()
-        if n < 2:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        hosts, hub = None, None
+        if fleet is not None and fleet.active:
+            if fleet.mode == "distributed" and fleet.ensure_initialized():
+                hub = fleet.hub
+                devices += hub.devices()
+            hosts = fleet.group_devices(devices)
+        if len(devices) < 2:
             return None
-        dispatcher = BlsMeshDispatcher([f"cuda:{i}" for i in range(n)], observer=observer,
-                                       faults=faults)
+        dispatcher = BlsMeshDispatcher(devices, observer=observer, faults=faults, hosts=hosts,
+                                       hub=hub)
         if not dispatcher.enabled:
             return None
-        logger.info("mesh serving enabled: %d cuda device(s), serving size %d",
-                    n, dispatcher.size)
+        logger.info("mesh serving enabled: %d cuda device(s), serving size %d across %d "
+                    "host(s)", len(devices), dispatcher.size, dispatcher.hosts_serving)
         return dispatcher
     except Exception as e:  # pragma: no cover (environment-dependent)
         logger.warning("mesh auto-detect failed (%s); serving unsharded", e)

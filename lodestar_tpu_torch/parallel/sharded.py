@@ -15,7 +15,11 @@ batch:
   package's "chip 0 owns the tail",
 - a collective is `torch.distributed` over the workers' gloo group on
   host tensors: a worker copies its partial to the host before it and
-  uploads what it received.
+  uploads what it received,
+- over a two-level pool (hosts × chips per host, the JAX `(dcn, ici)`
+  mesh) every combine runs within each host first: one Fp12 per host
+  and one set of 64 combined plane sums per host and chip position cross
+  hosts (the bisection's leaves cross whole, as in the JAX twin).
 
 Each verdict function here runs on every worker, in the same order of
 collectives, and returns the verdict on the first worker and None on the
@@ -68,27 +72,86 @@ def _collective(fn, *args, **kwargs) -> None:
 class Shard:
     """One worker's place in the pool: its index (0 owns the tail), the
     pool's size, the workers' process group and the worker's device.
-    The collectives stage their payloads through the host."""
 
-    def __init__(self, index: int, size: int, group, device):
+    A two-level pool (`hosts` > 1, `per` = size / hosts workers per host)
+    places worker `index` on host index // per at position index % per
+    (DCN-major, the JAX `_mesh_index`) and gives it two more groups: `ici`,
+    its host's workers, and `dcn`, the workers at its position on every
+    host. One host: `ici` is the whole group and there is no `dcn`. The
+    collectives stage their payloads through the host."""
+
+    def __init__(self, index: int, size: int, group, device, hosts: int = 1,
+                 ici=None, dcn=None):
         self.index = index
         self.size = size
         self.group = group
         self.device = torch.device(device)
+        self.hosts = hosts
+        self.per = size // hosts
+        self.host, self.local = divmod(index, self.per)
+        self.ici = group if hosts == 1 else ici
+        self.dcn = dcn
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """(size, *t.shape): every worker's `t`, in worker order."""
+    @classmethod
+    def join(cls, index: int, size: int, hosts: int, device, timeout) -> Shard:
+        """This worker's shard of the initialised default group. Every
+        worker creates every host's group and every position's group, in
+        the same order (a group's creation is collective over all)."""
+        world = dist.group.WORLD
+        if hosts == 1:
+            return cls(index, size, world, device)
+        per = size // hosts
+        ici = [dist.new_group(list(range(h * per, (h + 1) * per)), timeout=timeout)
+               for h in range(hosts)]
+        dcn = [dist.new_group([h * per + j for h in range(hosts)], timeout=timeout)
+               for j in range(per)]
+        host, local = divmod(index, per)
+        return cls(index, size, world, device, hosts, ici[host], dcn[local])
+
+    def _all_gather(self, t: torch.Tensor, group, n: int) -> torch.Tensor:
         h = t.detach().cpu().contiguous()
-        out = [torch.empty_like(h) for _ in range(self.size)]
-        _collective(dist.all_gather, out, h, group=self.group)
+        out = [torch.empty_like(h) for _ in range(n)]
+        _collective(dist.all_gather, out, h, group=group)
         return torch.stack(out).to(self.device)
 
-    def gather_to_root(self, t: torch.Tensor):
-        """(size, *t.shape) on the first worker, None on the others."""
+    def _gather(self, t: torch.Tensor, group, n: int, root: int, at_root: bool):
+        """(n, *t.shape) on the group's member `root` (a global rank),
+        None on the others."""
         h = t.detach().cpu().contiguous()
-        out = [torch.empty_like(h) for _ in range(self.size)] if self.index == 0 else None
-        _collective(dist.gather, h, gather_list=out, dst=0, group=self.group)
+        out = [torch.empty_like(h) for _ in range(n)] if at_root else None
+        _collective(dist.gather, h, gather_list=out, dst=root, group=group)
         return None if out is None else torch.stack(out).to(self.device)
+
+    def all_gather_in_host(self, t: torch.Tensor) -> torch.Tensor:
+        """(per, *t.shape): the host's workers' `t`, on each of them."""
+        return self._all_gather(t, self.ici, self.per)
+
+    def gather_in_host(self, t: torch.Tensor):
+        """(per, *t.shape): the host's workers' `t` on its first worker,
+        None on the others."""
+        return self._gather(t, self.ici, self.per, self.host * self.per, self.local == 0)
+
+    def gather_across_hosts(self, t: torch.Tensor):
+        """(hosts, *t.shape): the hosts' first workers' `t` on worker 0,
+        None on the others; only first workers call it."""
+        return self._gather(t, self.dcn, self.hosts, 0, self.index == 0)
+
+    def gather_to_root(self, t: torch.Tensor):
+        """(size, *t.shape) on worker 0, in worker order, None on the
+        others: within each host first, then across hosts."""
+        part = self.gather_in_host(t)
+        if self.hosts == 1 or part is None:
+            return part
+        out = self.gather_across_hosts(part)
+        return None if out is None else out.reshape((self.size,) + tuple(t.shape))
+
+    def combine(self, t: torch.Tensor, reduce):
+        """`reduce` over axis 0 of every worker's `t`, on every worker:
+        an all_gather and `reduce` within the host, then across hosts."""
+        out = reduce(self.all_gather_in_host(t))
+        if self.hosts > 1:
+            out = reduce(self._all_gather(out, self.dcn, self.hosts))
+        return out
 
     def any(self, flag: torch.Tensor) -> bool:
         """True when `flag` is set on any worker (an all-reduce of max)."""
@@ -117,17 +180,30 @@ def _g2_sum_tree(ps):
 
 
 def _gather_fp12_partials(f_loc, shard: Shard):
-    """Each worker's Fp12 pair-product partial, gathered on the first
-    worker for the tail: (size, 2, 3, 2, 32) there, None elsewhere."""
-    return shard.gather_to_root(f_loc)
+    """The workers' Fp12 pair-product partials on worker 0 for the tail,
+    None elsewhere: (size, 2, 3, 2, 32) on one host; on several, each
+    host's product first (`fp12.product_tree` on its first worker), so
+    one Fp12 per host crosses hosts: (hosts, 2, 3, 2, 32)."""
+    if shard.hosts == 1:
+        return shard.gather_to_root(f_loc)
+    f_host = shard.gather_in_host(f_loc)
+    if f_host is None:
+        return None
+    return shard.gather_across_hosts(fp12.product_tree(f_host))
+
+
+def _plane_tree_sum(u_all):
+    """(n, 3, 64, 2, 32) stacked plane sums → their (3, 64, 2, 32) sum."""
+    return torch.stack(msm.tree_sum(g2, tuple(torch.movedim(u_all[:, i], 0, 1)
+                                              for i in range(3))))
 
 
 def _combine_plane_sums(u_part, shard: Shard):
     """Combine each worker's 64 partial G2 bit-plane sums into the (64,)
-    totals every worker holds: one all_gather of the three coordinates,
-    then a tree sum over the workers."""
-    u_all = shard.all_gather(torch.stack(u_part))  # (n, 3, 64, 2, 32)
-    return msm.tree_sum(g2, tuple(torch.movedim(u_all[:, i], 0, 1) for i in range(3)))
+    totals every worker holds: an all_gather of the three coordinates and
+    a tree sum within the host, then the same across hosts, so one set of
+    64 sums per host crosses hosts."""
+    return tuple(shard.combine(torch.stack(u_part), _plane_tree_sum))
 
 
 def _tail_on_root(shard: Shard, tail_fn):
@@ -197,16 +273,20 @@ def _constant_lanes(shard: Shard, u_planes, dev):
     return (cx_loc, cy_loc, fp.one((per,), dev)), uq_loc
 
 
-def _signature_planes(shard: Shard, sig_x, sig_y, bits, valid):
-    """The signature bit-plane sums of this worker's slice, combined over
-    the workers: (64,) projective G2 points."""
+def _signature_plane_parts(sig_x, sig_y, bits, valid):
+    """The 64 signature bit-plane sums of this worker's slice."""
     dev = sig_x.device
     n_loc = valid.numel()
     sig = (sig_x.reshape((n_loc, 2, N_LIMBS)), sig_y.reshape((n_loc, 2, N_LIMBS)),
            fp2.one((n_loc,), dev))
     sig = g2.select(valid.reshape(n_loc), sig, g2.infinity((n_loc,), dev))
-    u_part = msm.masked_plane_sums(g2, sig, bits.reshape(n_loc, 2 * HALF_BITS))
-    return _combine_plane_sums(u_part, shard)
+    return msm.masked_plane_sums(g2, sig, bits.reshape(n_loc, 2 * HALF_BITS))
+
+
+def _signature_planes(shard: Shard, sig_x, sig_y, bits, valid):
+    """The signature bit-plane sums of this worker's slice, combined over
+    the workers: (64,) projective G2 points."""
+    return _combine_plane_sums(_signature_plane_parts(sig_x, sig_y, bits, valid), shard)
 
 
 def _grouped_local(shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits, valid):
@@ -401,6 +481,24 @@ def _local_probe(local):
     return run
 
 
+def _combine_probe(shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits, valid):
+    """Instrumentation (tests): the two-level combines around the grouped
+    local body, as host arrays: (the host's Fp12 product on its first
+    worker, else None; the host's 64 plane sums; the 64 totals; the
+    per-host products gathered on worker 0, else None)."""
+    f_loc, u_planes = _grouped_local(shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits,
+                                     b_bits, valid)
+    f_host = shard.gather_in_host(f_loc)
+    if f_host is not None:
+        f_host = fp12.product_tree(f_host).cpu().numpy()
+    u_part = torch.stack(_signature_plane_parts(sig_x, sig_y, torch.cat([a_bits, b_bits], -1),
+                                                valid))
+    u_host = _plane_tree_sum(shard.all_gather_in_host(u_part))
+    f_all = _gather_fp12_partials(f_loc, shard)
+    return (f_host, u_host.cpu().numpy(), torch.stack(u_planes).cpu().numpy(),
+            None if f_all is None else f_all.cpu().numpy())
+
+
 _RUNNERS = {
     "flat": _sharded_verify,
     "grouped": _sharded_grouped_verify,
@@ -410,6 +508,7 @@ _RUNNERS = {
     "bisect": _sharded_bisect_verify,
     "grouped_local": _local_probe(_grouped_local),
     "pk_grouped_local": _local_probe(_pk_grouped_local),
+    "grouped_combine": _combine_probe,
 }
 
 
@@ -424,16 +523,18 @@ def run_shard(kind: str, shard: Shard, arrays):
 
 
 class _Sharded:
-    """A sharded verifier bound to a chip set. `pools` is the slot of the
-    pool it runs on (the dispatcher's; by default one of its own, which
-    `close()` stops)."""
+    """A sharded verifier bound to a chip set, or to rows of chips (one
+    per host) under the factory interface's ("dcn", "ici") `axis`.
+    `pools` is the slot of the pool it runs on (the dispatcher's; by
+    default one of its own, which `close()` stops)."""
 
     kind = ""
     splits_constant_lanes = True
 
-    def __init__(self, devices, axis: str = "dp", pools: PoolSlot | None = None):
-        self.devices = list(devices)  # `axis`: the factory interface's, one axis here
-        self.ndev = len(self.devices)
+    def __init__(self, devices, axis="dp", pools: PoolSlot | None = None):
+        self.devices = list(devices)
+        rows = [self.devices] if isinstance(axis, str) else self.devices
+        self.ndev = sum(len(r) for r in rows)
         if self.splits_constant_lanes and CONSTANT_LANES % self.ndev:
             # a non-dividing mesh would drop constant Miller lanes and
             # reject every valid batch: refuse loudly instead

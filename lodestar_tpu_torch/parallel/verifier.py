@@ -657,7 +657,9 @@ class TorchBlsVerifier:
     (`mesh_evict`, `mesh_readmit`, ...) reach it. The controller draws
     the random coefficients once and scatters them: the batch equation is
     sound only with one unpredictable r across the combine. `close()`
-    stops the mesh's workers."""
+    stops the mesh's workers. `fleet` (a `parallel/fleet.FleetTopology`,
+    default None) goes to `auto_mesh` with `mesh="auto"`: an active
+    topology makes the mesh a two-level fleet (hosts × GPUs per host)."""
 
     _device_decompress = True
 
@@ -670,11 +672,12 @@ class TorchBlsVerifier:
         observer=None,
         faults=None,
         mesh="auto",
+        fleet=None,
     ):
         self.device = resolve_device(device)
         self.observer = observer if observer is not None else default_pipeline()
         if mesh == "auto":
-            self._mesh = auto_mesh(self.observer, self.device, faults)
+            self._mesh = auto_mesh(self.observer, self.device, faults, fleet)
         else:
             self._mesh = mesh or None
         wrap = compile_ledger.ledger().wrap

@@ -46,7 +46,8 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "observability.flight_recorder", "observability.compile_ledger",
                  "observability.device_ledger", "observability.stage_profile",
                  "observability.runtime", "metrics.registry", "parallel.mesh",
-                 "parallel.mesh_pool", "parallel.sharded"):
+                 "parallel.mesh_pool", "parallel.sharded", "parallel.fleet",
+                 "parallel.fleet_host"):
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
 
 

@@ -9,11 +9,13 @@ worker process starts and no kernel runs.
   run against both `BlsMeshDispatcher` classes (parametrised); a second
   test per scenario holds the port's return values and snapshots equal to
   the JAX class's. The JAX `testing.faults` module is the duck-typed
-  `faults` object of the port's class, the JAX `FleetRouter` its router.
+  `faults` object of the port's class; each class gets its own package's
+  `FleetRouter` (the JAX router only for the JAX class, as the comparison).
 - `mesh_divisor` over 1…80 equals the JAX one.
 - The port's `auto_mesh` (the JAX `auto` default, no variable read) never
-  meshes the CPU and meshes two CUDA devices; the default factory refuses
-  a two-level layout.
+  meshes the CPU and meshes two CUDA devices, grouped into hosts by an
+  active `FleetTopology`; the default factory builds the two-level twin
+  for a two-level layout and `start_pool` starts a two-level pool.
 """
 
 import pytest
@@ -21,21 +23,23 @@ import pytest
 from lodestar_tpu.chain.supervisor import SupervisedBlsVerifier
 from lodestar_tpu.observability.stages import PipelineMetrics as JaxPipelineMetrics
 from lodestar_tpu.parallel import mesh as jax_mesh
-from lodestar_tpu.parallel.fleet import FleetRouter
+from lodestar_tpu.parallel.fleet import FleetRouter as JaxFleetRouter
 from lodestar_tpu.testing import faults
 from lodestar_tpu.testing.faults import InjectedChipFault, InjectedHostFault
 from lodestar_tpu_torch.observability.stages import PipelineMetrics as TorchPipelineMetrics
 from lodestar_tpu_torch.parallel import mesh as torch_mesh
+from lodestar_tpu_torch.parallel.fleet import FleetRouter, FleetTopology
 
 
 class Impl:
     """One side of the comparison: the dispatcher class, its observer
-    class and its NOT_SHARDED."""
+    class, its router class and its NOT_SHARDED."""
 
-    def __init__(self, name, module, observer_cls):
+    def __init__(self, name, module, observer_cls, router_cls):
         self.name = name
         self.mesh = module
         self.observer_cls = observer_cls
+        self.router_cls = router_cls
         self.NOT_SHARDED = module.NOT_SHARDED
 
     def dispatcher(self, devices, observer=None, calls=None, **kw):
@@ -48,8 +52,8 @@ class Impl:
 
 
 IMPLS = {
-    "jax": Impl("jax", jax_mesh, JaxPipelineMetrics),
-    "torch": Impl("torch", torch_mesh, TorchPipelineMetrics),
+    "jax": Impl("jax", jax_mesh, JaxPipelineMetrics, JaxFleetRouter),
+    "torch": Impl("torch", torch_mesh, TorchPipelineMetrics, FleetRouter),
 }
 
 
@@ -403,7 +407,7 @@ def scenario_fleet_verifier_cache_keyed_by_host_set(impl):
 
 def scenario_host_eviction_rebalances_and_readmit_restores(impl):
     obs = impl.observer_cls()
-    router = FleetRouter(2, 0, observer=obs)
+    router = impl.router_cls(2, 0, observer=obs)
     d = _fleet(impl, (4, 4), observer=obs, router=router)
     moved_expected = len(router.slice_for(1))
     assert d.evict_host(1, reason="drill") == 4
@@ -494,10 +498,34 @@ def test_auto_mesh_meshes_only_several_cuda_devices(monkeypatch):
     assert d.snapshot()["devices_total"] == 2
 
 
-def test_default_factory_refuses_a_two_level_layout():
-    d = torch_mesh.BlsMeshDispatcher(["cpu"] * 4, observer=TorchPipelineMetrics(),
-                                     hosts=[[0, 1], [2, 3]])
-    assert d.hosts_serving == 2 and d.size == 4
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        d.dispatch_grouped(_FakeGrouped(8, 64), None, None)
-    assert d.pool is None  # nothing served flat in its place
+def test_auto_mesh_groups_cuda_devices_into_fleet_hosts(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    d = torch_mesh.auto_mesh(TorchPipelineMetrics(), "cuda", fleet=FleetTopology.parse("emulate"))
+    assert d.hosts_serving == 2 and d.size == 4 and d.pool is None
+    assert d.fleet_snapshot()["layout"] == {"0": [0, 1], "1": [2, 3]}
+    off = torch_mesh.auto_mesh(TorchPipelineMetrics(), "cuda", fleet=FleetTopology.parse("off"))
+    assert off.hosts_total == 1 and off.size == 4
+    assert torch_mesh.auto_mesh(TorchPipelineMetrics(), "cpu",
+                                fleet=FleetTopology.parse("emulate")) is None
+
+
+def test_default_factory_builds_the_two_level_twin_and_pool():
+    from lodestar_tpu_torch.parallel import sharded
+
+    d = torch_mesh.BlsMeshDispatcher(["cpu"] * 2, observer=TorchPipelineMetrics(),
+                                     hosts=[[0], [1]])
+    try:
+        assert d.hosts_serving == 2 and d.size == 2
+        v, chips, rows = d._verifier("grouped", (8, 64))
+        assert isinstance(v, sharded.ShardedGroupedVerifier) and v.ndev == 2
+        assert v.devices == [["cpu"], ["cpu"]] and chips == (0, 1)
+        pool = d.start_pool()
+        assert pool is d.pool and pool.layout == (("cpu",), ("cpu",))
+        assert pool.hosts == 2 and pool.per == 1
+        assert pool.places() == [(0, 0, 0), (1, 1, 0)]
+        assert v.pool is pool  # the twin runs on the dispatcher's pool
+    finally:
+        d.close()
+    assert d.pool is None and not any(pool.alive())
