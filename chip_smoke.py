@@ -119,8 +119,8 @@ it runs the single-device path it names on a host of any card count):
           epoch-table hits; K2p and K3-fe launch once per batch verdict.
 12a. observe  the port's observability: serve's valid 128-set job through
           `DeviceBlsVerifier(device="cuda")` with a `PipelineMetrics` (A)
-          and with `NullObserver` (B), in the order A B B A B A A B twice
-          (8 jobs a side, each counted), the two medians and their
+          and with `NullObserver` (B), in the order A B B A B A A B
+          (4 jobs a side, each counted), the two medians and their
           difference; the host cost of observing one job, replayed (its
           observer calls on a fresh `PipelineMetrics`, 7 named scopes and
           one ledger-wrapped call, each timed over 2,000 repetitions);
@@ -133,7 +133,54 @@ it runs the single-device path it names on a host of any card count):
           bls/miller_loop (bls/final_exp_batch). The device ledger must
           read the card's in-use and total bytes, and the compile ledger
           hold one event (hit or miss) per library built or found.
-12b. mesh  the sharded verdicts: `TorchBlsVerifier(mesh=...)` over a
+12b. node  the port's serving stack (`node/bls_stack.py`: lanes over the
+          supervisor over the facade, with the host tier) on cuda:0.
+          (a) boot: `python3 -m lodestar_tpu_torch.warmup` in a subprocess
+          (the extensions already built): its rungs, serving_ready against
+          the 10 s SLO, peak device memory (measured, not asserted).
+          (b) one slot of gossip through `build_bls_stack` at the JAX
+          defaults: the epoch table populated on its daemon thread with
+          32,768 keys (the slice phase's 4096, 28,672 from sk_to_pk, the
+          block job's 128) while the calls arrive; the slice's 4096 sets as
+          4096 one-set attestation calls, uniform over 4 s, from 1024 caller
+          threads, two of them carrying another key's signature; serve-128's
+          job on the block lane at 0 s and 2 s. Every verdict the host
+          tier's (exactly the two tampered calls False), no block shed, no
+          waiter timeout, every shed under 1 s, K1, K2p and K3-fe launched;
+          reports the makespan against 12 s, attestation sets/s, block p50
+          and max, sheds, coalesced batch sizes, lane_overlap_fraction, the
+          device ledger's utilisation, the epoch table's misses and hits and
+          what the tampered sets cost (per-set re-verification, host-tier
+          audit), and how the device calls' time splits between waiting
+          for the supervisor's one dispatch worker and running on it. The
+          calls arrive in a seeded shuffle (the 64 committees' roots
+          interleaved, as on mainnet). The card must have done the work:
+          the supervisor's only fallbacks are the two negative audits of
+          each batch that held a tampered set, with no verdict mismatch,
+          deadline, retry or double failure, the breaker closed, and K2p
+          launched at least once per 128-set job the facade ran. Then
+          the slot's first 1 s (1024 calls, one of them tampered) again
+          with coalescing and the attestation cap at 4096, root after
+          root (the best case for root grouping), cut to keep the
+          script's time, under the same checks.
+          (c) drills through the port's supervisor on serve-128's job
+          (cooldown 2 s, deadline 5 s, an injected fault seam): exceptions
+          (the host tier serves, the breaker opens on the third, the canary
+          re-closes it), a host-side latency past the deadline (counted, the
+          host tier serves), flaky verdicts (the audit overturns them,
+          verdict_mismatch ticks), the exact per-set route (K3); then the
+          mesh drill: the stack over two workers on cuda:0, worker 2
+          killed, `MeshWorkerError` naming chip 1 evicted by the supervisor
+          within the pool's timeout (serving size 1, the pool stopped), the
+          same call served single-device, the host tier called 0 times, the
+          breaker closed, the canary re-admitting the chip and a new pool
+          serving sharded again, no worker process left (the mesh phase's
+          eviction drill).
+          (d) `/metrics` and `/debug/{breaker,lanes,slo,device,epoch_table,
+          compiles}` over loopback: every `metrics/bls.py` family and the
+          lane, supervisor and slo families present, `zero_block_sheds`
+          ok and the breaker closed after the drills.
+12c. mesh  the sharded verdicts: `TorchBlsVerifier(mesh=...)` over a
           `BlsMeshDispatcher(["cuda:0", "cuda:0"])`, two worker processes
           on the one card (even where more are visible; the device count
           is logged): grouped 64 x 64 (the slice phase's batch: valid, one
@@ -148,13 +195,10 @@ it runs the single-device path it names on a host of any card count):
           once (the workers' counts zeroed just before and read just
           after through the pool; the controller launches nothing but
           bisection's probes). Each cell's walls are printed beside the
-          same batch's single-device walls. Then the eviction drill: worker 2
-          killed, the next grouped dispatch raises within the pool's
-          timeout, `mesh_evict(1)` serves the verdict single-device,
-          `mesh_readmit()` starts a new pool that serves it again; the
-          seconds of each step and the pools' start times are printed,
-          and no worker process may be left.
-12c. fleet  the two-level fleet (hosts x GPUs per host) on cuda:0: a
+          same batch's single-device walls; no worker process may be left.
+          (Its eviction drill moved into the node phase's mesh drill, which
+          makes every one of its checks through the port's supervisor.)
+12d. fleet  the two-level fleet (hosts x GPUs per host) on cuda:0: a
           `BlsMeshDispatcher` of hosts [[0, 1], [2, 3]], host 0's two
           workers spawned by this process, host 1's two started by a
           `lodestar_tpu_torch.parallel.fleet_host` agent subprocess that
@@ -179,15 +223,16 @@ it runs the single-device path it names on a host of any card count):
           of each step are printed, and no worker or agent process may be
           left. To stay in its time, the mesh phase reuses the slice and
           pk-grouped phases' batches, its pk-grouped cell is the valid
-          batch alone, its pk-grouped and per-set cells time one verdict a
-          side (grouped keeps mesh, single, single, mesh) and no cell
-          repeats a warm single-device first call.
+          batch alone, each of its cells times one verdict a side (mesh,
+          then single-device) and no cell repeats a warm single-device
+          first call; each fleet cell times one warm verdict after its
+          first call.
 
-The main-path verdicts of phases 6-12c run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-12d run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
 (per part of a split one, per chunk of a flat one, per worker in phases
-12b and 12c, where K3-fe runs on the first worker only), both on bisection;
+12c and 12d, where K3-fe runs on the first worker only), both on bisection;
 every verdict of phases 7-9 is counted so and also checks which planner
 paths ran.
 
@@ -209,6 +254,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -225,6 +271,18 @@ INT32_OPS_PER_S = 67e12  # the published non-tensor float32 peak, no int32 entry
 
 def log(*args):
     print(*args, flush=True)
+
+
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), its wall seconds kept in PHASE_SECONDS and logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"[time] {name}: {PHASE_SECONDS[name]:.1f} s")
+    return out
 
 
 def card_line() -> str:
@@ -1347,10 +1405,11 @@ def phase_serve(torch, np):
     if len(obs.bisects) != 1 or obs.bisects[0][0] <= 0:
         raise AssertionError(f"{tag} expected one bisection with rounds, got {obs.bisects}")
     out["observer"] = seen
+    out["batch"] = (sets, host_ok)
     return out
 
 
-OBSERVE_ORDER = "ABBABAAB" * 2  # A: PipelineMetrics, B: NullObserver; 8 jobs a side
+OBSERVE_ORDER = "ABBABAAB"  # A: PipelineMetrics, B: NullObserver; 4 jobs a side
 OBSERVE_SCOPES = ("bls/g2_decompress", "bls/msm_planes", "bls/miller_loop",
                   "bls/product_tree", "bls/final_exp_batch")
 # kernel -> (its name in the trace, the scope its launch must lie in)
@@ -1455,7 +1514,7 @@ def phase_observe(torch, np):
     """The port's observability on the card: serve-128's valid 128-set job
     (grouped 16 × 8) through `DeviceBlsVerifier(device="cuda")` with a
     `PipelineMetrics` and with `NullObserver`, alternating (A B B A B A A
-    B, twice: 8 jobs a side, each counted), then one job under
+    B: 4 jobs a side, each counted), then one job under
     `start_profiling` / `stop_profiling`; the device and compile ledgers
     after. Fails unless every verdict is the host tier's, the stage
     histogram counts marshal, rand, dispatch and device_wait, the trace
@@ -1573,6 +1632,597 @@ def phase_observe(torch, np):
                   if ln.startswith("lodestar_tpu_build_info")]
     log(f"{tag} {build_info[0]}")
     return dict(median_s=med, seconds=secs, trace=seen, builds=builds, host_cost_us=cost)
+
+
+# -- 12b. node: the serving stack ------------------------------------------------
+
+NODE_KEYS = 32768  # one slot's committees at 2^20 active validators (2^20 / 32)
+NODE_WINDOW_S = 4.0  # attestations arrive over the first third of the 12 s slot
+NODE_SLOT_S = 12.0
+NODE_CALLERS = 1024  # gossip validation threads, each blocked in its call
+NODE_TAMPERED = (1000, 3000)  # carry the next set's signature (same root, another key)
+NODE_BLOCK_AT = (0.0, 2.0)  # the 128-set block job's arrivals
+NODE_CUT_CALLS = 1024  # the coalesce-4096 twin: the slot's first 1 s, to keep the script's time
+NODE_BOOT_SLO_S = 10.0  # dashboards/slo_rules.json `serving_ready`
+NODE_SIZE_BINS = (1, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+class DrillFaults:
+    """The fault seam the drills inject into the facade (duck-typed as the
+    JAX package's `testing.faults`): `exception` raises on every device
+    dispatch, `latency` sleeps `latency_s` on the host before it, `flaky`
+    turns every True verdict False."""
+
+    def __init__(self):
+        self.mode = None
+        self.latency_s = 0.0
+        self.injected = Counter()
+
+    def on_device_dispatch(self, n_sets: int) -> None:
+        if self.mode == "exception":
+            self.injected["exception"] += 1
+            raise RuntimeError("injected device exception")
+        if self.mode == "latency":
+            self.injected["latency"] += 1
+            time.sleep(self.latency_s)
+
+    def flaky_verdict(self, verdict: bool) -> bool:
+        if self.mode == "flaky" and verdict:
+            self.injected["flaky"] += 1
+            return False
+        return verdict
+
+    def flaky_verdicts(self, verdicts):
+        return [self.flaky_verdict(v) for v in verdicts]
+
+    def snapshot(self) -> dict:
+        return {"active": self.mode is not None,
+                "modes": {self.mode: 1.0} if self.mode else {},
+                "injected": dict(self.injected)}
+
+    def configure(self, spec):
+        self.mode = spec or None
+        return self.snapshot()
+
+    def clear(self, reset_counters: bool = False) -> None:
+        self.mode = None
+        if reset_counters:
+            self.injected.clear()
+
+
+def _counting(obj, *names):
+    """Wrap methods of one instance so their calls and seconds are counted
+    (the wrappers pass every call through); returns the Counter."""
+    seen = Counter()
+    for name in names:
+        real = getattr(obj, name)
+
+        def wrapped(*args, _real=real, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                seen[_name] += 1
+                seen[_name + "_s"] += time.perf_counter() - t0
+
+        setattr(obj, name, wrapped)
+    return seen
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))] if xs else None
+
+
+def _node_keys(np, slice_sets, block_sets):
+    """The epoch table's keys: the slice phase's 4096, 28,672 more from
+    seeded scalars (the host tier's sk_to_pk on THREADS threads) and the
+    block job's 128."""
+    from lodestar_tpu_torch import native
+    from lodestar_tpu_torch.profile_verdict import secret_keys
+
+    t0 = time.perf_counter()
+    sks = secret_keys(np.random.default_rng(SEED + 70), NODE_KEYS - len(slice_sets))
+    with ThreadPoolExecutor(THREADS) as pool:
+        made = list(pool.map(native.sk_to_pk, sks))
+    if any(rc for rc, _ in made):
+        raise AssertionError("[node] the host tier failed to make a key")
+    keys = ([s.pubkey.to_bytes() for s in slice_sets] + [pk for _, pk in made]
+            + [s.pubkey.to_bytes() for s in block_sets])
+    log(f"[node] {len(keys)} epoch-table keys ({len(made)} made with sk_to_pk on {THREADS} "
+        f"threads in {time.perf_counter() - t0:.3f} s)")
+    return keys
+
+
+def _node_boot(torch):
+    """(a) `python3 -m lodestar_tpu_torch.warmup` in a subprocess, the
+    extensions already built: its rungs, serving_ready and peak memory."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lodestar_tpu_torch.warmup"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[node] the warm-boot ladder failed:\n{proc.stderr[-4000:]}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    ready = doc["serving_ready_seconds"]
+    doc["slo_met"] = ready is not None and ready <= NODE_BOOT_SLO_S
+    doc["wall_s"] = wall
+    log(f"[node] (a) boot: serving_ready {ready} s since process start (SLO <= "
+        f"{NODE_BOOT_SLO_S} s {'met' if doc['slo_met'] else 'missed'}), subprocess wall "
+        f"{wall:.3f} s, peak device memory {doc['peak_device_bytes']} B; builds "
+        f"{json.dumps(doc['build_seconds'])}; rungs {json.dumps(doc['rung_seconds'])}; marks "
+        f"{json.dumps(doc['marks'])}; card: {card_line()}")
+    return doc
+
+
+def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatcher_args=None,
+               calls: int | None = None, interleaved: bool = True):
+    """(b) one slot of gossip through a fresh `build_bls_stack` on cuda:0:
+    4096 one-set attestation calls arriving uniformly over 4 s from a pool
+    of 1024 caller threads, two of them tampered, and the 128-set block
+    job at 0 s and 2 s, while the epoch table is populated.
+
+    `interleaved`: the sets arrive in a seeded shuffle, the 64 committees'
+    roots interleaved, as on mainnet, where every committee attests at
+    about the same moment; False: root after root (the slice's order, the
+    best case for root grouping). `calls` keeps the first calls of that
+    stream only (the same arrival rate) and the tampered sets among them.
+
+    Fails unless every verdict is the host tier's, the block lane shed
+    nothing, no waiter timed out, every shed was prompt, and the card did
+    the work: the supervisor fell back only for the negative audits of the
+    batches that held a tampered set (two each: the merged batch, then its
+    per-set verdicts' rejected sets), with no verdict mismatch, deadline,
+    retry or double failure, the breaker closed, and K2p launched at least
+    once per 128-set job the facade ran. Returns the figures, with the
+    split of the device calls' time between waiting for the supervisor's
+    one dispatch worker and running on it."""
+    from lodestar_tpu_torch.chain.bls_verifier import BlsShedError
+    from lodestar_tpu_torch.node.bls_stack import build_bls_stack
+    from lodestar_tpu_torch.observability import device_ledger
+
+    att = list(slice_sets)
+    for k in NODE_TAMPERED:
+        att = _tamper_one(att, k, "signature", k + 1)
+    want = list(slice_host)
+    for k, ok in zip(NODE_TAMPERED, _host_verdicts([att[k] for k in NODE_TAMPERED])):
+        want[k] = ok
+    if [k for k, ok in enumerate(want) if not ok] != list(NODE_TAMPERED):
+        raise AssertionError(f"{tag} the host tier does not reject exactly the tampered sets")
+    rng = np.random.default_rng(SEED + 80)
+    times = np.sort(rng.uniform(0.0, NODE_WINDOW_S, len(att)))
+    # order[j] is the set that arrives j-th, at times[j]
+    order = rng.permutation(len(att)) if interleaved else np.arange(len(att))
+    calls = calls or len(att)
+    order, times = [int(i) for i in order[:calls]], times[:calls]
+    arrived = set(order)
+    tampered = [k for k in NODE_TAMPERED if k in arrived]
+    bad_ids = {id(att[k]) for k in tampered}
+
+    stack = build_bls_stack(device="cuda:0", mesh=None, dispatcher_args=dispatcher_args)
+    pm, lanes, sup = stack.pipeline, stack.verifier, stack.supervisor
+    batches = []  # (sets, reason, overlapped, seconds, held a tampered set)
+    real_dispatch = lanes._dispatch_batch
+
+    def dispatch(entries, n_sets, reason, overlapped):
+        t0 = time.perf_counter()
+        held = any(id(s) in bad_ids for e in entries for s in e[0])
+        try:
+            real_dispatch(entries, n_sets, reason, overlapped)
+        finally:
+            batches.append((n_sets, reason, overlapped, time.perf_counter() - t0, held))
+
+    lanes._dispatch_batch = dispatch
+    device_calls = []  # (seconds queued for the dispatch worker, seconds run on it)
+    real_run = sup._dispatcher.run
+
+    def run(fn, deadline_s):
+        t_put = time.perf_counter()
+
+        def timed_fn():
+            t_run = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                device_calls.append((t_run - t_put, time.perf_counter() - t_run))
+
+        return real_run(timed_fn, deadline_s)
+
+    sup._dispatcher.run = run
+    per_set = _counting(sup, "verify_signature_sets_individual")
+    cpu = _counting(stack.cpu, "verify_signature_sets", "verify_signature_sets_individual")
+    jobs = _counting(stack.device._inner, "verify_signature_sets",
+                     "verify_signature_sets_individual")
+    h2c = _counting(stack.device, "warm_h2c")
+    led0 = device_ledger.ledger().snapshot()
+    results = {}
+    blocks = []
+    torch.cuda.synchronize()
+    _reset_counts()
+    t_start = time.perf_counter() + 0.05
+    if not stack.populate_epoch_async(0, keys):
+        raise AssertionError(f"{tag} the epoch population did not start")
+
+    def attest(j):
+        i = order[j]
+        delay = t_start + times[j] - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t0 = time.perf_counter()
+        try:
+            out = ("ok", lanes.verify_signature_sets([att[i]], lane="attestation"))
+        except BlsShedError as e:
+            out = ("shed", e.lane)
+        results[i] = out + (t0 - t_start, time.perf_counter() - t_start)
+
+    def block(at):
+        delay = t_start + at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t0 = time.perf_counter()
+        ok = lanes.verify_signature_sets(block_sets, lane="block")
+        blocks.append((ok, t0 - t_start, time.perf_counter() - t_start))
+
+    block_threads = [threading.Thread(target=block, args=(at,)) for at in NODE_BLOCK_AT]
+    for t in block_threads:
+        t.start()
+    with ThreadPoolExecutor(NODE_CALLERS) as pool:
+        for f in [pool.submit(attest, j) for j in range(len(order))]:
+            f.result()
+    for t in block_threads:
+        t.join()
+    torch.cuda.synchronize()
+    counts = _counts()
+    stack.wait_populated()
+    led1 = device_ledger.ledger().snapshot()
+    lane_snap = pm.lanes_snapshot()
+    sup_snap = pm.supervisor_snapshot()
+    breaker = sup.breaker_state
+    hits, misses = pm.epoch_table_hits.value(), pm.epoch_table_misses.value()
+    stack.close()
+
+    wrong = [i for i in order if results[i][0] == "ok" and results[i][1] != want[i]]
+    sheds = [r for r in results.values() if r[0] == "shed"]
+    slow_sheds = [r for r in sheds if r[3] - r[2] >= 1.0]
+    if wrong:
+        raise AssertionError(f"{tag} calls {wrong[:10]} differ from the host tier")
+    if [ok for ok, _, _ in blocks] != [True] * len(NODE_BLOCK_AT):
+        raise AssertionError(f"{tag} the block jobs: {blocks}")
+    if lane_snap["sheds"].get("block", 0) or sup_snap["waiter_timeouts"] or slow_sheds:
+        raise AssertionError(f"{tag} block sheds {lane_snap['sheds']}, waiter timeouts "
+                             f"{sup_snap['waiter_timeouts']}, slow sheds {len(slow_sheds)}")
+    false_calls = sorted(i for i in order if results[i][0] == "ok" and results[i][1] is False)
+    if false_calls != [k for k in tampered if results[k][0] == "ok"]:
+        raise AssertionError(f"{tag} False verdicts at {false_calls}")
+    # the card did the work: the host tier only audited the tampered batches
+    held = sum(1 for b in batches if b[4])
+    fallbacks = {k: v for k, v in sup_snap["fallbacks"].items() if v}
+    if fallbacks != ({"negative_audit": 2 * held} if held else {}) or breaker != "closed" \
+            or any(sup_snap[k] for k in ("verdict_mismatches", "deadline_exceeded", "retries",
+                                         "both_tiers_failed")):
+        raise AssertionError(
+            f"{tag} the host tier served more than the audits of the {held} tampered batches: "
+            f"fallbacks {fallbacks}, breaker {breaker}, supervisor {json.dumps(sup_snap)}")
+    n_jobs = jobs["verify_signature_sets"] + jobs["verify_signature_sets_individual"]
+    _need(counts, f"{tag} slot", "K1", "K2p", "K3-fe")
+    if counts["K2p"] < n_jobs:
+        raise AssertionError(f"{tag} K2p launched {counts['K2p']} times for {n_jobs} jobs")
+    ends = [r[3] for r in results.values()] + [b[2] for b in blocks]
+    att_done = max(r[3] for r in results.values())
+    block_lat = [b[2] - b[1] for b in blocks]
+    sizes = [b[0] for b in batches]
+    hist = Counter(next(f"<={b}" for b in NODE_SIZE_BINS if n <= b) for n in sizes)
+    busy = led1["busy_wall_s"] - led0["busy_wall_s"]
+    uptime = led1["uptime_s"] - led0["uptime_s"]
+    waits = [w for w, _ in device_calls]
+    ran = sum(r for _, r in device_calls)
+    out = dict(
+        order="interleaved" if interleaved else "root-major",
+        makespan_s=max(ends), slot_s=NODE_SLOT_S, att_sets_per_s=len(order) / att_done,
+        att_done_s=att_done, block_p50_s=_pct(block_lat, 0.5), block_max_s=max(block_lat),
+        att_sheds=len(sheds), shed_max_s=max((r[3] - r[2] for r in sheds), default=0.0),
+        batches=len(sizes), batch_sizes=dict(sorted(hist.items(), key=lambda kv: int(kv[0][2:]))),
+        batch_max=max(sizes), batch_reasons=dict(Counter(b[1] for b in batches)),
+        overlap_fraction=lane_snap["overlap_fraction"], utilization=busy / uptime if uptime else 0,
+        per_set_calls=per_set["verify_signature_sets_individual"],
+        per_set_s=per_set["verify_signature_sets_individual_s"],
+        audit_batch_calls=cpu["verify_signature_sets"], audit_batch_s=cpu["verify_signature_sets_s"],
+        audit_set_calls=cpu["verify_signature_sets_individual"],
+        audit_set_s=cpu["verify_signature_sets_individual_s"],
+        device_calls=len(device_calls), device_wait_s=sum(waits),
+        device_wait_max_s=max(waits, default=0.0), device_run_s=ran,
+        worker_busy=ran / max(ends), jobs=jobs["verify_signature_sets"],
+        jobs_s=jobs["verify_signature_sets_s"],
+        set_jobs=jobs["verify_signature_sets_individual"],
+        set_jobs_s=jobs["verify_signature_sets_individual_s"],
+        warm_h2c_calls=h2c["warm_h2c"], warm_h2c_s=h2c["warm_h2c_s"],
+        table_misses=misses, table_hits=hits, populate=stack.last_populate,
+        calls=calls, tampered=[results[k][:2] for k in tampered], tampered_batches=held,
+        launches=counts, fallbacks=fallbacks, mismatches=sup_snap["verdict_mismatches"])
+    log(f"{tag} {out['order']} arrivals; makespan {out['makespan_s']:.3f} s against the "
+        f"{NODE_SLOT_S:.0f} s slot (attestations done at {att_done:.3f} s: "
+        f"{out['att_sets_per_s']:.1f} sets/s); block p50 {out['block_p50_s']:.3f} s, max "
+        f"{out['block_max_s']:.3f} s; attestation sheds {len(sheds)} (slowest "
+        f"{out['shed_max_s']:.6f} s); {len(sizes)} coalesced batches, sizes "
+        f"{json.dumps(out['batch_sizes'])}, largest {out['batch_max']}, reasons "
+        f"{json.dumps(out['batch_reasons'])}; lane_overlap_fraction {out['overlap_fraction']}; "
+        f"device-ledger utilisation {out['utilization']:.4f} ({busy:.3f} of {uptime:.3f} s)")
+    log(f"{tag} {len(device_calls)} supervised device calls ran {ran:.3f} s on the one dispatch "
+        f"worker ({out['worker_busy']:.4f} of the makespan) and waited for it {sum(waits):.3f} s "
+        f"in all (longest {out['device_wait_max_s']:.3f} s); inside them the facade ran "
+        f"{out['jobs']} batch jobs in {out['jobs_s']:.3f} s ({out['jobs_s'] / max(1, out['jobs']):.3f}"
+        f" s each) and {out['set_jobs']} per-set jobs in {out['set_jobs_s']:.3f} s; warm_h2c on "
+        f"the lane threads {out['warm_h2c_calls']} calls {out['warm_h2c_s']:.3f} s")
+    log(f"{tag} {calls} calls; the tampered sets {tampered} in {held} batches: {out['tampered']}; "
+        f"per-set re-verification {out['per_set_calls']} calls {out['per_set_s']:.3f} s; host-tier "
+        f"negative audit {out['audit_batch_calls']} batches {out['audit_batch_s']:.3f} s and "
+        f"{out['audit_set_calls']} per-set {out['audit_set_s']:.3f} s; supervisor fallbacks "
+        f"{json.dumps(fallbacks)} (only the audits), mismatches 0, breaker {breaker}")
+    log(f"{tag} epoch table: {misses:.0f} misses, then {hits:.0f} hits; populate "
+        f"{json.dumps(stack.last_populate)}; launches {json.dumps(counts)} (K2p >= {n_jobs} jobs);"
+        f" card: {card_line()}")
+    if "error" in (stack.last_populate or {}):
+        raise AssertionError(f"{tag} the epoch population failed")
+    return out
+
+
+def _wait_for(cond, timeout_s: float, step_s: float = 0.05) -> float | None:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(step_s)
+    return None
+
+
+def _scrape(port: int, routes) -> dict:
+    import urllib.request
+
+    docs = {}
+    for route in routes:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=60) as r:
+            body = r.read().decode()
+            docs[route] = body if route == "/metrics" else json.loads(body)
+    return docs
+
+
+def _node_drills(torch, np, serve_sets, per_set_sets):
+    """(c) the port's supervisor under injected faults on serve-128's job
+    (cooldown 2 s, deadline 5 s), the exact per-set route, then (d) the
+    scrape of the same stack over loopback."""
+    from lodestar_tpu_torch.bls.api import SignatureSet
+    from lodestar_tpu_torch.bls.fields import P
+    from lodestar_tpu_torch.metrics.bls import FAMILIES
+    from lodestar_tpu_torch.node.bls_stack import build_bls_stack
+
+    tag = "[node] (c)"
+    faults = DrillFaults()
+    stack = build_bls_stack(device="cuda:0", mesh=None, faults=faults, metrics_port=0,
+                            supervisor_args={"cooldown_s": 2.0, "deadline_s": 5.0})
+    sup, lanes, pm = stack.supervisor, stack.verifier, stack.pipeline
+    cpu = _counting(stack.cpu, "verify_signature_sets", "verify_signature_sets_individual")
+    out = {}
+
+    def job(name):
+        t0 = time.perf_counter()
+        ok = lanes.verify_signature_sets(serve_sets, lane="block")
+        secs = time.perf_counter() - t0
+        if ok is not True:
+            raise AssertionError(f"{tag} {name}: verdict {ok}, the host tier True")
+        return secs
+
+    out["clean_s"] = job("clean")
+    # exceptions: the host tier serves, three failures open the breaker,
+    # the canary re-closes it once the faults are cleared
+    faults.configure("exception")
+    states, secs = [], []
+    for i in range(3):
+        secs.append(job(f"exception {i}"))
+        states.append(sup.breaker_state)
+    if states != ["closed", "closed", "open"] or cpu["verify_signature_sets"] != 3:
+        raise AssertionError(f"{tag} exceptions: breaker {states}, host-tier calls {cpu}")
+    faults.clear()
+    reclosed = _wait_for(lambda: sup.breaker_state == "closed", 30.0)
+    if reclosed is None:
+        raise AssertionError(f"{tag} the canary did not re-close the breaker")
+    out["exception"] = dict(seconds=secs, states=states, reclose_s=reclosed)
+    log(f"{tag} exceptions: host tier served {secs}; breaker {states}; re-closed by the canary "
+        f"{reclosed:.3f} s after the faults were cleared")
+    # a host-side latency beyond the deadline: counted, the host tier serves
+    faults.latency_s = 6.0
+    faults.configure("latency")
+    deadlines0 = pm.supervisor_snapshot()["deadline_exceeded"]
+    secs = job("latency")
+    faults.clear()
+    deadlines = pm.supervisor_snapshot()["deadline_exceeded"] - deadlines0
+    if deadlines != 1 or pm.supervisor_snapshot()["fallbacks"].get("deadline") != 1:
+        raise AssertionError(f"{tag} latency: {deadlines} deadlines counted")
+    out["latency_s"] = secs
+    t0 = time.perf_counter()
+    for t in list(sup._dispatcher._abandoned):  # wait out the abandoned worker's late call
+        t.join(60.0)
+    out["abandoned_s"] = time.perf_counter() - t0
+    log(f"{tag} latency 6 s > deadline 5 s: the host tier served in {secs:.3f} s; deadline "
+        f"counted once; the abandoned worker finished its call {out['abandoned_s']:.3f} s later")
+    # flaky: the negative audit overturns the device's False
+    faults.configure("flaky")
+    secs = job("flaky")
+    faults.clear()
+    snap = pm.supervisor_snapshot()
+    if snap["verdict_mismatches"] != 1 or snap["fallbacks"].get("negative_audit") != 1:
+        raise AssertionError(f"{tag} flaky: {json.dumps(snap)}")
+    out["flaky_s"] = secs
+    log(f"{tag} flaky: the audit overturned the device's False in {secs:.3f} s; "
+        f"verdict_mismatch {snap['verdict_mismatches']}")
+    out["clean_after_s"] = job("clean after")
+    # the exact per-set route (K3): 16 sets, one bad encoding, one at a time
+    sixteen = list(per_set_sets[:16])
+    bad_enc = bytearray(sixteen[7].signature)
+    bad_enc[:48] = P.to_bytes(48, "big")
+    bad_enc[0] |= 0x80 | (sixteen[7].signature[0] & 0x20)
+    sixteen[7] = SignatureSet(sixteen[7].pubkey, sixteen[7].message, bytes(bad_enc))
+    host16 = _host_verdicts(sixteen)
+    got, secs, counts = _run_counted(torch, lambda: sup.verify_signature_sets_individual(sixteen))
+    if got != host16 or got[7]:
+        raise AssertionError(f"{tag} the exact route's verdicts {got} differ from the host "
+                             f"tier's {host16}")
+    _need(counts, f"{tag} exact per-set route", "K3")
+    out["exact"] = dict(seconds=secs, counts=counts)
+    log(f"{tag} exact per-set route through the supervisor: 16 sets, set 7 False = host tier, "
+        f"{secs:.3f} s; launches {json.dumps(counts)}")
+    # (d) the scrape
+    routes = ("/metrics", "/debug/breaker", "/debug/lanes", "/debug/slo", "/debug/device",
+              "/debug/epoch_table", "/debug/compiles")
+    t0 = time.perf_counter()
+    docs = _scrape(stack.server.port, routes)
+    scrape_s = time.perf_counter() - t0
+    text = docs["/metrics"]
+    missing = [name for _, _, name, _ in FAMILIES if f"# TYPE {name} " not in text]
+    missing += [p for p in ("lodestar_bls_lane_", "lodestar_bls_supervisor_", "lodestar_slo_")
+                if f"# TYPE {p}" not in text]
+    slo_state = {o["name"]: o["state"] for o in docs["/debug/slo"]["objectives"]}
+    if missing or slo_state.get("zero_block_sheds") != "ok" or \
+            docs["/debug/breaker"]["state"] != "closed":
+        raise AssertionError(f"{tag} scrape: missing {missing}, slo {slo_state}, breaker "
+                             f"{docs['/debug/breaker']['state']}")
+    out["scrape"] = dict(seconds=scrape_s, slo=slo_state, metrics_bytes=len(text))
+    log(f"[node] (d) scrape of {len(routes)} routes over loopback in {scrape_s:.3f} s: every "
+        f"facade, lane, supervisor and slo family present; breaker "
+        f"{docs['/debug/breaker']['state']}; slo {json.dumps(slo_state)}; lanes "
+        f"{json.dumps({k: v for k, v in docs['/debug/lanes'].items() if k != 'lanes'})}; device "
+        f"utilisation {docs['/debug/device']['utilization']}")
+    stack.close()
+    return out
+
+
+def _node_mesh_drill(torch, np, serve_sets):
+    """(c) the mesh drill through the port's supervisor: the stack over a
+    two-worker pool on cuda:0 serves serve-128's job sharded; worker 2
+    killed, the same call raises `MeshWorkerError` naming chip 1 inside
+    the supervisor, which evicts it and serves the call single-device:
+    the host tier is called 0 times and the breaker stays closed; the
+    canary re-admits the chip and a new pool serves sharded again; no
+    worker process is left. (The checks of the mesh phase's eviction
+    drill.)"""
+    import multiprocessing
+
+    from lodestar_tpu_torch.observability.stages import PipelineMetrics
+    from lodestar_tpu_torch.parallel.mesh import BlsMeshDispatcher
+    from lodestar_tpu_torch.node.bls_stack import build_bls_stack
+
+    tag = "[node] (c) mesh"
+    pm = PipelineMetrics()
+    d = BlsMeshDispatcher(list(MESH_DEVICES), observer=pm)
+    stack = build_bls_stack(device="cuda:0", mesh=d, observer=pm,
+                            supervisor_args={"cooldown_s": 2.0, "deadline_s": 120.0})
+    sup, dev = stack.supervisor, stack.device
+    cpu = _counting(stack.cpu, "verify_signature_sets", "verify_signature_sets_individual")
+    v = dev._inner
+    single = []
+    inner = v._kernels["grouped_raw"]
+    v._kernels["grouped_raw"] = lambda *a: single.append(1) or inner(*a)
+    evicted, readmitted = [], []
+    real_evict, real_readmit = dev.mesh_evict, dev.mesh_readmit
+
+    def evict(chip=None, reason="failure"):
+        t0 = time.perf_counter()
+        size = real_evict(chip=chip, reason=reason)
+        evicted.append(dict(chip=chip, reason=reason, at=t0, size=size,
+                            seconds=time.perf_counter() - t0, pool_stopped=d.pool is None))
+        return size
+
+    def readmit():
+        n = real_readmit()
+        readmitted.append(n)
+        return n
+
+    dev.mesh_evict, dev.mesh_readmit = evict, readmit
+    out = {}
+    pool = d.start_pool()
+    out["start_s"] = pool.start_seconds
+
+    def call(name):
+        got, secs, counts = _run_counted(
+            torch, lambda: stack.verifier.verify_signature_sets(serve_sets, lane="block"))
+        if got is not True:
+            raise AssertionError(f"{tag} {name}: {got}, the host tier True")
+        return secs, counts
+
+    out["sharded_s"], _ = call("sharded")
+    if single or d.snapshot()["dispatches"] != 1:
+        raise AssertionError(f"{tag} the first verdict was not sharded: {d.snapshot()}")
+    pool.kill(1)
+    t_kill = time.perf_counter()
+    out["evicted_served_s"], counts = call("after the kill")
+    ev = evicted[0] if len(evicted) == 1 else {}
+    if ev.get("chip") != 1 or ev.get("reason") != "MeshWorkerError" or ev.get("size") != 1 \
+            or not ev.get("pool_stopped"):
+        raise AssertionError(f"{tag} eviction {evicted}")
+    out["raise_s"], out["evict_s"] = ev["at"] - t_kill, ev["seconds"]
+    if out["raise_s"] > pool.timeout_s or single != [1] or any(pool.alive()):
+        raise AssertionError(f"{tag} raise after {out['raise_s']:.3f} s, single-device "
+                             f"{single}, pool alive {pool.alive()}")
+    _need_main(counts, f"{tag} single-device")
+    snap = sup.breaker_snapshot()
+    if cpu["verify_signature_sets"] or cpu["verify_signature_sets_individual"] or \
+            snap["state"] != "closed":
+        raise AssertionError(f"{tag} host tier {dict(cpu)}, breaker {snap['state']}")
+    log(f"{tag}: worker 2 killed; MeshWorkerError named chip 1 after {out['raise_s']:.6f} s "
+        f"(pool timeout {pool.timeout_s:.0f} s), the supervisor evicted it (mesh_evict "
+        f"{out['evict_s']:.6f} s: serving size 1, the pool stopped) and served the call "
+        f"single-device in {out['evicted_served_s']:.3f} s; host tier called 0 times, breaker "
+        f"closed; launches {json.dumps(counts)}")
+    out["readmit_s"] = _wait_for(lambda: d.size == 2 and readmitted == [1], 60.0)
+    if out["readmit_s"] is None:
+        raise AssertionError(f"{tag} the canary did not re-admit the chip: {d.snapshot()}")
+    single.clear()
+    dispatches = d.snapshot()["dispatches"]
+    out["served_again_s"], _ = call("after readmission")
+    if single or d.pool is None or d.snapshot()["dispatches"] != dispatches + 1:
+        raise AssertionError(f"{tag} the verdict after readmission was not sharded")
+    out["restart_s"] = d.pool.start_seconds
+    log(f"{tag}: the canary re-admitted the chip {out['readmit_s']:.3f} s after; a new pool "
+        f"(started in {out['restart_s']:.3f} s) served sharded again in "
+        f"{out['served_again_s'] - out['restart_s']:.3f} s of {out['served_again_s']:.3f} s; "
+        f"snapshot {json.dumps(d.snapshot())}")
+    stack.close()
+    left = multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"{tag} worker processes left: {left}")
+    return out
+
+
+def phase_node(torch, np, grouped, serve_batch, per_set_sets):
+    """12b. the port's serving stack: (a) the warm-boot ladder in a
+    subprocess, (b) one slot of gossip at the JAX defaults and again with
+    coalescing up to 4096, (c) the supervisor's drills and the mesh drill,
+    (d) the scrape."""
+    tag = "[node]"
+    slice_sets, slice_host = grouped
+    block_sets, block_host = serve_batch
+    if not all(block_host):
+        raise AssertionError(f"{tag} the host tier rejects the block job")
+    out = {"boot": timed("node (a) boot", _node_boot, torch)}
+    keys = _node_keys(np, slice_sets, block_sets)
+    out["slot"] = timed("node (b) slot 512", _node_slot, torch, np,
+                        f"{tag} (b) slot, max_coalesce 512:", slice_sets, slice_host, block_sets,
+                        keys)
+    # the twin: the slot's first second, root after root (the best case)
+    out["slot_4096"] = timed(
+        "node (b) slot 4096", _node_slot, torch, np,
+        f"{tag} (b) slot's first 1 s, max_coalesce 4096, best case:", slice_sets, slice_host,
+        block_sets, keys,
+        {"max_coalesce": 4096,
+         "lane_caps": {"attestation": 4096, "aggregate": 1024, "sync_committee": 512}},
+        NODE_CUT_CALLS, False)
+    out["drills"] = timed("node (c) drills", _node_drills, torch, np, block_sets, per_set_sets)
+    out["mesh_drill"] = timed("node (c) mesh drill", _node_mesh_drill, torch, np, block_sets)
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(("bls-lane-worker", "bls-canary", "bls-device-dispatch",
+                                  "epoch-table-fill"))]
+    if left:
+        raise AssertionError(f"{tag} threads left after close(): {left}")
+    return out
 
 
 def make_key_sets(np, key_ids, roots, seed: int):
@@ -1846,15 +2496,12 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
     dispatcher's per-chip count rises by one, the
     single-device verdict is never called) and launches K2p once on each
     worker and K3-fe once on the first (counts zeroed just before, read
-    just after, in the workers through the pool). Then the eviction drill:
-    worker 2 killed, the next grouped dispatch raises within the pool's
-    timeout, `mesh_evict(1)` serves single-device, `mesh_readmit()` starts
-    a new pool that serves again; no worker process is left."""
+    just after, in the workers through the pool); no worker process is
+    left. The eviction drill is the node phase's mesh drill."""
     import multiprocessing
 
     from lodestar_tpu_torch.observability.stages import PipelineMetrics
     from lodestar_tpu_torch.parallel.mesh import BlsMeshDispatcher
-    from lodestar_tpu_torch.parallel.mesh_pool import MeshWorkerError
     from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
 
     tag = "[mesh]"
@@ -1912,7 +2559,7 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
     # second worker owns rows 32..63
     cell = out["cells"]["grouped-64x64"] = {}
     cell_walls(cell, "grouped-64x64 valid", "verify_signature_sets", grouped, True,
-               order=("mesh", "single", "single", "mesh"))
+               order=("mesh", "single"))
     k = 40 * 64 + 3
     bad_sig = _tamper_one(grouped, k, "signature", 10)
     cell["bad_signature_s"], _ = mesh_verdict(
@@ -1952,45 +2599,6 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
             f"{c['order']}), ratio of the sums {c['ratio']:.3f}; per-worker launches "
             f"{json.dumps(c['workers'])}")
 
-    # the eviction drill
-    drill = out["drill"] = {}
-    pool.kill(1)
-    t0 = time.perf_counter()
-    try:
-        v.verify_signature_sets(grouped)
-    except MeshWorkerError as e:
-        drill["raise_s"] = time.perf_counter() - t0
-        log(f"{tag} drill: worker 2 killed; the next grouped dispatch raised in "
-            f"{drill['raise_s']:.6f} s (pool timeout {pool.timeout_s:.0f} s): chip {e.chip}")
-        if e.chip != 1 or drill["raise_s"] > pool.timeout_s:
-            raise AssertionError(f"{tag} drill: raised for chip {e.chip} after "
-                                 f"{drill['raise_s']:.3f} s")
-    else:
-        raise AssertionError(f"{tag} drill: the dispatch over a dead worker did not raise")
-    t0 = time.perf_counter()
-    size = v.mesh_evict(1, reason="drill")
-    drill["evict_s"] = time.perf_counter() - t0
-    if size != 1 or d.pool is not None or any(pool.alive()):
-        raise AssertionError(f"{tag} drill: evict left size {size}, pool {d.pool}")
-    sharded_off.clear()
-    got, drill["single_s"], counts = _run_counted(torch, lambda: v.verify_signature_sets(grouped), v)
-    if got is not True or sharded_off != ["grouped_raw"]:
-        raise AssertionError(f"{tag} drill: single-device verdict {got} via {sharded_off}")
-    _need_main(counts, f"{tag} drill single-device")
-    sharded_off.clear()
-    log(f"{tag} drill: mesh_evict(1) in {drill['evict_s']:.6f} s; serving size 1, the grouped "
-        f"verdict single-device True in {drill['single_s']:.3f} s; launches {json.dumps(counts)}")
-    t0 = time.perf_counter()
-    if v.mesh_readmit() != 1:
-        raise AssertionError(f"{tag} drill: readmit did not restore the chip")
-    drill["readmit_s"] = time.perf_counter() - t0
-    pool = d.start_pool()
-    drill["restart_s"] = pool.start_seconds
-    drill["served_s"], _ = mesh_verdict("grouped-64x64 valid after readmission",
-                                        lambda: v.verify_signature_sets(grouped), True)
-    log(f"{tag} drill: mesh_readmit() in {drill['readmit_s']:.6f} s, the new pool started in "
-        f"{drill['restart_s']:.3f} s, served again in {drill['served_s']:.3f} s; eviction to "
-        f"serving {drill['raise_s'] + drill['evict_s'] + drill['single_s']:.3f} s")
     v.close()
     single.close()
     left = multiprocessing.active_children()
@@ -2106,11 +2714,11 @@ def phase_fleet(torch, np, mesh, per_set_sets, per_set_host, per_set_bad, per_se
             return _sharded_verdict(tag, d, obs, spied, name, fn, want, controller_idle)
 
         def cell(name, method, sets, want, bad_name, bad_sets, bad_want, **kw):
-            """A first call, two more of the valid batch and the tampered one."""
+            """A first call, one more of the valid batch and the tampered one."""
             c = out["cells"][name] = {}
             fn = lambda: getattr(v, method)(sets)  # noqa: E731
             c["first_s"], _ = verdict(f"{name} valid, first call", fn, want, **kw)
-            c["fleet_s"] = [verdict(f"{name} valid", fn, want, **kw)[0] for _ in range(2)]
+            c["fleet_s"] = [verdict(f"{name} valid", fn, want, **kw)[0]]
             c["bad_s"], c["workers"] = verdict(f"{name} {bad_name}",
                                                lambda: getattr(v, method)(bad_sets), bad_want,
                                                **kw)
@@ -2138,8 +2746,8 @@ def phase_fleet(torch, np, mesh, per_set_sets, per_set_host, per_set_bad, per_se
         for name, c in out["cells"].items():
             m = mesh["cells"][name]
             c["single_level_s"], c["single_device_s"] = min(m["mesh_s"]), min(m["single_s"])
-            log(f"{tag} {name}: fleet (2 hosts x 2 workers) {c['fleet_s'][0]:.3f} / "
-                f"{c['fleet_s'][1]:.3f} s, first call {c['first_s']:.3f} s; single-level "
+            log(f"{tag} {name}: fleet (2 hosts x 2 workers) {c['fleet_s'][0]:.3f} s, "
+                f"first call {c['first_s']:.3f} s; single-level "
                 f"(2 workers) {c['single_level_s']:.3f} s, single-device "
                 f"{c['single_device_s']:.3f} s (the mesh phase's, same batch); "
                 f"per-worker launches {json.dumps(c['workers'])}; card: {card_line()}")
@@ -2242,32 +2850,34 @@ def main() -> int:
     torch.cuda.init()
     stack_at_start = stack_limit()
     log(f"[env] per-thread stack limit at the start: {stack_at_start} B")
-    ptxas = phase_build()
+    ptxas = timed("build", phase_build)
     muls = cuda_tower.fp_muls_per_lane()
     log(f"[build] Fp multiplies per lane (host harness): {json.dumps(muls)}")
-    max_err, k1_rows, k1_ptxas = phase_k1(torch, np, ptxas)
-    k4_err, k4_rows = phase_k4(torch, np)
-    fe_err, fe_rows = phase_fe(torch, np, muls, ptxas)
-    k2p_err, k2p_rows = phase_k2p(torch, np, muls, ptxas)
+    max_err, k1_rows, k1_ptxas = timed("k1", phase_k1, torch, np, ptxas)
+    k4_err, k4_rows = timed("k4", phase_k4, torch, np)
+    fe_err, fe_rows = timed("fe", phase_fe, torch, np, muls, ptxas)
+    k2p_err, k2p_rows = timed("k2p", phase_k2p, torch, np, muls, ptxas)
     k2p_row = k2p_rows[K2P_LANES[-1]]
     sets, host_ok, bad, host_bad = per_set_batches(np)
-    k3_err, k3_rows = phase_k3(torch, np, muls, ptxas, bad, host_bad)
+    k3_err, k3_rows = timed("k3", phase_k3, torch, np, muls, ptxas, bad, host_bad)
     k3_row = k3_rows[PER_SET_N]
-    k2_err, k2_rows = phase_k2(torch, np, muls, ptxas, stack_at_start)
+    k2_err, k2_rows = timed("k2", phase_k2, torch, np, muls, ptxas, stack_at_start)
     k2_row = k2_rows[K2_LANES[-1]]
-    grouped_counts, wall, n_sets, grouped_products, grouped = phase_slice(torch, np, 64, 64)
+    grouped_counts, wall, n_sets, grouped_products, grouped = timed(
+        "slice 64x64", phase_slice, torch, np, 64, 64)
     log(f"[slice] main path (64, 64): {wall:.3f} s per {n_sets}-set verdict, "
         f"{n_sets / wall:.1f} sets/s, launches per verdict {json.dumps(grouped_counts)}")
-    phase_slice(torch, np, 16, 8)
-    pk = phase_pk_grouped(torch, np)
-    flat = phase_flat(torch, np)
-    split = phase_split(torch, np)
-    per_set = phase_per_set(torch, np, sets, host_ok, bad, host_bad)
-    checks = phase_pairing_check(torch, np, sets, host_ok, bad, host_bad)
-    serve = phase_serve(torch, np)
-    observe = phase_observe(torch, np)
-    mesh = phase_mesh(torch, np, grouped, pk["batch"], sets, host_ok, bad, host_bad)
-    fleet = phase_fleet(torch, np, mesh, sets, host_ok, bad, host_bad)
+    timed("slice 16x8", phase_slice, torch, np, 16, 8)
+    pk = timed("pk-grouped", phase_pk_grouped, torch, np)
+    flat = timed("flat", phase_flat, torch, np)
+    split = timed("split", phase_split, torch, np)
+    per_set = timed("per-set", phase_per_set, torch, np, sets, host_ok, bad, host_bad)
+    checks = timed("pairing-check", phase_pairing_check, torch, np, sets, host_ok, bad, host_bad)
+    serve = timed("serve", phase_serve, torch, np)
+    observe = timed("observe", phase_observe, torch, np)
+    node = timed("node", phase_node, torch, np, grouped, serve["batch"], sets)
+    mesh = timed("mesh", phase_mesh, torch, np, grouped, pk["batch"], sets, host_ok, bad, host_bad)
+    fleet = timed("fleet", phase_fleet, torch, np, mesh, sets, host_ok, bad, host_bad)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -2284,12 +2894,28 @@ def main() -> int:
     log(f"[summary] observe: 128-set job median {observe['median_s']['A']:.6f} s with "
         f"PipelineMetrics, {observe['median_s']['B']:.6f} s with NullObserver; observing "
         f"costs the host {observe['host_cost_us']['job_us']:.1f} us per job")
+    boot, slots = node["boot"], (node["slot"], node["slot_4096"])
+    log(f"[summary] node: boot serving_ready {boot['serving_ready_seconds']} s (SLO "
+        f"{'met' if boot['slo_met'] else 'missed'}), peak {boot['peak_device_bytes']} B; "
+        + "; ".join(f"slot max_coalesce {c} ({s['calls']} calls, {s['order']}): makespan "
+                    f"{s['makespan_s']:.3f} s, "
+                    f"{s['att_sets_per_s']:.1f} attestation sets/s, block p50 "
+                    f"{s['block_p50_s']:.3f} max {s['block_max_s']:.3f} s, sheds {s['att_sheds']}, "
+                    f"{s['batches']} batches (largest {s['batch_max']}), overlap "
+                    f"{s['overlap_fraction']}, utilisation {s['utilization']:.4f}, tampered cost "
+                    f"{s['per_set_s']:.3f} s per-set + {s['audit_batch_s']:.3f} s audit, "
+                    f"dispatch worker busy {s['worker_busy']:.4f}, queued {s['device_wait_s']:.3f} s"
+                    for c, s in zip((512, 4096), slots))
+        + f"; drills: breaker re-closed {node['drills']['exception']['reclose_s']:.3f} s after "
+        f"clearing, latency {node['drills']['latency_s']:.3f} s, flaky "
+        f"{node['drills']['flaky_s']:.3f} s; mesh drill raise {node['mesh_drill']['raise_s']:.6f} s, "
+        f"served single-device {node['mesh_drill']['evicted_served_s']:.3f} s, re-admitted "
+        f"{node['mesh_drill']['readmit_s']:.3f} s; card: {card_line()}")
     log(f"[summary] mesh (two workers on cuda:0): pool start {mesh['start_s']:.3f} s; "
         + "; ".join(f"{n} {min(c['mesh_s']):.3f} s against single-device "
                     f"{min(c['single_s']):.3f} s (best of {len(c['mesh_s'])} each)"
                     for n, c in mesh["cells"].items())
-        + f"; drill raise {mesh['drill']['raise_s']:.6f} s, evict {mesh['drill']['evict_s']:.6f} s, "
-        f"single-device {mesh['drill']['single_s']:.3f} s, restart {mesh['drill']['restart_s']:.3f} s")
+)
     log(f"[summary] fleet (2 hosts x 2 workers on cuda:0, host 1 over TCP): agent join "
         f"{fleet['join_s']:.3f} s, pool start {fleet['start_s']:.3f} s; "
         + "; ".join(f"{n} {min(c['fleet_s']):.3f} s against single-level "
@@ -2300,6 +2926,7 @@ def main() -> int:
         f"{fleet['drill']['single_level_start_s']:.3f} s, rejoined by {fleet['drill']['rejoin_s']:.3f} s, "
         f"restart {fleet['drill']['restart_s']:.3f} s; script {time.perf_counter() - t_start:.1f} s; "
         f"card: {card_line()}")
+    log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "
         f"ptxas {json.dumps(k1_ptxas)}")

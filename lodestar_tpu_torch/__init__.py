@@ -8,6 +8,7 @@ integer tensor cores (`ops/cuda_mxu.py`), the Miller loop and the fused
 per-set pairing (`ops/cuda_tower.py`).
 It imports neither JAX nor `lodestar_tpu`. The entry points are
 `parallel.verifier.TorchBlsVerifier` and the serving facade over it,
-`chain.bls_verifier.DeviceBlsVerifier`; they run on the GPU unless the
-caller passes `device="cpu"`.
+`chain.bls_verifier.DeviceBlsVerifier`, and the serving stack a node
+composes over it, `node.bls_stack.build_bls_stack`; they run on the GPU
+unless the caller passes `device="cpu"`.
 """

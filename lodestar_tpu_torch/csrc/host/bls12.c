@@ -1425,6 +1425,11 @@ int lodestar_bls_verify_sets(size_t n, const uint8_t *pks,
   size_t msg_off = 0;
   for (size_t i = 0; i < n; i++) {
     out_ok[i] = 0;
+    /* set i's message starts here whether or not set i gets as far as
+       hashing it: a set refused earlier must not shift its successors' */
+    const uint8_t *msg = msgs + msg_off;
+    size_t msg_len = msg_lens[i];
+    msg_off += msg_len;
     g1p pk;
     int rc = g1_parse_compressed(pks + 48 * i, &pk);
     if (rc != 0) continue;                 /* infinity pk invalid (KeyValidate) */
@@ -1439,9 +1444,6 @@ int lodestar_bls_verify_sets(size_t n, const uint8_t *pks,
       fp_from_limbs12(hy.c0, h_y + 64 * i);
       fp_from_limbs12(hy.c1, h_y + 64 * i + 32);
     } else {
-      const uint8_t *msg = msgs + msg_off;
-      size_t msg_len = msg_lens[i];
-      msg_off += msg_len;
       if (hash_to_g2_aff(msg, msg_len, dst, dst_len, &hx, &hy) != 0) continue;
     }
     fp pkx, pky;

@@ -1,6 +1,7 @@
 """Metric primitives and the registry that renders them (the JAX package's
-`metrics/registry.py`; its beacon metric sets and HTTP server are not
-ported)."""
+`metrics/registry.py`), the batching facades' families (`bls.py`, the
+`bls_*` part of its `metrics/beacon.py`) and the HTTP server
+(`server.py`)."""
 
 from .registry import (  # noqa: F401
     Counter,

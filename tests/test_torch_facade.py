@@ -19,6 +19,9 @@ the JAX facade.
 - The mesh and fleet seams answer as the JAX verifier does without a
   mesh; the facade chunks by `max_sets_per_job`, counts a batch that
   device decompression cannot take, and names each job in the profiler.
+- Twins of the stack tests over the port's own `SupervisedBlsVerifier`,
+  `BlsLaneDispatcher`, `CpuBlsVerifier` and `PipelineMetrics`
+  (`*_port_stack`): the same verdicts and the same snapshots.
 """
 
 import contextlib
@@ -36,7 +39,11 @@ from lodestar_tpu.observability.stages import PipelineMetrics
 from lodestar_tpu.parallel.verifier import TpuBlsVerifier
 from lodestar_tpu.testing import faults
 from lodestar_tpu_torch.bls.api import DST_G2
+from lodestar_tpu_torch.chain import bls_verifier as port_bv
+from lodestar_tpu_torch.chain import dispatcher as port_dispatcher
+from lodestar_tpu_torch.chain import supervisor as port_supervisor
 from lodestar_tpu_torch.chain.bls_verifier import DeviceBlsVerifier
+from lodestar_tpu_torch.observability import stages as port_stages
 from lodestar_tpu_torch.observability.stages import default_pipeline
 from lodestar_tpu_torch.parallel import verifier as pv
 
@@ -173,17 +180,16 @@ def _facade(**kw):
 # --- the serving stack over the port, real CPU verdicts ----------------------
 
 
-@pytest.fixture(scope="module")
-def served():
-    """One facade with `PipelineMetrics` injected, under the supervisor
-    and the lane dispatcher: three real verdicts and what they left."""
-    pm = PipelineMetrics()
+def _serve(pm, supervisor_cls, cpu_cls, dispatcher_cls, pipeline_cls):
+    """One facade with `pm` injected, under a supervisor and a lane
+    dispatcher of the given classes: three real verdicts and what they
+    left."""
     dev = DeviceBlsVerifier(device="cpu", grouped_configs=CONFIG, observer=pm,
                             rng=np.random.default_rng(5))
-    sup = SupervisedBlsVerifier(dev, CpuBlsVerifier(), deadline_s=900.0, retries=0,
-                                audit_negative=False, canary_thread=False)
-    disp = BlsLaneDispatcher(sup, max_sigs=32, max_wait_ms=50, workers=1, pending_cap=0,
-                             lane_caps={}, pipeline=PipelineMetrics())
+    sup = supervisor_cls(dev, cpu_cls(), deadline_s=900.0, retries=0,
+                         audit_negative=False, canary_thread=False)
+    disp = dispatcher_cls(sup, max_sigs=32, max_wait_ms=50, workers=1, pending_cap=0,
+                          lane_caps={}, pipeline=pipeline_cls())
     valid = grouped_sets()
     bad = swap_messages(valid, 1, 6)
     out = {"pm": pm, "dev": dev, "sup": sup, "valid": valid, "bad": bad}
@@ -199,6 +205,21 @@ def served():
         disp.close()
         sup.close()
     return out
+
+
+@pytest.fixture(scope="module")
+def served():
+    """The JAX supervisor and dispatcher over the port's facade."""
+    return _serve(PipelineMetrics(), SupervisedBlsVerifier, CpuBlsVerifier, BlsLaneDispatcher,
+                  PipelineMetrics)
+
+
+@pytest.fixture(scope="module")
+def served_port():
+    """The port's own supervisor, host tier, dispatcher and pipeline."""
+    pm = port_stages.PipelineMetrics()
+    return _serve(pm, port_supervisor.SupervisedBlsVerifier, port_bv.CpuBlsVerifier,
+                  port_dispatcher.BlsLaneDispatcher, port_stages.PipelineMetrics)
 
 
 def test_dispatcher_over_the_port_gives_the_host_tiers_verdict(served):
@@ -254,6 +275,53 @@ def test_supervisor_mesh_lookups_get_no_mesh(served):
     assert sup._mesh_has_evicted() is False
     assert sup._evict_sick_chip(faults.InjectedChipFault(1), 8, "failure") is False
     assert sup._evict_sick_host(faults.InjectedHostFault(0), 8, "failure") is False
+    assert "mesh" not in sup.breaker_snapshot()
+
+
+def test_dispatcher_over_the_port_gives_the_host_tiers_verdict_port_stack(served_port):
+    test_dispatcher_over_the_port_gives_the_host_tiers_verdict(served_port)
+
+
+def test_supervisor_over_the_port_rejects_the_tampered_batch_port_stack(served_port):
+    test_supervisor_over_the_port_rejects_the_tampered_batch(served_port)
+
+
+def test_individual_verdicts_equal_the_host_tier_port_stack(served_port):
+    test_individual_verdicts_equal_the_host_tier(served_port)
+
+
+def test_warm_h2c_seam_reaches_the_port_port_stack(served_port):
+    test_warm_h2c_seam_reaches_the_port(served_port)
+
+
+def test_pipeline_metrics_fill_port_stack(served_port):
+    test_pipeline_metrics_fill(served_port)
+
+
+def test_port_stack_leaves_the_same_snapshots(served, served_port):
+    """Both stacks' pipelines hold the same planner, bisection and
+    supervisor snapshots after the same three verdicts."""
+    jax_pm, port_pm = served["pm"], served_port["pm"]
+    assert port_pm.planner_snapshot()["decisions"] == jax_pm.planner_snapshot()["decisions"]
+    assert port_pm.planner_snapshot()["sets"] == jax_pm.planner_snapshot()["sets"]
+    assert port_pm.bisect_snapshot() == jax_pm.bisect_snapshot()
+    assert port_pm.supervisor_snapshot() == jax_pm.supervisor_snapshot()
+
+
+def test_supervisor_mesh_lookups_get_no_mesh_port_stack(served_port):
+    from lodestar_tpu_torch.parallel.mesh_pool import MeshWorkerError
+
+    sup = served_port["sup"]
+    assert sup.mesh_evict(chip=0) is None
+    assert sup.mesh_readmit() == 0
+    assert sup.mesh_has_evicted() is False
+    assert sup.mesh_snapshot() is None
+    assert sup.mesh_evict_host(host=0) is None
+    assert sup.fleet_snapshot() is None
+    assert sup.fleet_attach_router(object()) is None
+    assert sup._mesh_has_evicted() is False
+    assert sup._evict_sick_chip(MeshWorkerError(1, "down"), 8, "failure") is False
+    assert sup._evict_sick_host(MeshWorkerError(0, "down", host=0), 8, "failure") is False
     assert "mesh" not in sup.breaker_snapshot()
 
 
@@ -316,6 +384,19 @@ def test_supervisor_serves_the_host_tier_under_injected_exceptions(monkeypatch):
     faults.configure("exception:1.0")
     try:
         assert sup.verify_signature_sets(grouped_sets()) is True
+    finally:
+        sup.close()
+
+
+def test_supervisor_serves_the_host_tier_under_injected_exceptions_port_stack(monkeypatch):
+    port = _facade(faults=faults)
+    stub_port(monkeypatch, port._inner, False)  # the device would be wrong
+    sup = port_supervisor.SupervisedBlsVerifier(port, port_bv.CpuBlsVerifier(), retries=0,
+                                                canary_thread=False)
+    faults.configure("exception:1.0")
+    try:
+        assert sup.verify_signature_sets(grouped_sets()) is True
+        assert sup.verify_signature_sets_individual(grouped_sets()[:3]) == [True] * 3
     finally:
         sup.close()
 

@@ -1,9 +1,10 @@
 """The port stands alone: importing `lodestar_tpu_torch` and every one of
 its modules loads neither JAX nor any module of the JAX package (nor does
 importing the serving seams alone: the facade and the epoch table, nor
-the observability modules alone, nor a spawned mesh worker), no module of it reads a
-`LODESTAR_TPU_*` variable, and the verifier's entry points do not fall
-back to the CPU unasked."""
+the observability modules alone, nor the serving stack alone, nor a
+spawned mesh worker), no module of it reads a `LODESTAR_TPU_*` variable
+(the serving stack's none at all), and the verifier's entry points do
+not fall back to the CPU unasked."""
 
 import glob
 import json
@@ -47,8 +48,40 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "observability.device_ledger", "observability.stage_profile",
                  "observability.runtime", "metrics.registry", "parallel.mesh",
                  "parallel.mesh_pool", "parallel.sharded", "parallel.fleet",
-                 "parallel.fleet_host"):
+                 "parallel.fleet_host") + SERVING_MODULES:
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
+
+
+# the serving stack's modules: none reads any environment variable at all
+SERVING_MODULES = ("utils.retry", "metrics.bls", "metrics.server", "chain.supervisor",
+                   "chain.dispatcher", "observability.slo", "node.bls_stack", "warmup")
+
+SERVING_PROBE = r"""
+import json, sys
+import lodestar_tpu_torch.node.bls_stack
+import lodestar_tpu_torch.metrics.server
+import lodestar_tpu_torch.warmup
+from lodestar_tpu_torch.observability import slo
+slo.load_rules()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_serving_stack_loads_no_jax_and_reads_no_environment():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", SERVING_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    for name in SERVING_MODULES + ("chain.bls_verifier",):
+        path = os.path.join(REPO, "lodestar_tpu_torch", *name.split(".")) + ".py"
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"\b(environ|getenv|putenv)\b", text), path
 
 
 SEAMS_PROBE = r"""

@@ -3,7 +3,9 @@ sources built with `cc` and loaded with ctypes) against the JAX package's
 `lodestar_tpu.native`: byte- and limb-identical results for
 `g1_decompress`, `hash_to_g2`, `sign` and `verify_sets`, the pinned KAT
 signatures of `tests/test_device_kats.py` accepted, and `sk_to_pk` (the
-one entry point the copy adds) equal to the oracle's public keys.
+one entry point the copy adds) equal to the oracle's public keys. One
+departure: the copy's `verify_sets` keeps each set's own message after a
+set it refuses before hashing (the last test).
 """
 
 import os
@@ -96,3 +98,28 @@ def test_verify_sets_identical_and_accepts_pinned_kats():
     ours = native.verify_sets(*args)
     assert ours == jnative.bls_verify_sets(*args) == [True, True, True, True, False]
     assert native.verify_sets(*args, threads=2) == ours
+
+
+def test_verify_sets_keeps_later_sets_after_a_refused_one():
+    """A set refused before its message is hashed (a signature that does
+    not decode, a pubkey off the curve) must not shift the messages of the
+    sets after it: one call over the batch gives each set's own verdict.
+    (The JAX package's C tier advances its message offset only when it
+    hashes, so there every later set of such a batch reads the wrong
+    message.)"""
+    from lodestar_tpu_torch.bls.fields import P
+
+    sks = [bls.interop_secret_key(i) for i in range(6)]
+    msgs = [bytes([0x50 + i]) * 32 for i in range(6)]
+    pks = [sk.to_public_key().to_bytes() for sk in sks]
+    sigs = [native.sign(sk.to_bytes(), m, DST_G2)[1] for sk, m in zip(sks, msgs)]
+    bad = bytearray(sigs[1])
+    bad[:48] = P.to_bytes(48, "big")  # x.c1 = p under valid flags: does not decode
+    bad[0] |= 0x80 | (sigs[1][0] & 0x20)
+    sigs[1] = bytes(bad)
+    pks[3] = b"\xc0" + b"\x00" * 47  # the infinity pubkey: refused
+    alone = [native.verify_sets(pk, [m], s, DST_G2)[0] for pk, m, s in zip(pks, msgs, sigs)]
+    assert alone == [True, False, True, False, True, True]
+    batch = native.verify_sets(b"".join(pks), msgs, b"".join(sigs), DST_G2)
+    assert batch == alone
+    assert native.verify_sets(b"".join(pks), msgs, b"".join(sigs), DST_G2, threads=3) == alone
