@@ -137,14 +137,23 @@ it runs the single-device path it names on a host of any card count):
           supervisor over the facade, with the host tier) on cuda:0.
           (a) boot: `python3 -m lodestar_tpu_torch.warmup` in a subprocess
           (the extensions already built): its rungs, serving_ready against
-          the 10 s SLO, peak device memory (measured, not asserted).
+          the 10 s SLO, peak device memory (measured, not asserted); its
+          preload from the ahead-of-time store must find every serving
+          library a `hit` and launch all six kernels once (their
+          first-launch seconds and the `aot_load` mark are printed).
           (b) one slot of gossip through `build_bls_stack` at the JAX
           defaults: the epoch table populated on its daemon thread with
           32,768 keys (the slice phase's 4096, 28,672 from sk_to_pk, the
           block job's 128) while the calls arrive; the slice's 4096 sets as
           4096 one-set attestation calls, uniform over 4 s, from 1024 caller
           threads, two of them carrying another key's signature; serve-128's
-          job on the block lane at 0 s and 2 s. Every verdict the host
+          job on the block lane at 0 s and 2 s, each run as block import
+          runs a block (a root `chain/process_block` span, its context
+          handed to a worker thread that opens `chain/bls_verify` around
+          the call): `/debug/traces` must show `bls/supervised_batch`
+          under `chain/bls_verify` in each, and `/metrics`
+          `lodestar_lifecycle_traces_total` equal to the traces finished.
+          Every verdict the host
           tier's (exactly the two tampered calls False), no block shed, no
           waiter timeout, every shed under 1 s, K1, K2p and K3-fe launched;
           reports the makespan against 12 s, attestation sets/s, block p50
@@ -168,18 +177,35 @@ it runs the single-device path it names on a host of any card count):
           (the host tier serves, the breaker opens on the third, the canary
           re-closes it), a host-side latency past the deadline (counted, the
           host tier serves), flaky verdicts (the audit overturns them,
-          verdict_mismatch ticks), the exact per-set route (K3); then the
+          verdict_mismatch ticks), serve-128's job with three bad
+          signatures and its per-set verdicts, each job run as block import
+          runs one; the exact per-set route (K3); then the
           mesh drill: the stack over two workers on cuda:0, worker 2
           killed, `MeshWorkerError` naming chip 1 evicted by the supervisor
           within the pool's timeout (serving size 1, the pool stopped), the
           same call served single-device, the host tier called 0 times, the
           breaker closed, the canary re-admitting the chip and a new pool
           serving sharded again, no worker process left (the mesh phase's
-          eviction drill).
+          eviction drill); each pool's workers must report only `hit`s
+          from the store and six first launches at their start.
           (d) `/metrics` and `/debug/{breaker,lanes,slo,device,epoch_table,
-          compiles}` over loopback: every `metrics/bls.py` family and the
+          compiles,traces}` over loopback: every `metrics/bls.py` family and the
           lane, supervisor and slo families present, `zero_block_sheds`
-          ok and the breaker closed after the drills.
+          ok and the breaker closed after the drills; each drill job's
+          trace with `bls/supervised_batch` under `chain/bls_verify` (the
+          per-set call's `bls/supervised_individual`), the exception
+          jobs' `bls/cpu_fallback` spans and the breaker's
+          `bls/breaker_transition` event, and the lifecycle counter equal
+          to the traces finished.
+          (e) the ahead-of-time store on a temporary copy of the build
+          directory: one byte of K1's library (`mont_mul`, the cheapest
+          kernel library to rebuild) flipped counts `corrupt`, is moved
+          aside, rebuilt and never opened (a spy on `build._open`), and
+          serve-128's job through the rebuilt K1 is the host tier's
+          verdict; the host tier's header given another compiler counts
+          `version_mismatch` and is rebuilt. Then the host microseconds
+          of one lifecycle span (enabled against the disabled tracer's
+          shared null span, replayed).
 12c. mesh  the sharded verdicts: `TorchBlsVerifier(mesh=...)` over a
           `BlsMeshDispatcher(["cuda:0", "cuda:0"])`, two worker processes
           on the one card (even where more are visible; the device count
@@ -1645,6 +1671,7 @@ NODE_BLOCK_AT = (0.0, 2.0)  # the 128-set block job's arrivals
 NODE_CUT_CALLS = 1024  # the coalesce-4096 twin: the slot's first 1 s, to keep the script's time
 NODE_BOOT_SLO_S = 10.0  # dashboards/slo_rules.json `serving_ready`
 NODE_SIZE_BINS = (1, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+NODE_KERNELS = ("K1", "K4", "K2", "K2p", "K3", "K3-fe")  # the preload launches each once
 
 
 class DrillFaults:
@@ -1714,6 +1741,96 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))] if xs else None
 
 
+def _traced_block(call, n_sets: int, slot: int, root: bytes):
+    """`call()` run as block import runs a block's signature batch (the JAX
+    package's `chain/chain.py:278-372`): a root `chain/process_block` span
+    with the slot and the block root on the calling thread, its live
+    context handed to a worker thread that attaches it and opens
+    `chain/bls_verify` around the call. Returns (the result, the trace
+    id)."""
+    from lodestar_tpu_torch.observability import spans
+
+    tracer = spans.tracer
+    box = {}
+    with tracer.span("chain/process_block", slot=slot, root=root.hex()) as blk:
+        ctx = tracer.context()
+
+        def verify():
+            try:
+                with tracer.attach(ctx), tracer.span("chain/bls_verify", sets=n_sets):
+                    box["out"] = call()
+            except BaseException as e:  # re-raised on the caller's thread
+                box["error"] = e
+
+        worker = threading.Thread(target=verify, name="block-verify")
+        worker.start()
+        worker.join()
+    if "error" in box:
+        raise box["error"]
+    return box["out"], blk.trace_id
+
+
+def _block_root(tag: str) -> bytes:
+    import hashlib
+
+    return hashlib.sha256(tag.encode()).digest()
+
+
+def _tree(doc: dict) -> dict:
+    """name -> [parent names] of a trace document's spans, and its events
+    by span name."""
+    names = {s["span_id"]: s["name"] for s in doc["spans"]}
+    parents, events = {}, {}
+    for s in doc["spans"]:
+        parents.setdefault(s["name"], []).append(names.get(s["parent_id"]))
+        events.setdefault(s["name"], []).extend(e["name"] for e in s.get("events", ()))
+    return {"parents": parents, "events": events}
+
+
+def _check_traces(tag: str, docs: list, ids: dict) -> dict:
+    """Every trace of `ids` (name -> trace id) among the scraped `docs`,
+    as `_tree`s; fails if one is missing."""
+    by_id = {d["trace_id"]: d for d in docs}
+    missing = [name for name, tid in ids.items() if tid not in by_id]
+    if missing:
+        raise AssertionError(f"{tag} /debug/traces lacks the traces of {missing}")
+    return {name: _tree(by_id[tid]) for name, tid in ids.items()}
+
+
+def _lifecycle_total(text: str) -> float:
+    """The sum over kinds of `lodestar_lifecycle_traces_total` in a scrape."""
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith("lodestar_lifecycle_traces_total{"))
+
+
+def _span_cost_us(reps: int = 2000, rounds: int = 5) -> dict:
+    """The host microseconds of one span (`with tracer.span(...)`, nested in
+    a live trace, attributes given) on an enabled tracer and on a disabled
+    one (the shared `_NULL`), replayed `reps` times a round; the medians of
+    `rounds` rounds in turns, and their difference."""
+    from lodestar_tpu_torch.observability.spans import Tracer
+
+    def run(t):
+        t0 = time.perf_counter()
+        for _ in range(reps // 100):
+            with t.trace("bench/trace"):
+                for _ in range(100):
+                    with t.span("bls/supervised_batch", sets=128):
+                        pass
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    on, off = Tracer(capacity=4), Tracer(enabled=False)
+    times = {"enabled": [], "null": []}
+    for _ in range(rounds):
+        times["enabled"].append(run(on))
+        times["null"].append(run(off))
+        times["null"].append(run(off))
+        times["enabled"].append(run(on))
+    med = {k: _median(v) for k, v in times.items()}
+    return {"enabled_us": med["enabled"], "null_us": med["null"],
+            "span_us": med["enabled"] - med["null"]}
+
+
 def _node_keys(np, slice_sets, block_sets):
     """The epoch table's keys: the slice phase's 4096, 28,672 more from
     seeded scalars (the host tier's sk_to_pk on THREADS threads) and the
@@ -1747,11 +1864,22 @@ def _node_boot(torch):
     ready = doc["serving_ready_seconds"]
     doc["slo_met"] = ready is not None and ready <= NODE_BOOT_SLO_S
     doc["wall_s"] = wall
+    pre = doc["preload"]
     log(f"[node] (a) boot: serving_ready {ready} s since process start (SLO <= "
         f"{NODE_BOOT_SLO_S} s {'met' if doc['slo_met'] else 'missed'}), subprocess wall "
         f"{wall:.3f} s, peak device memory {doc['peak_device_bytes']} B; builds "
         f"{json.dumps(doc['build_seconds'])}; rungs {json.dumps(doc['rung_seconds'])}; marks "
         f"{json.dumps(doc['marks'])}; card: {card_line()}")
+    log(f"[node] (a) preload from the store: outcomes {json.dumps(pre['outcomes'])}, load "
+        f"seconds {json.dumps(pre['load_seconds'])}, first-launch seconds "
+        f"{json.dumps(pre['launch_seconds'])}, {pre['seconds']} s in all; aot_load mark "
+        f"{doc['marks'].get('aot_load')} s since process start")
+    # the extensions were built by this process: every library is in the store
+    from lodestar_tpu_torch.build import SERVING
+
+    if pre["outcomes"] != {name: "hit" for name in SERVING["cuda"]} or \
+            sorted(pre["launch_seconds"]) != sorted(NODE_KERNELS) or "aot_load" not in doc["marks"]:
+        raise AssertionError(f"[node] (a) the warm boot's preload: {json.dumps(pre)}")
     return doc
 
 
@@ -1799,7 +1927,9 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatc
     tampered = [k for k in NODE_TAMPERED if k in arrived]
     bad_ids = {id(att[k]) for k in tampered}
 
-    stack = build_bls_stack(device="cuda:0", mesh=None, dispatcher_args=dispatcher_args)
+    stack = build_bls_stack(device="cuda:0", mesh=None, dispatcher_args=dispatcher_args,
+                            metrics_port=0)
+    traces0 = stack.tracer.completed_total
     pm, lanes, sup = stack.pipeline, stack.verifier, stack.supervisor
     batches = []  # (sets, reason, overlapped, seconds, held a tampered set)
     real_dispatch = lanes._dispatch_batch
@@ -1860,8 +1990,10 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatc
         if delay > 0:
             time.sleep(delay)
         t0 = time.perf_counter()
-        ok = lanes.verify_signature_sets(block_sets, lane="block")
-        blocks.append((ok, t0 - t_start, time.perf_counter() - t_start))
+        ok, trace_id = _traced_block(
+            lambda: lanes.verify_signature_sets(block_sets, lane="block"), len(block_sets),
+            NODE_BLOCK_AT.index(at), _block_root(f"{tag} block at {at}"))
+        blocks.append((ok, t0 - t_start, time.perf_counter() - t_start, trace_id))
 
     block_threads = [threading.Thread(target=block, args=(at,)) for at in NODE_BLOCK_AT]
     for t in block_threads:
@@ -1879,14 +2011,31 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatc
     sup_snap = pm.supervisor_snapshot()
     breaker = sup.breaker_state
     hits, misses = pm.epoch_table_hits.value(), pm.epoch_table_misses.value()
+    t0 = time.perf_counter()
+    docs = _scrape(stack.server.port, ("/debug/traces?limit=256", "/metrics"))
+    scrape_s = time.perf_counter() - t0
+    finished = stack.tracer.completed_total - traces0
     stack.close()
+    trees = _check_traces(tag, docs["/debug/traces?limit=256"]["traces"],
+                          {f"block at {b[1]:.3f} s": b[3] for b in blocks})
+    counted = _lifecycle_total(docs["/metrics"])
+    for name, tree in trees.items():
+        if tree["parents"].get("bls/supervised_batch") != ["chain/bls_verify"]:
+            raise AssertionError(f"{tag} the trace of the {name} job: {json.dumps(tree)}")
+    if counted != finished or finished != len(blocks):
+        raise AssertionError(f"{tag} lodestar_lifecycle_traces_total {counted}, traces finished "
+                             f"{finished}, block jobs {len(blocks)}")
+    log(f"{tag} /debug/traces (scraped with /metrics in {scrape_s:.3f} s): each block job's "
+        f"trace holds bls/supervised_batch under chain/bls_verify "
+        f"{json.dumps({n: t['parents'] for n, t in trees.items()})}; "
+        f"lodestar_lifecycle_traces_total {counted:.0f} = {finished} traces finished")
 
     wrong = [i for i in order if results[i][0] == "ok" and results[i][1] != want[i]]
     sheds = [r for r in results.values() if r[0] == "shed"]
     slow_sheds = [r for r in sheds if r[3] - r[2] >= 1.0]
     if wrong:
         raise AssertionError(f"{tag} calls {wrong[:10]} differ from the host tier")
-    if [ok for ok, _, _ in blocks] != [True] * len(NODE_BLOCK_AT):
+    if [b[0] for b in blocks] != [True] * len(NODE_BLOCK_AT):
         raise AssertionError(f"{tag} the block jobs: {blocks}")
     if lane_snap["sheds"].get("block", 0) or sup_snap["waiter_timeouts"] or slow_sheds:
         raise AssertionError(f"{tag} block sheds {lane_snap['sheds']}, waiter timeouts "
@@ -2000,15 +2149,19 @@ def _node_drills(torch, np, serve_sets, per_set_sets):
     stack = build_bls_stack(device="cuda:0", mesh=None, faults=faults, metrics_port=0,
                             supervisor_args={"cooldown_s": 2.0, "deadline_s": 5.0})
     sup, lanes, pm = stack.supervisor, stack.verifier, stack.pipeline
+    traces0 = stack.tracer.completed_total
     cpu = _counting(stack.cpu, "verify_signature_sets", "verify_signature_sets_individual")
     out = {}
+    traced = {}  # job name -> trace id: every job runs as block import runs it
 
-    def job(name):
+    def job(name, sets=serve_sets, want=True, call=None):
+        call = call or (lambda: lanes.verify_signature_sets(sets, lane="block"))
         t0 = time.perf_counter()
-        ok = lanes.verify_signature_sets(serve_sets, lane="block")
+        ok, traced[name] = _traced_block(call, len(sets), len(traced),
+                                         _block_root(f"{tag} {name}"))
         secs = time.perf_counter() - t0
-        if ok is not True:
-            raise AssertionError(f"{tag} {name}: verdict {ok}, the host tier True")
+        if ok != want:
+            raise AssertionError(f"{tag} {name}: verdict {ok}, the host tier {want}")
         return secs
 
     out["clean_s"] = job("clean")
@@ -2055,6 +2208,17 @@ def _node_drills(torch, np, serve_sets, per_set_sets):
     log(f"{tag} flaky: the audit overturned the device's False in {secs:.3f} s; "
         f"verdict_mismatch {snap['verdict_mismatches']}")
     out["clean_after_s"] = job("clean after")
+    # serve-128's tampered job, then its per-set verdicts through the
+    # supervisor, each run as a block's batch is
+    bad = serve_sets
+    for k in (5, 64, 127):
+        bad = _tamper_one(bad, k, "signature", k - 1)
+    host_bad = _host_verdicts(bad)
+    out["tampered_s"] = job("tampered", bad, False)
+    out["tampered_per_set_s"] = job("tampered per-set", bad, host_bad,
+                                    lambda: sup.verify_signature_sets_individual(bad))
+    log(f"{tag} serve-128's job with three bad signatures: False in {out['tampered_s']:.3f} s, "
+        f"its per-set verdicts (the host tier's) in {out['tampered_per_set_s']:.3f} s")
     # the exact per-set route (K3): 16 sets, one bad encoding, one at a time
     sixteen = list(per_set_sets[:16])
     bad_enc = bytearray(sixteen[7].signature)
@@ -2072,10 +2236,34 @@ def _node_drills(torch, np, serve_sets, per_set_sets):
         f"{secs:.3f} s; launches {json.dumps(counts)}")
     # (d) the scrape
     routes = ("/metrics", "/debug/breaker", "/debug/lanes", "/debug/slo", "/debug/device",
-              "/debug/epoch_table", "/debug/compiles")
+              "/debug/epoch_table", "/debug/compiles", "/debug/traces?limit=256")
+    finished = stack.tracer.completed_total - traces0
     t0 = time.perf_counter()
     docs = _scrape(stack.server.port, routes)
     scrape_s = time.perf_counter() - t0
+    trees = _check_traces(f"{tag} scrape", docs["/debug/traces?limit=256"]["traces"], traced)
+    counted = _lifecycle_total(docs["/metrics"])
+    wrong = {name: t for name, t in trees.items()
+             if name != "tampered per-set"
+             and t["parents"].get("bls/supervised_batch") != ["chain/bls_verify"]}
+    per_set = trees["tampered per-set"]["parents"].get("bls/supervised_individual")
+    fallbacks = [trees[f"exception {i}"]["parents"].get("bls/cpu_fallback") for i in range(3)]
+    transitions = [e for t in trees.values() for ev in t["events"].values() for e in ev
+                   if e == "bls/breaker_transition"]
+    opened = sum(trees["exception 2"]["events"].values(), [])
+    if wrong or per_set != ["chain/bls_verify"] or counted != finished \
+            or counted != len(traced) or fallbacks != [["chain/bls_verify"]] * 3 \
+            or "bls/breaker_transition" not in opened:
+        raise AssertionError(
+            f"{tag} traces: {json.dumps(trees)}; lodestar_lifecycle_traces_total {counted}, "
+            f"traces finished {finished}, jobs {len(traced)}")
+    out["traces"] = dict(jobs=len(traced), counted=counted, transitions=len(transitions))
+    log(f"[node] (d) /debug/traces: {len(traced)} traced block jobs, each with "
+        f"bls/supervised_batch under chain/bls_verify (the tampered per-set call "
+        f"bls/supervised_individual under it); the three exception jobs' bls/cpu_fallback "
+        f"spans and {len(transitions)} bls/breaker_transition event(s); "
+        f"lodestar_lifecycle_traces_total {counted:.0f} = {finished} traces finished; the "
+        f"exception drill's trace {json.dumps(trees['exception 2'])}")
     text = docs["/metrics"]
     missing = [name for _, _, name, _ in FAMILIES if f"# TYPE {name} " not in text]
     missing += [p for p in ("lodestar_bls_lane_", "lodestar_bls_supervisor_", "lodestar_slo_")
@@ -2093,6 +2281,129 @@ def _node_drills(torch, np, serve_sets, per_set_sets):
         f"utilisation {docs['/debug/device']['utilization']}")
     stack.close()
     return out
+
+
+def _node_aot_drill(torch, np, serve_sets):
+    """(e) the ahead-of-time store's drill, on a temporary copy of the build
+    directory: one byte of K1's library (`mont_mul`: one small source, the
+    cheapest kernel library to rebuild) flipped must count `corrupt`, be
+    moved aside, rebuilt and never opened, and serve-128's job through the
+    rebuilt library (K1 launched from it) must be the host tier's verdict;
+    the host tier's header given another compiler in its fingerprint must
+    count `version_mismatch` and be rebuilt. Every library opened meanwhile
+    is seen by a spy on the one opener, `build._open`."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from lodestar_tpu_torch import build
+    from lodestar_tpu_torch.observability import compile_ledger
+    from lodestar_tpu_torch.ops.aot_store import MAGIC, AotStore
+    from lodestar_tpu_torch.parallel.verifier import TorchBlsVerifier
+
+    tag = "[node] (e) aot"
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="aot-drill-", dir=build.BUILD_DIR)
+    try:
+        shutil.copytree(build.BUILD_DIR, tmp, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("*.lock", "aot-drill-*", "*trace*"))
+        st = AotStore(tmp)
+        led = compile_ledger.ledger()
+        opened, real_open = [], build._open
+
+        def spy(path):
+            with open(path, "rb") as f:
+                opened.append((path, hashlib.sha256(f.read()).hexdigest()))
+            return real_open(path)
+
+        def outcomes(name, since):
+            return [e["outcome"] for e in led.snapshot()["aot"]["events"][since:]
+                    if e["kernel"] == f"build/{name}"]
+
+        # (1) a flipped byte in K1's library
+        lib = build.LIBRARIES["mont_mul"]
+        digest = lib.digest()
+        path = st.library_path("mont_mul", digest)
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x10]))
+        with open(path, "rb") as f:
+            bad_sha = hashlib.sha256(f.read()).hexdigest()
+        since = len(led.snapshot()["aot"]["events"])
+        # the process loads K1 anew from the copy, through the serving path
+        saved_dir, real_lib = build.BUILD_DIR, build._LIBS.pop("mont_mul")
+        build.BUILD_DIR, build._open = tmp, spy
+        try:
+            t0 = time.perf_counter()
+            build.mont_mul_cuda()
+            out["rebuild_s"] = time.perf_counter() - t0
+            rebuilt = build.load("mont_mul")._name
+            v = TorchBlsVerifier(device="cuda:0", mesh=None, grouped_configs=((16, 8),))
+            ok, secs, counts = _run_counted(torch, lambda: v.verify_signature_sets(serve_sets))
+        finally:
+            build.BUILD_DIR, build._open = saved_dir, real_open
+            build._LIBS["mont_mul"] = real_lib
+        with open(st.header_path("mont_mul", digest), "rb") as f:
+            new_sha = json.loads(f.read()[len(MAGIC) + 1:])["payload_sha256"]
+        seen = outcomes("mont_mul", since)
+        if seen != ["corrupt", "export"] or not os.path.exists(path + ".corrupt") \
+                or opened != [(rebuilt, new_sha)] or new_sha == bad_sha or rebuilt != path:
+            raise AssertionError(f"{tag} corrupt: outcomes {seen}, opened {opened}, flipped "
+                                 f"{bad_sha}")
+        if ok is not True or counts["K1"] < 1:
+            raise AssertionError(f"{tag} the verdict through the rebuilt K1: {ok}, launches "
+                                 f"{counts}")
+        out.update(corrupt=seen, verdict_s=secs, k1_launches=counts["K1"])
+        log(f"{tag}: one byte of mont_mul's library flipped (sha256 {bad_sha[:16]}...): "
+            f"outcomes {seen}, moved aside to .corrupt, rebuilt in {out['rebuild_s']:.3f} s "
+            f"(nvcc {build.BUILD_LOG['mont_mul'][0]:.3f} s), never opened (opened only the "
+            f"rebuilt {new_sha[:16]}...); serve-128's job through it True = the host tier's in "
+            f"{secs:.3f} s, K1 launched {counts['K1']} times from it")
+        # (2) the host tier's header stamped by another compiler
+        host = build.LIBRARIES["bls12_host"]
+        hdr = st.header_path("bls12_host", host.digest())
+        with open(hdr, "rb") as f:
+            header = json.loads(f.read()[len(MAGIC) + 1:])
+        header["fingerprint"]["compiler"] = "cc (an older release) 4.8.5"
+        with open(hdr, "wb") as f:
+            f.write(MAGIC + b"\n" + json.dumps(header, sort_keys=True).encode())
+        since = len(led.snapshot()["aot"]["events"])
+        saved_dir, build.BUILD_DIR = build.BUILD_DIR, tmp
+        try:
+            t0 = time.perf_counter()
+            host.build()
+            out["mismatch_rebuild_s"] = time.perf_counter() - t0
+        finally:
+            build.BUILD_DIR = saved_dir
+        seen = outcomes("bls12_host", since)
+        with open(hdr, "rb") as f:
+            fp = json.loads(f.read()[len(MAGIC) + 1:])["fingerprint"]
+        if seen != ["version_mismatch", "export"] or fp["compiler"] == header["fingerprint"][
+                "compiler"] or not os.path.exists(hdr + ".version_mismatch"):
+            raise AssertionError(f"{tag} foreign fingerprint: outcomes {seen}, now {fp}")
+        out["version_mismatch"] = seen
+        log(f"{tag}: the host tier's header given another compiler: outcomes {seen}, moved "
+            f"aside, rebuilt in {out['mismatch_rebuild_s']:.3f} s with fingerprint "
+            f"{json.dumps(fp)}; build seconds of this run "
+            f"{json.dumps({k: round(v[0], 3) for k, v in build.BUILD_LOG.items()})}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _check_pool_preload(tag: str, pool) -> list:
+    """Every worker of `pool` found each library in the store and launched
+    each kernel once at its start: only `hit`s."""
+    outcomes = [p["outcomes"] for p in pool.preload]
+    if any(set(o.values()) != {"hit"} for o in outcomes) or \
+            any(sorted(p["launch_seconds"]) != sorted(NODE_KERNELS) for p in pool.preload):
+        raise AssertionError(f"{tag} the workers' preload: {json.dumps(pool.preload)}")
+    log(f"{tag} workers' preload: outcomes {json.dumps(outcomes)}; first launches "
+        f"{json.dumps([p['launch_seconds'] for p in pool.preload])}; "
+        f"{[p['seconds'] for p in pool.preload]} s")
+    return pool.preload
 
 
 def _node_mesh_drill(torch, np, serve_sets):
@@ -2140,6 +2451,7 @@ def _node_mesh_drill(torch, np, serve_sets):
     out = {}
     pool = d.start_pool()
     out["start_s"] = pool.start_seconds
+    out["preload"] = _check_pool_preload(tag, pool)
 
     def call(name):
         got, secs, counts = _run_counted(
@@ -2181,6 +2493,7 @@ def _node_mesh_drill(torch, np, serve_sets):
     if single or d.pool is None or d.snapshot()["dispatches"] != dispatches + 1:
         raise AssertionError(f"{tag} the verdict after readmission was not sharded")
     out["restart_s"] = d.pool.start_seconds
+    out["restart_preload"] = _check_pool_preload(f"{tag} (the new pool)", d.pool)
     log(f"{tag}: the canary re-admitted the chip {out['readmit_s']:.3f} s after; a new pool "
         f"(started in {out['restart_s']:.3f} s) served sharded again in "
         f"{out['served_again_s'] - out['restart_s']:.3f} s of {out['served_again_s']:.3f} s; "
@@ -2196,7 +2509,8 @@ def phase_node(torch, np, grouped, serve_batch, per_set_sets):
     """12b. the port's serving stack: (a) the warm-boot ladder in a
     subprocess, (b) one slot of gossip at the JAX defaults and again with
     coalescing up to 4096, (c) the supervisor's drills and the mesh drill,
-    (d) the scrape."""
+    (d) the scrape, (e) the ahead-of-time store's drill, and the host cost
+    of a lifecycle span."""
     tag = "[node]"
     slice_sets, slice_host = grouped
     block_sets, block_host = serve_batch
@@ -2217,6 +2531,12 @@ def phase_node(torch, np, grouped, serve_batch, per_set_sets):
         NODE_CUT_CALLS, False)
     out["drills"] = timed("node (c) drills", _node_drills, torch, np, block_sets, per_set_sets)
     out["mesh_drill"] = timed("node (c) mesh drill", _node_mesh_drill, torch, np, block_sets)
+    out["aot_drill"] = timed("node (e) aot drill", _node_aot_drill, torch, np, block_sets)
+    out["span_cost"] = _span_cost_us()
+    log(f"{tag} host cost of one lifecycle span: {out['span_cost']['span_us']:.3f} us "
+        f"(enabled {out['span_cost']['enabled_us']:.3f} us against the disabled tracer's "
+        f"shared null span {out['span_cost']['null_us']:.3f} us, 2,000 spans a round, the "
+        f"medians of 10 rounds)")
     left = [t.name for t in threading.enumerate()
             if t.name.startswith(("bls-lane-worker", "bls-canary", "bls-device-dispatch",
                                   "epoch-table-fill"))]
@@ -2911,6 +3231,16 @@ def main() -> int:
         f"{node['drills']['flaky_s']:.3f} s; mesh drill raise {node['mesh_drill']['raise_s']:.6f} s, "
         f"served single-device {node['mesh_drill']['evicted_served_s']:.3f} s, re-admitted "
         f"{node['mesh_drill']['readmit_s']:.3f} s; card: {card_line()}")
+    pre, aot, span = boot["preload"], node["aot_drill"], node["span_cost"]
+    log(f"[summary] node store and spans: preload outcomes {json.dumps(pre['outcomes'])}, load "
+        f"seconds {json.dumps(pre['load_seconds'])}, first launches "
+        f"{json.dumps(pre['launch_seconds'])}, {pre['seconds']} s in all, aot_load at "
+        f"{boot['marks'].get('aot_load')} s; workers' preload "
+        f"{[p['seconds'] for p in node['mesh_drill']['preload']]} s; store drill: corrupt "
+        f"mont_mul rebuilt in {aot['rebuild_s']:.3f} s, its verdict {aot['verdict_s']:.3f} s, "
+        f"foreign host tier rebuilt in {aot['mismatch_rebuild_s']:.3f} s; a lifecycle span "
+        f"{span['span_us']:.3f} us on the host; {node['drills']['traces']['jobs']} drill traces "
+        f"counted {node['drills']['traces']['counted']:.0f}; card: {card_line()}")
     log(f"[summary] mesh (two workers on cuda:0): pool start {mesh['start_s']:.3f} s; "
         + "; ".join(f"{n} {min(c['mesh_s']):.3f} s against single-device "
                     f"{min(c['single_s']):.3f} s (best of {len(c['mesh_s'])} each)"

@@ -1,11 +1,16 @@
 """Build the port's shared libraries from the sources in the checkout.
 
 Each library is compiled at first use into `build/lodestar_tpu_torch/` at
-the repository root (listed in `.gitignore`). The file name carries a
-hash of the sources, the headers and the command, so an edited source is
-rebuilt and an unchanged one is reused; a file lock makes parallel test
-workers build once. Libraries have a plain C interface and are loaded
-with `ctypes` (no Python or PyTorch headers, so a build takes seconds).
+the repository root (listed in `.gitignore`), the ahead-of-time store of
+`ops/aot_store.py`. The file name carries a digest of the sources, the
+headers and the command, so an edited source is rebuilt and an unchanged
+one is reused; its header carries the build's fingerprint (toolchain,
+torch, card) and checksum, verified before the library is opened, so a
+library of another toolchain or a damaged one is rebuilt instead; a file
+lock makes parallel test workers build once. `LIBRARIES` lists every
+library, `load(name)` opens one once per process. Libraries have a plain
+C interface and are loaded with `ctypes` (no Python or PyTorch headers,
+so a build takes seconds).
 
 - `host_tier()`: the C host tier (BLS12-381 decompression, hash-to-curve,
   signing, CPU verification) with `cc`.
@@ -38,6 +43,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -81,34 +87,65 @@ def _digest(cmd: list[str], files: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _open(path: str) -> ctypes.CDLL:
+    """The one place a library is opened, after the store verified it."""
+    return ctypes.CDLL(path)
+
+
 def build_shared(name: str, compiler: str | None, flags: list[str],
-                 sources: list[str], headers: list[str] = ()) -> str:
-    """Compile `sources` (paths under csrc/) into lib<name>-<hash>.so and
-    return its path; raises BuildError when there is no compiler or the
-    compiler fails. Each call is one event of the compile ledger (kernel
-    `build/<name>`, key the digest): `hit` when the library was already
-    built, `miss` when it was compiled now."""
+                 sources: list[str], headers: list[str] = (), build: bool = True,
+                 ledger=None) -> str | None:
+    """Compile `sources` (paths under csrc/) into lib<name>-<digest>.so in
+    the ahead-of-time store (`ops/aot_store.py`, over the build directory)
+    and return its verified path; raises BuildError when there is no
+    compiler or the compiler fails.
+
+    The store is asked first. A library whose header, fingerprint and
+    checksum verify is a `hit`. Otherwise the outcome (`miss`, `corrupt`,
+    `version_mismatch`) is counted, a refused library is moved aside
+    (never opened), and under a file lock the library is compiled and
+    saved with its header, counted `export`. With `build=False` nothing is
+    compiled: a refusal returns None (the preload's lazy half). Each call
+    is also one event of the compile ledger (`ledger`, default the
+    process-wide one; kernel `build/<name>`, key the digest): `hit` when
+    the library was found, `miss` when it was compiled now."""
     from .observability import compile_ledger, flight_recorder
+    from .ops import aot_store
 
     if compiler is None:
         raise BuildError(f"{name}: no compiler found")
     t0 = time.monotonic()
+    store = aot_store.store()
     srcs = [os.path.join(CSRC, s) for s in sources]
     deps = srcs + [os.path.join(CSRC, h) for h in headers]
-    cmd = [os.path.basename(compiler)] + list(flags)
-    digest = _digest(cmd, deps)
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = _digest([os.path.basename(compiler)] + list(flags), deps)
     kernel = f"build/{name}"
-    if os.path.exists(out):
-        compile_ledger.ledger().record(kernel, digest, time.monotonic() - t0, "hit")
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
+    led = ledger or compile_ledger.ledger()
+    fingerprint = store.current_fingerprint(compiler, flags)
+
+    def found(path: str) -> str:
+        seconds = time.monotonic() - t0
+        led.note_aot(kernel, digest, "hit", seconds=seconds)
+        led.record(kernel, digest, seconds, "hit")
+        return path
+
+    try:
+        return found(store.load(name, digest, fingerprint))
+    except aot_store.AotError as e:
+        refused = aot_store.outcome(e)
+        led.note_aot(kernel, digest, refused, detail=None if refused == "miss" else str(e))
+    if not build:
+        return None
+    os.makedirs(store.root, exist_ok=True)
+    with open(os.path.join(store.root, f"{name}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(out):  # another process built it meanwhile
-            compile_ledger.ledger().record(kernel, digest, time.monotonic() - t0, "hit")
-            return out
-        tmp = f"{out}.{os.getpid()}.tmp"
+        try:  # another process may have built it meanwhile
+            return found(store.load(name, digest, fingerprint))
+        except aot_store.AotError as e:
+            refused = aot_store.outcome(e)
+        if refused != "miss":
+            store.move_aside(name, digest, refused)
+        tmp = f"{store.library_path(name, digest)}.{os.getpid()}.tmp"
         flight_recorder.record("compile_start", kernel=kernel, key=digest)
         t1 = time.monotonic()
         proc = subprocess.run(
@@ -117,87 +154,123 @@ def build_shared(name: str, compiler: str | None, flags: list[str],
         )
         if proc.returncode != 0:
             raise BuildError(f"{name}: build failed\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
         BUILD_LOG[name] = (time.monotonic() - t1, proc.stdout + proc.stderr)
-    compile_ledger.ledger().record(kernel, digest, time.monotonic() - t0, "miss")
+        t2 = time.monotonic()
+        store.save(name, digest, tmp, compiler, fingerprint)
+        led.note_aot(kernel, digest, "export", seconds=time.monotonic() - t2)
+        out = store.library_path(name, digest)
+    led.record(kernel, digest, time.monotonic() - t0, "miss")
     return out
 
 
+class Library:
+    """One library of the port: its compiler (the first of `compilers`
+    found; "nvcc" is looked up by `find_nvcc`), flags, sources and the
+    headers its digest covers."""
+
+    def __init__(self, name, compilers, flags, sources, headers=()):
+        self.name, self.compilers = name, tuple(compilers)
+        self.flags, self.sources, self.headers = list(flags), list(sources), list(headers)
+
+    def compiler(self) -> str | None:
+        if self.compilers == ("nvcc",):
+            return find_nvcc()
+        return find_compiler(*self.compilers)
+
+    def digest(self) -> str:
+        """The digest this checkout's sources give (with the first
+        candidate's name when no compiler is found)."""
+        cc = self.compiler() or self.compilers[0]
+        deps = [os.path.join(CSRC, f) for f in self.sources + self.headers]
+        return _digest([os.path.basename(cc)] + self.flags, deps)
+
+    def build(self, build: bool = True, ledger=None) -> str | None:
+        return build_shared(self.name, self.compiler(), self.flags, self.sources,
+                            self.headers, build=build, ledger=ledger)
+
+
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+MONT_MUL_HEADERS = ["fp_mont.cuh", "fp_mont_group.cuh"]
+TOWER_HEADERS = ["tower.cuh", "tower_warp.cuh", "miller_warp.cuh", "miller_sched.cuh",
+                 "tower_consts.cuh", "fp_mont.cuh"]
+MXU_HEADERS = ["mxu_mont.cuh", "fp_mont.cuh"]
+CC, CXX = ("cc", "gcc", "clang"), ("c++", "g++", "clang++")
+
+LIBRARIES = {lib.name: lib for lib in (
+    Library("bls12_host", CC, ["-O2", "-shared", "-fPIC"], ["host/bls12.c", "host/sha256.c"],
+            ["host/bls12_consts.h"]),
+    Library("mont_mul_host", CXX, HOST_FLAGS, ["mont_mul_host.cpp"], MONT_MUL_HEADERS),
+    Library("mont_mul", ("nvcc",), NVCC_FLAGS, ["mont_mul.cu"], MONT_MUL_HEADERS),
+    Library("tower_host", CXX, HOST_FLAGS, ["tower_host.cpp"], TOWER_HEADERS),
+    Library("tower", ("nvcc",), NVCC_FLAGS, ["tower.cu"], TOWER_HEADERS),
+    Library("fe_probe", ("nvcc",), NVCC_FLAGS, ["fe_probe.cu"], TOWER_HEADERS),
+    Library("mxu_mont_host", CXX, HOST_FLAGS, ["mxu_mont_host.cpp"], MXU_HEADERS),
+    Library("mxu_mont", ("nvcc",), NVCC_FLAGS, ["mxu_mont.cu"], MXU_HEADERS),
+)}
+
+# what serving loads, by device type: the host tier, and K1, K2/K2p/K3/K3-fe
+# and K4 on a card
+SERVING = {"cpu": ("bls12_host",), "cuda": ("bls12_host", "mont_mul", "tower", "mxu_mont")}
+
+
+def current_digests() -> dict[str, str]:
+    """Each library's digest in this checkout: the pruner keeps these."""
+    return {name: lib.digest() for name, lib in LIBRARIES.items()}
+
+
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCKS = {name: threading.Lock() for name in LIBRARIES}  # one load of each at a time
 
 
-def _load(name: str, build) -> ctypes.CDLL:
+def load(name: str, build: bool = True, ledger=None) -> ctypes.CDLL | None:
+    """Library `name` opened once per process: from the store, or compiled
+    first. With `build=False` a library the store refuses is left for its
+    first use and None returned (nothing compiled, nothing opened).
+    `ledger` is the compile ledger its outcomes go to (default the
+    process-wide one)."""
     lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(build())
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCKS[name]:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = LIBRARIES[name].build(build=build, ledger=ledger)
+            if path is None:
+                return None
+            lib = _LIBS[name] = _open(path)
     return lib
 
 
 def host_tier() -> ctypes.CDLL:
-    return _load("bls12_host", lambda: build_shared(
-        "bls12_host", find_compiler("cc", "gcc", "clang"),
-        ["-O2", "-shared", "-fPIC"],
-        ["host/bls12.c", "host/sha256.c"], ["host/bls12_consts.h"],
-    ))
-
-
-MONT_MUL_HEADERS = ["fp_mont.cuh", "fp_mont_group.cuh"]
+    return load("bls12_host")
 
 
 def mont_mul_host() -> ctypes.CDLL:
-    return _load("mont_mul_host", lambda: build_shared(
-        "mont_mul_host", find_compiler("c++", "g++", "clang++"),
-        ["-O2", "-std=c++17", "-shared", "-fPIC"],
-        ["mont_mul_host.cpp"], MONT_MUL_HEADERS,
-    ))
+    return load("mont_mul_host")
 
 
 def mont_mul_cuda() -> ctypes.CDLL:
-    return _load("mont_mul", lambda: build_shared(
-        "mont_mul", find_nvcc(), NVCC_FLAGS, ["mont_mul.cu"], MONT_MUL_HEADERS,
-    ))
-
-
-TOWER_HEADERS = ["tower.cuh", "tower_warp.cuh", "miller_warp.cuh", "miller_sched.cuh",
-                 "tower_consts.cuh", "fp_mont.cuh"]
+    return load("mont_mul")
 
 
 def tower_host() -> ctypes.CDLL:
-    return _load("tower_host", lambda: build_shared(
-        "tower_host", find_compiler("c++", "g++", "clang++"),
-        ["-O2", "-std=c++17", "-shared", "-fPIC"],
-        ["tower_host.cpp"], TOWER_HEADERS,
-    ))
+    return load("tower_host")
 
 
 def tower_cuda() -> ctypes.CDLL:
-    return _load("tower", lambda: build_shared(
-        "tower", find_nvcc(), NVCC_FLAGS, ["tower.cu"], TOWER_HEADERS,
-    ))
+    return load("tower")
 
 
 def fe_probe_cuda() -> ctypes.CDLL:
-    return _load("fe_probe", lambda: build_shared(
-        "fe_probe", find_nvcc(), NVCC_FLAGS, ["fe_probe.cu"], TOWER_HEADERS,
-    ))
-
-
-MXU_HEADERS = ["mxu_mont.cuh", "fp_mont.cuh"]
+    return load("fe_probe")
 
 
 def mxu_host() -> ctypes.CDLL:
-    return _load("mxu_mont_host", lambda: build_shared(
-        "mxu_mont_host", find_compiler("c++", "g++", "clang++"),
-        ["-O2", "-std=c++17", "-shared", "-fPIC"],
-        ["mxu_mont_host.cpp"], MXU_HEADERS,
-    ))
+    return load("mxu_mont_host")
 
 
 def mxu_cuda() -> ctypes.CDLL:
-    return _load("mxu_mont", lambda: build_shared(
-        "mxu_mont", find_nvcc(), NVCC_FLAGS, ["mxu_mont.cu"], MXU_HEADERS,
-    ))
+    return load("mxu_mont")
 
 
 def ptxas_summary(text: str) -> dict[str, dict[str, int]]:

@@ -33,10 +33,13 @@ batching facades and `DeviceBlsVerifier`.
   re-opens it. Only the canary rides half-open.
 
 The JAX module reads those defaults from LODESTAR_TPU_* variables; the
-port takes them as arguments. Spans go through an injected `tracer`
-(duck-typed as the JAX `observability.spans.tracer`: `context()`,
-`span(name, **attrs)`, `event(name, **attrs)`); with none, nothing is
-traced. Counters go to the observer (`PipelineMetrics`: breaker state,
+port takes them as arguments. Spans (`bls/supervised_batch`,
+`bls/supervised_individual`, `bls/cpu_fallback`, `bls/canary_probe`) and
+events (`bls/breaker_transition`, the evictions) go to the process-wide
+`observability.spans.tracer`, as in the JAX package, or to an injected
+`tracer` (duck-typed: `context()`, `span(name, **attrs)`,
+`event(name, **attrs)`). A span opens only under a live trace of the
+caller's thread. Counters go to the observer (`PipelineMetrics`: breaker state,
 transitions, retries, fallbacks, deadlines, canary, mismatches) and
 `breaker_snapshot()` serves `/debug/breaker`.
 """
@@ -49,7 +52,7 @@ import queue
 import threading
 import time
 
-from ..observability import slo
+from ..observability import slo, spans
 from ..observability.stages import default_pipeline
 from ..utils.retry import RetryPolicy
 from .bls_verifier import CpuBlsVerifier
@@ -249,7 +252,7 @@ class SupervisedBlsVerifier:
         self.failure_threshold = int(failure_threshold)
         self.cooldown_s = cooldown_s
         self.audit_negative = bool(audit_negative)
-        self.tracer = tracer
+        self.tracer = tracer if tracer is not None else spans.tracer
         # deadline blowouts are never retried (a wedged kernel just burns
         # a second deadline); raised errors get `retries` extra attempts
         self._retry_policy = RetryPolicy(
@@ -461,16 +464,15 @@ class SupervisedBlsVerifier:
     # -- spans -----------------------------------------------------------------
 
     def _maybe_span(self, name: str, **attrs):
-        """A span only inside an active lifecycle trace of the injected
-        tracer: the supervisor runs on flush threads, where a root trace
-        per dispatch would flood the trace ring."""
-        if self.tracer is None or self.tracer.context() is None:
+        """A span only inside an active lifecycle trace: the supervisor
+        runs on flush threads, where a root trace per dispatch would flood
+        the trace ring."""
+        if self.tracer.context() is None:
             return contextlib.nullcontext()
         return self.tracer.span(name, **attrs)
 
     def _maybe_span_event(self, name: str, **attrs) -> None:
-        if self.tracer is not None:
-            self.tracer.event(name, **attrs)
+        self.tracer.event(name, **attrs)
 
     # -- dispatch --------------------------------------------------------------
 

@@ -46,3 +46,18 @@ class BlsMetrics:
 
 def create_bls_metrics(registry: MetricsRegistry | None = None) -> BlsMetrics:
     return BlsMetrics(registry if registry is not None else MetricsRegistry())
+
+
+LIFECYCLE_TRACES = ("lodestar_lifecycle_traces_total",
+                    "completed lifecycle traces by root span kind")
+
+
+def lifecycle_traces_counter(registry: MetricsRegistry):
+    """`lodestar_lifecycle_traces_total{kind}` on `registry` (the family
+    `metrics/beacon.py` registers for `observability/spans.py`), reused
+    when the registry already has it."""
+    name, help_ = LIFECYCLE_TRACES
+    for m in registry._metrics:
+        if m.name == registry.prefix + name:
+            return m
+    return registry.counter(name, help_, label_names=("kind",))

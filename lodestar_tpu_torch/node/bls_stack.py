@@ -8,11 +8,24 @@ it (`:103-152`) and populated at the epoch transition as its
         CpuBlsVerifier           the host tier (fallback and audit)
 
 `build_bls_stack` also installs the SLO engine over the stack's
-pipeline, starts the metrics server when `metrics_port` is given (0: an
-ephemeral port), runs the warm-boot ladder first when `warm=True`
-(`warmup.warm_production`), and marks `verifier_ready` and
-`serving_ready` on the startup timeline. `BlsStack.close()` stops every
-thread, worker process and server it started.
+pipeline, wires the process-wide lifecycle tracer (`observability/
+spans.py`) as `node.py:84-100` does: finished traces tick
+`lodestar_lifecycle_traces_total{kind}` on the stack's registry (the
+stack's hook replaces any an earlier stack left) and the metrics server
+serves them at `/debug/traces`. It starts that server when `metrics_port`
+is given (0: an ephemeral port), preloads the libraries from the
+ahead-of-time store and runs the warm-boot ladder first when `warm=True`
+(`compile_ledger.preload_aot`, `warmup.warm_production`), and marks
+`verifier_ready` and `serving_ready` on the startup timeline.
+`BlsStack.close()` stops every thread, worker process and server it
+started and unhooks its trace counter.
+
+Supervisor spans open only under a live trace of the calling thread. The
+lane dispatcher carries no trace onto its flush threads (as in the JAX
+package), so the coalesced lanes' calls get none; a caller whose request
+goes straight to the supervisor (the block lane, 32 sets and more) and
+that holds a trace, such as block import's `chain/bls_verify`, gets
+`bls/supervised_batch` and the rest under it.
 
     stack = build_bls_stack(device="cuda", metrics_port=8008)
     stack.populate_epoch_async(epoch, pubkeys)   # at each epoch transition
@@ -29,9 +42,9 @@ import time
 from ..chain.bls_verifier import CpuBlsVerifier, DeviceBlsVerifier
 from ..chain.dispatcher import BlsLaneDispatcher
 from ..chain.supervisor import SupervisedBlsVerifier
-from ..metrics.bls import create_bls_metrics
+from ..metrics.bls import create_bls_metrics, lifecycle_traces_counter
 from ..metrics.registry import MetricsRegistry
-from ..observability import compile_ledger, device_ledger, slo
+from ..observability import compile_ledger, device_ledger, slo, spans
 from ..observability.stages import PipelineMetrics
 
 _log = logging.getLogger("node")
@@ -41,7 +54,9 @@ class BlsStack:
     """The composed stack: `verifier` (the lane dispatcher, what gossip and
     block import call), `supervisor`, `device`, `cpu`, the `pipeline` and
     `registry` they record into, `prom` (the `metrics/bls.py` families),
-    the installed `slo_engine` and the metrics `server` (or None)."""
+    the installed `slo_engine`, the metrics `server` (or None), the
+    lifecycle `tracer` with its `lifecycle_traces` counter, and `preload`,
+    the ahead-of-time preload's summary (None unless built warm)."""
 
     def __init__(self, device, supervisor, verifier, cpu, pipeline, registry, prom,
                  slo_engine, faults=None):
@@ -55,6 +70,9 @@ class BlsStack:
         self.slo_engine = slo_engine
         self.faults = faults
         self.server = None
+        self.tracer = spans.tracer
+        self.lifecycle_traces = lifecycle_traces_counter(registry)
+        self.preload: dict | None = None
         self.ladder: dict | None = None
         self.last_populate: dict | None = None
         self._populate_lock = threading.Lock()
@@ -109,7 +127,7 @@ class BlsStack:
 
         sup = self.supervisor
         self.server = MetricsServer(
-            self.registry, host=host, port=port,
+            self.registry, host=host, port=port, tracer=self.tracer,
             breaker=sup.breaker_snapshot,
             mesh=sup.mesh_snapshot,
             fleet=sup.fleet_snapshot,
@@ -124,10 +142,27 @@ class BlsStack:
 
     # -- lifecycle -------------------------------------------------------------
 
+    def _count_trace(self, doc) -> None:
+        kind = (doc.get("attrs") or {}).get("kind") or doc["name"]
+        self.lifecycle_traces.inc(kind=kind)
+
+    _count_trace._stack_wired = True  # marks the hooks of every stack
+
+    def wire_tracer(self) -> None:
+        """Count finished traces on this stack's registry, replacing the
+        hook of any stack wired before it (re-init REPLACES, as the JAX
+        node's does, so a dead registry stops receiving counts)."""
+        self.tracer.on_finish[:] = [
+            cb for cb in self.tracer.on_finish if not getattr(cb, "_stack_wired", False)
+        ] + [self._count_trace]
+
     def close(self) -> None:
-        """Stop the lane workers (queued waiters get a typed shed), the
-        canary and dispatch threads, the population thread, the server,
-        the SLO engine and the mesh's worker processes, in that order."""
+        """Unhook the trace counter, then stop the lane workers (queued
+        waiters get a typed shed), the canary and dispatch threads, the
+        population thread, the server, the SLO engine and the mesh's
+        worker processes, in that order."""
+        self.tracer.on_finish[:] = [cb for cb in self.tracer.on_finish
+                                    if cb != self._count_trace]
         self.verifier.close()
         self.supervisor.close()
         self.wait_populated()
@@ -155,8 +190,10 @@ def build_bls_stack(device=None, mesh=None, observer=None, faults=None, metrics_
     `SupervisedBlsVerifier` (deadline 120 s, one retry, threshold 3,
     cooldown 30 s, audit on) and `BlsLaneDispatcher` (2 workers,
     coalescing 512, pending cap 4096, lane caps 2048/1024/512).
-    `warm=True` runs the warm-boot ladder (`rungs`: a subset of
-    `warmup.RUNGS`) before serving is declared ready."""
+    `warm=True` preloads the libraries of the ahead-of-time store, each
+    kernel launched once (`stack.preload`), and runs the warm-boot ladder
+    (`rungs`: a subset of `warmup.RUNGS`) before serving is declared
+    ready."""
     timeline = compile_ledger.timeline()
     timeline.mark("node_init")
     pipeline = observer if observer is not None else PipelineMetrics(faults=faults)
@@ -175,10 +212,12 @@ def build_bls_stack(device=None, mesh=None, observer=None, faults=None, metrics_
     engine = slo.install(pipeline)
     timeline.mark("slo_ready")
     stack = BlsStack(dev, sup, lanes, cpu, pipeline, registry, prom, engine, faults)
+    stack.wire_tracer()
     try:
         if warm:
             from ..warmup import warm_production
 
+            stack.preload = compile_ledger.ledger().preload_aot(device=dev.device)
             stack.ladder = warm_production(dev._inner, rungs=rungs)
         timeline.mark("verifier_ready")
         if metrics_port is not None:

@@ -10,12 +10,16 @@ the JAX package's `observability/`):
   start/stop switch.
 - `stage_profile`: per-stage device time of the grouped verdict with CUDA
   events, into the same stage histogram.
-- `compile_ledger`: library builds and first launches as events, and the
-  startup timeline.
+- `compile_ledger`: library builds and first launches as events, the
+  ahead-of-time store's outcomes and preload (`ops/aot_store.py`), and
+  the startup timeline.
 - `flight_recorder`: the bounded ring of recent events.
 - `device_ledger`: busy/idle/overlap device-seconds by lane × kernel ×
   chip and the CUDA memory sampler.
 - `runtime`: the runtime identity of the build-info gauge.
+- `spans`: node-wide lifecycle tracing: trace-id / parent-id spans with
+  context-variable propagation, the ring served at `/debug/traces`, and
+  slot-milestone delays.
 """
 
 from .stages import (  # noqa: F401
@@ -43,3 +47,10 @@ from .compile_ledger import (  # noqa: F401
 from .flight_recorder import FlightRecorder, recorder  # noqa: F401
 from .device_ledger import DeviceLedger  # noqa: F401
 from .runtime import runtime_info  # noqa: F401
+from .spans import (  # noqa: F401
+    MILESTONES,
+    Tracer,
+    current_trace_id,
+    record_slot_milestone,
+    tracer,
+)

@@ -14,6 +14,18 @@ each a measured event:
   was compiled now. `compile_start` goes to the flight recorder before
   the compiler runs, so a build that hangs is identifiable as
   started-but-unfinished.
+- The ahead-of-time half: the build directory is the store of
+  `ops/aot_store.py` (each library with a header holding its build
+  fingerprint and checksum), and `note_aot` counts what the store
+  answered each lookup with the JAX outcome names: `hit` (verified and
+  opened), `miss` (not there), `corrupt` (a damaged library or header,
+  moved aside, never opened), `version_mismatch` (another toolchain,
+  torch or card; moved aside), `export` (a build saved with its header).
+  `preload_aot()` opens every serving library of the store at boot and,
+  on a card, launches each kernel once on one lane (K1, K4, K2, K2p, K3,
+  K3-fe), so that the lazy loading of each kernel's module is paid before
+  the first verdict; the warm-boot ladder and every mesh worker call it.
+  `note_prune` records what the store's pruner removed.
 - `CompileLedger.wrap(fn, kernel)` wraps a verdict callable at its seam
   (`TorchBlsVerifier`, `EpochPubkeyTable.gather_device`). The FIRST call
   per (kernel, signature) is timed on the host clock (no device
@@ -28,10 +40,8 @@ each a measured event:
   recorder and the `snapshot()` document, and persist through
   `write_artifact`.
 
-The AOT half of the JAX ledger (`preload_aot`, `note_aot`, the
-executable overrides) waits for the port's warm boot; its snapshot
-section reads empty and `lodestar_tpu_aot_events_total` stays at zero.
-Nor is `note_prune`: the port has no pruner of its build directory.
+The JAX ledger's executable overrides have no counterpart: a library,
+once opened, serves every call of its kernels.
 
 `StartupTimeline` is the getting-to-serving half: `mark(phase)` records
 seconds since PROCESS start (anchored via /proc/self/stat field 22 so
@@ -96,6 +106,12 @@ def _cache_dir() -> str | None:
     return BUILD_DIR if BUILD_DIR and os.path.isdir(BUILD_DIR) else None
 
 
+def _store_dir() -> str:
+    from ..build import BUILD_DIR
+
+    return os.path.abspath(BUILD_DIR)
+
+
 def _cache_listing(cache_dir: str | None) -> frozenset:
     if not cache_dir:
         return frozenset()
@@ -116,7 +132,14 @@ class CompileLedger:
         self._cumulative_s = 0.0  # guarded-by: _lock
         self._counts = {"hit": 0, "miss": 0, "off": 0}  # guarded-by: _lock
         self._pipelines: list = []  # guarded-by: _lock
+        self._last_prune: dict | None = None  # guarded-by: _lock
         self._entries_at_start: int | None = None  # guarded-by: _lock
+        self._aot_counts: dict = {}  # guarded-by: _lock
+        self._aot_events: list[dict] = []  # guarded-by: _lock
+        self._aot_last: dict[str, str] = {}  # kernel -> last outcome; guarded-by: _lock
+        self._aot_loaded: set = set()  # kernels opened from the store; guarded-by: _lock
+        self._launched: dict[str, float] = {}  # first-launch seconds; guarded-by: _lock
+        self._aot_marked = False  # guarded-by: _lock (aot_load phase once)
 
     # -- pipeline fan-out ---------------------------------------------------
 
@@ -178,6 +201,156 @@ class CompileLedger:
             cache = "hit"
         self.record(kernel, key, duration_s, cache)
         return out
+
+    # -- the ahead-of-time store ----------------------------------------------
+
+    def note_aot(self, kernel: str, key: str, outcome: str,
+                 seconds: float = 0.0, detail: str | None = None) -> dict:
+        """One store event (hit/miss/corrupt/version_mismatch/export):
+        bounded event list, flight recorder, and the
+        `lodestar_tpu_aot_events_total` family on every live pipeline."""
+        event = {
+            "kernel": kernel,
+            "key": key,
+            "outcome": outcome,
+            "seconds": round(seconds, 4),
+        }
+        if detail:
+            event["detail"] = str(detail)[:200]
+        with self._lock:
+            self._aot_events.append(event)
+            if len(self._aot_events) > self._max_events:
+                del self._aot_events[0]
+            self._aot_counts[outcome] = self._aot_counts.get(outcome, 0) + 1
+            self._aot_last[kernel] = outcome
+            if outcome == "hit":
+                self._aot_loaded.add(kernel)
+        flight_recorder.record(
+            "aot", kernel=kernel, key=key, outcome=outcome,
+            seconds=event["seconds"],
+        )
+        for p in self.pipelines():
+            p.aot_event(kernel, outcome)
+        return event
+
+    def preload_aot(self, kernels=None, device=None) -> dict:
+        """Open every serving library of the store (`build.SERVING` for
+        the device's type: the host tier, and on a card K1's, K4's and the
+        tower kernels') whose header, fingerprint and checksum verify; a
+        library the store refuses is counted and left to its first use,
+        which rebuilds it (nothing is compiled here). On a card, launch
+        each kernel of the opened libraries once on one lane of zeros (K1,
+        K4, K2, K2p, K3, K3-fe; once per process), so the lazy loading of
+        its module is paid now. `kernels` restricts the libraries by name;
+        `device` defaults to the current card, else the CPU. Marks
+        `aot_load` on the startup timeline once libraries were opened.
+        Returns the JAX summary (`loaded`, `skipped`, `seconds`) with each
+        library's `outcomes` and `load_seconds`, each kernel's
+        `launch_seconds` and the `device`; never raises for a refused
+        library."""
+        import torch
+
+        from .. import build
+
+        t_start = time.monotonic()
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        summary: dict = {"loaded": [], "skipped": 0, "outcomes": {}, "load_seconds": {},
+                         "launch_seconds": {}, "device": str(dev)}
+        for name in build.SERVING[dev.type]:
+            if kernels is not None and name not in kernels:
+                continue
+            if name in build._LIBS:  # already open in this process
+                summary["skipped"] += 1
+                continue
+            t0 = time.monotonic()
+            try:
+                lib = build.load(name, build=False, ledger=self)
+                with self._lock:
+                    summary["outcomes"][name] = self._aot_last.get(f"build/{name}")
+            except build.BuildError:  # no compiler: nothing can be verified
+                lib, summary["outcomes"][name] = None, "no_compiler"
+            summary["load_seconds"][name] = round(time.monotonic() - t0, 6)
+            if lib is None:
+                summary["skipped"] += 1
+            else:
+                summary["loaded"].append(f"build/{name}:{build.LIBRARIES[name].digest()}")
+        with self._lock:
+            first = bool(summary["loaded"]) and not self._aot_marked
+            self._aot_marked = self._aot_marked or first
+        if first:
+            timeline().mark("aot_load")
+        if dev.type == "cuda":
+            summary["launch_seconds"] = self._first_launches(dev)
+        summary["seconds"] = round(time.monotonic() - t_start, 3)
+        return summary
+
+    def _first_launches(self, dev) -> dict:
+        """Launch each kernel of an open library once on one lane of zeros
+        (every kernel takes a zero lane), each timed with the host clock to
+        the end of a device synchronisation; a kernel launched before in
+        this process is not launched again."""
+        import torch
+
+        from .. import build
+        from ..ops import cuda_fp, cuda_mxu, cuda_tower
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        p, q = (1, 32), (1, 2, 32)
+        launches = (
+            ("K1", "mont_mul", cuda_fp.mont_mul_cuda, (p, p)),
+            ("K4", "mxu_mont", cuda_mxu.mont_mul_mxu_cuda, (p, p)),
+            ("K2", "tower", cuda_tower.miller_loop_cuda, (p, p, q, q)),
+            ("K2p", "tower", cuda_tower.miller_loop_proj_cuda, (p, p, p, q, q, q)),
+            ("K3", "tower", cuda_tower.pairing_fused_cuda, (p, p, q, q, q, q)),
+            ("K3-fe", "tower", cuda_tower.final_exp_cuda, ((1,) + cuda_tower.FP12_SHAPE,)),
+        )
+        out = {}
+        with torch.cuda.device(dev):
+            for kernel, lib, fn, shapes in launches:
+                with self._lock:
+                    done = kernel in self._launched
+                if done or lib not in build._LIBS:
+                    continue
+                args = [z(*s) for s in shapes]
+                torch.cuda.synchronize(dev)
+                t0 = time.monotonic()
+                fn(*args)
+                torch.cuda.synchronize(dev)
+                out[kernel] = round(time.monotonic() - t0, 6)
+                with self._lock:
+                    self._launched[kernel] = out[kernel]
+                flight_recorder.record("first_launch", kernel=kernel, seconds=out[kernel])
+        return out
+
+    def note_prune(self, result: dict) -> None:
+        """Record the store's last prune (`AotStore.prune`) so the snapshot
+        carries it; ticks the cache gauges on every live pipeline."""
+        remaining = result.get(
+            "entries_remaining",
+            result.get("entries", 0) - len(result.get("removed", ())),
+        )
+        rec = {
+            "entries": result.get("entries", 0),
+            "entries_remaining": remaining,
+            "removed": len(result.get("removed", ())),
+            "removed_bytes": result.get("removed_bytes", 0),
+            "total_bytes": result.get("total_bytes", 0),
+            "unix_time": round(time.time(), 1),
+        }
+        with self._lock:
+            self._last_prune = rec
+        flight_recorder.record(
+            "cache_prune",
+            removed=rec["removed"], removed_bytes=rec["removed_bytes"],
+        )
+        for p in self.pipelines():
+            p.cache_pruned(rec["removed_bytes"], remaining)
 
     # -- recording ----------------------------------------------------------
 
@@ -243,19 +416,21 @@ class CompileLedger:
                     "hits": self._counts.get("hit", 0),
                     "misses": self._counts.get("miss", 0),
                     "uncached": self._counts.get("off", 0),
-                    "aot_hits": 0,
+                    "aot_hits": self._aot_counts.get("hit", 0),
                 },
-                # the AOT half is not ported: its section reads empty
+                # the store always loads and always exports: the port has
+                # no switch for either
                 "aot": {
-                    "store": None,
-                    "load": False,
-                    "export": False,
-                    "loaded_executables": 0,
-                    "counts": {},
-                    "events": [],
+                    "store": _store_dir(),
+                    "load": True,
+                    "export": True,
+                    "loaded_executables": len(self._aot_loaded),
+                    "counts": dict(self._aot_counts),
+                    "events": list(self._aot_events),
                 },
                 "events": events,
             }
+            last_prune = self._last_prune
         if cache_dir is None:
             state = "off"
         elif not doc["cache"]["entries_at_start"]:
@@ -263,6 +438,8 @@ class CompileLedger:
         else:
             state = "warm"
         doc["cache"]["state"] = state
+        if last_prune is not None:
+            doc["last_prune"] = dict(last_prune)
         return doc
 
     def write_artifact(self, path: str) -> str | None:

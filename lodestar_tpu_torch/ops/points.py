@@ -175,6 +175,54 @@ class CurveOps:
             acc = self.select(bits[..., j] != 0, added, acc)
         return acc
 
+    def scalar_mul_windowed(self, bits, q_affine, window: int = 4):
+        """[k]Q by fixed 2^w windows, MSB first: the contract of
+        `scalar_mul_bits` (the JAX package's `ops/points.py:214`). The
+        table T[d] = d·Q (T[0] infinity, T[1] = Q, then 2^w − 2 mixed
+        additions) is stacked on a leading digit axis; each window doubles
+        w times and adds T[digit] with the complete addition, the lookup a
+        chain of selects, so the cost does not depend on the scalars. A bit
+        count that is not a multiple of `window` takes the bit ladder. No
+        path of the port calls it (the JAX package measured it slower than
+        the ladder on its TPU)."""
+        nbits = bits.shape[-1]
+        if nbits % window:
+            return self.scalar_mul_bits(bits, q_affine)
+        cn = self.coord_ndim
+        xq, yq = q_affine
+        batch = fp.broadcast_shapes(bits.shape[:-1], xq.shape[: xq.ndim - cn])
+        coord = tuple(xq.shape[xq.ndim - cn:])
+        xq = torch.broadcast_to(xq, batch + coord)
+        yq = torch.broadcast_to(yq, batch + coord)
+        bits = torch.broadcast_to(bits, batch + (nbits,))
+        weights = torch.tensor([1 << (window - 1 - i) for i in range(window)],
+                               dtype=bits.dtype, device=bits.device)
+        # (n_windows, ...batch) digits, MSB first
+        digits = torch.movedim(
+            (bits.reshape(batch + (nbits // window, window)) * weights).sum(-1), -1, 0)
+        entries = [self.infinity(batch, xq.device), self.from_affine(xq, yq)]
+        for _ in range(2, 1 << window):
+            entries.append(self.add_mixed(entries[-1], (xq, yq)))
+        table = tuple(torch.stack([e[i] for e in entries], dim=0) for i in range(3))
+        acc = self.infinity(batch, xq.device)
+        for digit in digits:
+            for _ in range(window):
+                acc = self.double(acc)
+            entry = tuple(t[0] for t in table)
+            for d in range(1, 1 << window):
+                entry = self.select(digit == d, tuple(t[d] for t in table), entry)
+            acc = self.add(acc, entry)
+        return acc
+
+    # -- normalization -------------------------------------------------------
+
+    def to_affine(self, p):
+        """(X/Z, Y/Z) with one batched inversion of Z (the JAX package's
+        `ops/points.py:277`); infinity maps to (0, 0), so callers mask it
+        with `is_infinity`. No path of the port calls it."""
+        zinv = self.F.inv(p[2])
+        return (self.F.mul(p[0], zinv), self.F.mul(p[1], zinv))
+
 
 g1 = CurveOps(fp, fq_to_limbs(Fq(12)), coord_ndim=1)  # 3·4
 g2 = CurveOps(fp2, fq2_to_limbs(Fq2.from_ints(12, 12)), coord_ndim=2)  # 3·4(1+u)

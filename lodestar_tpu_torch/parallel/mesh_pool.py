@@ -190,7 +190,12 @@ def _worker_main(index: int, size: int, hosts: int, init_method: str, device: st
         from .sharded import Shard
 
         shard = Shard.join(index, size, hosts, dev, timeout)
-        conn.send(("ready", os.getpid()))
+        from ..observability import compile_ledger
+
+        # the libraries from the store and each kernel's first launch, paid
+        # before the first verdict (an evicted chip's replacement included)
+        preload = compile_ledger.ledger().preload_aot(device=dev)
+        conn.send(("ready", {"pid": os.getpid(), "preload": preload}))
     except Exception:
         conn.send(("error", traceback.format_exc()))
         return
@@ -240,7 +245,11 @@ class MeshPool:
     arrays)` splits every array by rows (axis 0) into equal slices, one
     per worker in DCN-major order, and returns every worker's reply in
     worker order; `counts(reset)` each worker's launch counts; `close()`
-    stops the workers. `timeout_s` is the workers' collective timeout."""
+    stops the workers. `timeout_s` is the workers' collective timeout.
+    Each worker preloads the libraries of the ahead-of-time store before
+    it reports ready (`compile_ledger.preload_aot`: each library's store
+    outcome, each kernel launched once on a card); `preload` holds their
+    summaries in worker order."""
 
     timeout_s = TIMEOUT_S
 
@@ -298,7 +307,9 @@ class MeshPool:
                         raise self._fail(h * self.per, str(e), host=h) from e
                     for k, conn in conns.items():
                         self._conns[k] = conn
-            self.pids = self._collect(START_TIMEOUT_S)
+            ready = self._collect(START_TIMEOUT_S)
+            self.pids = [r["pid"] for r in ready]
+            self.preload = [r["preload"] for r in ready]
         except BaseException:
             self.close()
             raise

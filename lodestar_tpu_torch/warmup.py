@@ -3,9 +3,12 @@
 
     python3 -m lodestar_tpu_torch.warmup [--device cuda]
 
-It loads or builds every extension (`build.py`, cached by source hash
-under `build/lodestar_tpu_torch/`), then runs one verdict per
-production shape on synthetic sets signed by the host tier, each rung a
+It preloads the libraries of the ahead-of-time store
+(`compile_ledger.preload_aot`: each verified and opened, each kernel
+launched once on one lane; `timeline().mark("aot_load")`), builds what
+the store could not give (`build.py`, cached by source digest under
+`build/lodestar_tpu_torch/`), then runs one verdict per production shape
+on synthetic sets signed by the host tier, each rung a
 `timeline().mark("rung_...")`:
 
 - per-set buckets 4, 16, 64 and 128: the flat batch verdict, the
@@ -17,10 +20,11 @@ production shape on synthetic sets signed by the host tier, each rung a
 `main()` builds the whole serving stack with the ladder
 (`node.bls_stack.build_bls_stack(warm=True)`), marks `serving_ready`,
 closes it and prints one JSON line: the timeline's marks (seconds since
-process start), `serving_ready_seconds`, the build seconds per library,
-the peak device memory and each rung's seconds. The ahead-of-time half
-of the JAX ladder (`preload_aot`, `note_aot`) waits for CUDA graphs: the
-port has no executable to store yet.
+process start), `serving_ready_seconds`, the preload's summary (each
+library's store outcome and load seconds, each kernel's first-launch
+seconds), the build seconds per library, the peak device memory and each
+rung's seconds. What the port persists ahead of time is its libraries; a
+CUDA graph lives inside one process and is made anew by each.
 """
 
 from __future__ import annotations
@@ -135,12 +139,13 @@ def main(argv=None) -> int:
 
     from .device import resolve_device
     from .node.bls_stack import build_bls_stack
-    from .observability.compile_ledger import timeline
+    from .observability.compile_ledger import ledger, timeline
 
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats()
+    preload = ledger().preload_aot(device=device)
     build_s = build_extensions(device)
     timeline().mark("extensions_ready")
     stack = build_bls_stack(device=device, warm=True, rungs=args.rungs.split(","))
@@ -150,6 +155,7 @@ def main(argv=None) -> int:
             "device": str(device),
             "marks": {m["phase"]: m["t_s"] for m in snap["marks"]},
             "serving_ready_seconds": snap["serving_ready_s"],
+            "preload": preload,
             "build_seconds": build_s,
             "rung_seconds": stack.ladder,
             "peak_device_bytes": (torch.cuda.max_memory_allocated(device)

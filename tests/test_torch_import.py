@@ -1,8 +1,8 @@
 """The port stands alone: importing `lodestar_tpu_torch` and every one of
 its modules loads neither JAX nor any module of the JAX package (nor does
 importing the serving seams alone: the facade and the epoch table, nor
-the observability modules alone, nor the serving stack alone, nor a
-spawned mesh worker), no module of it reads a `LODESTAR_TPU_*` variable
+the observability modules alone, nor the serving stack alone, nor the
+lifecycle spans and the library store alone, nor a spawned mesh worker), no module of it reads a `LODESTAR_TPU_*` variable
 (the serving stack's none at all), and the verifier's entry points do
 not fall back to the CPU unasked."""
 
@@ -46,7 +46,8 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "observability.stages", "observability.trace",
                  "observability.flight_recorder", "observability.compile_ledger",
                  "observability.device_ledger", "observability.stage_profile",
-                 "observability.runtime", "metrics.registry", "parallel.mesh",
+                 "observability.runtime", "observability.spans", "ops.aot_store",
+                 "metrics.registry", "parallel.mesh",
                  "parallel.mesh_pool", "parallel.sharded", "parallel.fleet",
                  "parallel.fleet_host") + SERVING_MODULES:
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
@@ -54,7 +55,8 @@ def test_import_loads_no_jax_and_no_jax_package():
 
 # the serving stack's modules: none reads any environment variable at all
 SERVING_MODULES = ("utils.retry", "metrics.bls", "metrics.server", "chain.supervisor",
-                   "chain.dispatcher", "observability.slo", "node.bls_stack", "warmup")
+                   "chain.dispatcher", "observability.slo", "observability.spans",
+                   "ops.aot_store", "node.bls_stack", "warmup")
 
 SERVING_PROBE = r"""
 import json, sys
@@ -114,6 +116,7 @@ import lodestar_tpu_torch.observability.compile_ledger
 import lodestar_tpu_torch.observability.device_ledger
 import lodestar_tpu_torch.observability.stage_profile
 import lodestar_tpu_torch.observability.runtime
+import lodestar_tpu_torch.observability.spans
 from lodestar_tpu_torch.observability import default_pipeline
 default_pipeline().registry.expose()
 bad = sorted(m for m in sys.modules
@@ -121,6 +124,26 @@ bad = sorted(m for m in sys.modules
              or m == "lodestar_tpu" or m.startswith("lodestar_tpu."))
 print(json.dumps(bad))
 """
+
+
+SPANS_AOT_PROBE = r"""
+import json, sys
+import lodestar_tpu_torch.observability.spans
+import lodestar_tpu_torch.ops.aot_store
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_spans_and_library_store_load_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", SPANS_AOT_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_observability_loads_no_jax_and_no_jax_package():

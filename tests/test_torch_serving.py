@@ -128,7 +128,8 @@ def test_every_endpoint_answers(served):
     assert docs["/debug/epoch_table"][1]["wired"] is True
     assert "startup" in docs["/debug/compiles"][1]
     assert docs["/debug/faults"][0] == 404  # the stack has no faults object
-    assert docs["/debug/traces"][0] == 404  # no span layer yet
+    status, traces = docs["/debug/traces"]  # the process-wide lifecycle tracer
+    assert status == 200 and traces["enabled"] is True and "traces" in traces
     assert docs["/nope"][0] == 404
 
 
