@@ -253,8 +253,35 @@ it runs the single-device path it names on a host of any card count):
           then single-device) and no cell repeats a warm single-device
           first call; each fleet cell times one warm verdict after its
           first call.
+12e. block_import  block import's producer side (`profile_block.run`) on
+          the mainnet preset, `MAINNET_CHAIN_CONFIG` with Altair at epoch
+          1: an interop genesis of 16,384 validators (4 committees of 128
+          per slot), full-participation blocks at slots 1-3 (phase0, each
+          with the previous slot's 4 aggregates), the first block of epoch
+          1 (Altair: 128 aggregates, one per committee of slots 1-32, and a
+          512-key sync aggregate: 131 sets) and a tampered copy of it (two
+          aggregates' signatures swapped, re-rooted and re-signed), made
+          with the C host tier; each imported through a cold
+          `build_bls_stack(device="cuda")` as block import runs a block
+          (the pre-state advanced, the sets built, the verdict with
+          `batchable=False` on a worker thread beside the state
+          transition), the epoch table populated with the state's keys at
+          the Altair boundary first. Every valid block: verdict True and
+          the host tier's, post-state root the block's, and given by the
+          card (no host-tier fallback of the supervisor, every 128-set
+          facade job run, K2p and K3-fe launched at least once per job);
+          the tampered block: False as on the host tier, the supervisor's
+          only host-tier calls the negative audits of that verdict and of
+          its per-set verdicts, which blame exactly the two swapped sets
+          with K2p or K3 launched per facade job, its state transition
+          with the host tier's inline checks refused; no overturned
+          verdict, deadline, retry or double failure, and the breaker
+          closed. Prints each block's sets, seconds of pre-state, sets,
+          state transition and verdict, import wall, planner path,
+          supervisor counts and launches, the per-set blame's seconds,
+          paths and launches, and the setup's seconds.
 
-The main-path verdicts of phases 6-12d run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-12e run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
 (per part of a split one, per chunk of a flat one, per worker in phases
@@ -3154,6 +3181,101 @@ def phase_fleet(torch, np, mesh, per_set_sets, per_set_host, per_set_bad, per_se
     return out
 
 
+BLOCK_VALIDATORS = 16384  # 4 committees of 128 per slot on the mainnet preset
+BLOCK_PHASE0 = 3  # phase0 blocks at slots 1..3
+
+
+def phase_block_import(torch, np):
+    """Block import's producer side: the port's params, config, SSZ, types
+    and phase0/Altair state transition on the host, each block's signature
+    sets verified by the port's serving stack on the card
+    (`profile_block.run`). Fails unless every valid block's verdict is
+    True and the host tier's, its post-state root the block's, and the
+    card gave the verdict: no host-tier fallback of the supervisor, K2p
+    and K3-fe launched at least once per 128-set facade job, every job
+    run; the tampered block False as on the host tier, the supervisor's
+    only host-tier calls the negative audits of its verdict and of its
+    per-set verdicts, those per-set verdicts blaming exactly the two
+    swapped aggregates with a Miller kernel (K2p or K3) launched per job,
+    and its state transition with inline checks on the host tier refused;
+    in every call no overturned verdict, deadline, retry or double
+    failure, and the breaker closed at the end; and the epoch table
+    populated at the Altair boundary."""
+    from lodestar_tpu_torch import profile_block
+    from lodestar_tpu_torch.native import install_ssz_backend
+    from lodestar_tpu_torch.node.bls_stack import build_bls_stack
+
+    install_ssz_backend()
+    t0 = time.perf_counter()
+    stack = build_bls_stack(device="cuda")
+    build_s = time.perf_counter() - t0
+    jobs = _counting(stack.device._inner, "verify_signature_sets",
+                     "verify_signature_sets_individual")
+    per_job = stack.device.max_sets_per_job
+    try:
+        out = profile_block.run(stack.verifier, validators=BLOCK_VALIDATORS, blocks=BLOCK_PHASE0,
+                                populate=profile_block.stack_populate(stack, 120),
+                                observer=stack.pipeline, sync=torch.cuda.synchronize,
+                                probe=lambda: {k: v for k, v in jobs.items()
+                                               if not k.endswith("_s")},
+                                log=log)
+        breaker = stack.supervisor.breaker_state
+    finally:
+        stack.close()
+    pop = out["populate"]
+    if "error" in pop or pop.get("rows") != BLOCK_VALIDATORS:
+        raise AssertionError(f"block_import: epoch table population {pop}")
+    if breaker != "closed":
+        raise AssertionError(f"block_import: the supervisor's breaker is {breaker}")
+    *valid, bad = out["blocks"]
+    for rec in valid:
+        tag = f"block_import slot {rec['slot']}"
+        if rec["verdict"] is not True or not all(rec["host"]):
+            raise AssertionError(f"{tag}: verdict {rec['verdict']}, host tier {all(rec['host'])}")
+        if not rec["state_root_ok"]:
+            raise AssertionError(f"{tag}: post-state root is not the block's")
+        n_jobs = rec["probe"].get("verify_signature_sets", 0)
+        if rec["supervisor"] or n_jobs != -(-rec["sets"] // per_job):
+            raise AssertionError(f"{tag}: the card did not give the verdict: supervisor "
+                                 f"{rec['supervisor']}, facade jobs {rec['probe']}")
+        _need(rec["launches"], tag, "K2p", "K3-fe")
+        if min(rec["launches"]["K2p"], rec["launches"]["K3-fe"]) < n_jobs:
+            raise AssertionError(f"{tag}: launches {rec['launches']} for {n_jobs} facade jobs")
+    altair = valid[-1]
+    tag = "block_import tampered"
+    blamed = [k for k, ok in enumerate(bad["individual"]) if not ok]
+    host_blamed = [k for k, ok in enumerate(bad["host"]) if not ok]
+    if bad["verdict"] is not False or all(bad["host"]):
+        raise AssertionError(f"{tag}: verdict {bad['verdict']}, host tier {all(bad['host'])}")
+    if blamed != bad["swapped_sets"] or host_blamed != bad["swapped_sets"]:
+        raise AssertionError(f"{tag}: blamed {blamed}, host tier {host_blamed}, "
+                             f"swapped {bad['swapped_sets']}")
+    audit = {"fallback_negative_audit": 1}
+    n_jobs = bad["probe"].get("verify_signature_sets", 0)
+    if bad["supervisor"] != audit or not n_jobs:
+        raise AssertionError(f"{tag}: the verdict's supervisor {bad['supervisor']} (only its "
+                             f"audit expected), facade jobs {bad['probe']}")
+    _need(bad["launches"], tag, "K2p", "K3-fe")
+    if min(bad["launches"]["K2p"], bad["launches"]["K3-fe"]) < n_jobs:
+        raise AssertionError(f"{tag}: launches {bad['launches']} for {n_jobs} facade jobs")
+    n_jobs = bad["individual_probe"].get("verify_signature_sets_individual", 0)
+    miller = bad["individual_launches"]["K2p"] + bad["individual_launches"]["K3"]
+    if bad["individual_supervisor"] != audit or n_jobs != -(-bad["sets"] // per_job) \
+            or miller < n_jobs:
+        raise AssertionError(f"{tag}: the per-set verdicts' supervisor "
+                             f"{bad['individual_supervisor']} (only its audit expected), facade "
+                             f"jobs {bad['individual_probe']}, launches "
+                             f"{bad['individual_launches']}")
+    if not bad["host_stf_error"]:
+        raise AssertionError(f"{tag}: the host tier's state transition passed")
+    log(f"[block] stack built in {build_s:.3f} s (cold); slot {altair['slot']}: {altair['sets']} "
+        f"sets through {sorted(altair['paths'])} in {altair['probe']['verify_signature_sets']} "
+        f"facade jobs with the epoch table warm ({pop['rows']} rows, {pop['seconds']:.3f} s; "
+        f"this verdict's lookups {json.dumps(altair['epoch_table'])}); no host-tier fallback "
+        f"but the tampered block's two audits, breaker {breaker}; card: {card_line()}")
+    return {**profile_block.summary(out), "stack_build_s": build_s}
+
+
 def main() -> int:
     import torch
 
@@ -3198,6 +3320,7 @@ def main() -> int:
     node = timed("node", phase_node, torch, np, grouped, serve["batch"], sets)
     mesh = timed("mesh", phase_mesh, torch, np, grouped, pk["batch"], sets, host_ok, bad, host_bad)
     fleet = timed("fleet", phase_fleet, torch, np, mesh, sets, host_ok, bad, host_bad)
+    blocks = timed("block_import", phase_block_import, torch, np)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -3256,6 +3379,21 @@ def main() -> int:
         f"{fleet['drill']['single_level_start_s']:.3f} s, rejoined by {fleet['drill']['rejoin_s']:.3f} s, "
         f"restart {fleet['drill']['restart_s']:.3f} s; script {time.perf_counter() - t_start:.1f} s; "
         f"card: {card_line()}")
+    setup = blocks["setup"]
+    log(f"[summary] block_import ({blocks['validators']} validators, {blocks['preset']}): setup "
+        f"{setup['total_s']:.3f} s (deposits {setup['deposits_s']:.3f}, genesis "
+        f"{setup['genesis_s']:.3f}, blocks {setup['blocks_s']:.3f}); "
+        + "; ".join(f"slot {r['slot']}{' tampered' if r.get('tampered') else ''} {r['sets']} sets: "
+                    f"pre-state {r['pre_state_s']:.3f} s, sets {r['sets_s']:.3f} s, state "
+                    f"transition {r['stf_s']:.3f} s, verdict {r['verdict_s']:.3f} s, import "
+                    f"{r['import_s']:.3f} s, paths {sorted(r['paths'])}, launches "
+                    f"{json.dumps(r['launches'])}"
+                    + (f", per-set blame {r['individual_s']:.3f} s, paths "
+                       f"{sorted(r['individual_paths'])}, launches "
+                       f"{json.dumps(r['individual_launches'])}" if r.get("tampered") else "")
+                    for r in blocks["blocks"])
+        + f"; epoch table {blocks['populate']['rows']} rows in {blocks['populate']['seconds']:.3f} s"
+        f"; script {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
     log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "

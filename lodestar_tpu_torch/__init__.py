@@ -11,4 +11,9 @@ It imports neither JAX nor `lodestar_tpu`. The entry points are
 `chain.bls_verifier.DeviceBlsVerifier`, and the serving stack a node
 composes over it, `node.bls_stack.build_bls_stack`; they run on the GPU
 unless the caller passes `device="cpu"`.
+
+Beside the device tier sits block import's producer side, on the host:
+`params`, `config`, `ssz`, `types` and the phase0/Altair
+`state_transition`, whose signature sets the stack verifies
+(`profile_block`).
 """

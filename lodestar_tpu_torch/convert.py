@@ -23,8 +23,12 @@ a conversion is a dtype- and shape-checked copy onto a device.
   its raw signatures and random bits → the arguments of
   `parallel.verifier.batch_verify_kernel_raw`.
 
+- `ssz_from_jax(obj, port_type)` / `ssz_to_jax(obj, jax_type)` — an SSZ
+  container (a state, a block) of one package → the other's, through its
+  serialized bytes.
+
 The port never imports the JAX package; callers (the tests) pass its
-arrays in.
+arrays and types in.
 """
 
 from __future__ import annotations
@@ -162,3 +166,17 @@ def flat_inputs_from_jax(arrs, sig_raw, r_bits, device="cpu") -> tuple:
         _to_tensor("r_bits", r_bits, (lanes, 64), device),
         torch.from_numpy(np.asarray(arrs.valid, bool).copy()).to(device),
     )
+
+
+def ssz_from_jax(obj, port_type):
+    """A JAX SSZ container (e.g. a `BeaconState` or a `SignedBeaconBlock`)
+    → the port's container of class `port_type`, through the serialized
+    bytes."""
+    return port_type.deserialize(obj.serialize())
+
+
+def ssz_to_jax(obj, jax_type):
+    """A port SSZ container → the JAX package's container of class
+    `jax_type` (which the caller passes in), through the serialized
+    bytes."""
+    return jax_type.deserialize(obj.serialize())

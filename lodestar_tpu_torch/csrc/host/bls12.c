@@ -2,8 +2,10 @@
  *
  * The port's copy of lodestar_tpu/native/src/bls12.c (with its generated
  * bls12_consts.h and sha256.c), built with `cc` and loaded through this
- * plain C ABI by lodestar_tpu_torch/native/.  It adds one entry point,
- * lodestar_bls_sk_to_pk, for making test and benchmark data.
+ * plain C ABI by lodestar_tpu_torch/native/.  It adds lodestar_bls_sk_to_pk
+ * (for making test and benchmark data) and lodestar_bls_g2_aggregate, and
+ * its lodestar_bls_g1_aggregate returns the compressed sum rather than
+ * device limbs.
  *
  * Replaces the pure-Python big-int hot path between wire bytes and the
  * device verifier (reference analog: blst's in-C preprocessing used by
@@ -12,7 +14,7 @@
  *
  *   - G1/G2 point decompression (ZCash flags) + on-curve + subgroup checks
  *   - SSWU hash-to-curve for G2 (RFC 9380 BLS12381G2_XMD:SHA-256_SSWU_RO_)
- *   - G1 pubkey aggregation
+ *   - G1 pubkey and G2 signature aggregation
  *   - batched signature-set marshalling straight into the device's
  *     32x12-bit Montgomery limb layout (ops/limbs.py)
  *
@@ -1464,6 +1466,41 @@ static void fp_to_be48(uint8_t out[48], const uint64_t w[6]) {
       out[48 - 8 * i - 1 - b] = (uint8_t)(w[i] >> (8 * b));
 }
 
+/* ZCash compression: 48 B big-endian x with the C, I and S flags in
+ * byte 0; infinity is C|I and zeros. */
+static void g1_compress(uint8_t out[48], const g1p *p) {
+  if (g1_is_infinity(p)) {
+    memset(out, 0, 48);
+    out[0] = FLAG_C | FLAG_I;
+    return;
+  }
+  fp x, y;
+  g1_to_affine(x, y, p);
+  uint64_t w[6];
+  fp_from_mont(w, x);
+  fp_to_be48(out, w);
+  out[0] |= FLAG_C;
+  if (fp_lex_larger(y)) out[0] |= FLAG_S;
+}
+
+/* 96 B: c1 (flags in byte 0) then c0, both big-endian. */
+static void g2_compress(uint8_t out[96], const g2p *p) {
+  if (g2_is_infinity(p)) {
+    memset(out, 0, 96);
+    out[0] = FLAG_C | FLAG_I;
+    return;
+  }
+  fp2 x, y;
+  g2_to_affine(&x, &y, p);
+  uint64_t w[6];
+  fp_from_mont(w, x.c1);
+  fp_to_be48(out, w);
+  fp_from_mont(w, x.c0);
+  fp_to_be48(out + 48, w);
+  out[0] |= FLAG_C;
+  if (fp2_lex_larger(&y)) out[0] |= FLAG_S;
+}
+
 int lodestar_bls_sign(const uint8_t sk_be[32], const uint8_t *msg,
                       size_t msg_len, const uint8_t *dst, size_t dst_len,
                       uint8_t out[96]) {
@@ -1485,16 +1522,7 @@ int lodestar_bls_sign(const uint8_t sk_be[32], const uint8_t *msg,
   fp2_one(&h.Z);
   g2_scalar_mul(&s, &h, k, 4);
   if (g2_is_infinity(&s)) return -2;  /* impossible for valid sk */
-  fp2 x, y;
-  g2_to_affine(&x, &y, &s);
-  /* ZCash compressed: 48B c1 (flags in byte 0) then 48B c0, both BE */
-  uint64_t w[6];
-  fp_from_mont(w, x.c1);
-  fp_to_be48(out, w);
-  fp_from_mont(w, x.c0);
-  fp_to_be48(out + 48, w);
-  out[0] |= FLAG_C;
-  if (fp2_lex_larger(&y)) out[0] |= FLAG_S;
+  g2_compress(out, &s);
   return 0;
 }
 
@@ -1514,26 +1542,19 @@ int lodestar_bls_sk_to_pk(const uint8_t sk_be[32], uint8_t out[48]) {
   fp_copy(g.Y, BLS_G1_GY);
   fp_copy(g.Z, BLS_ONE_M);
   g1_scalar_mul(&s, &g, k, 4);
-  fp x, y;
-  g1_to_affine(x, y, &s);
-  uint64_t w[6];
-  fp_from_mont(w, x);
-  fp_to_be48(out, w);
-  out[0] |= FLAG_C;
-  if (fp_lex_larger(y)) out[0] |= FLAG_S;
+  g1_compress(out, &s);
   return 0;
 }
 
 /* ---------------- aggregation ---------------- */
 
-/* Aggregate n compressed G1 pubkeys -> device limbs of the affine sum.
- * Returns 0 ok / 1 aggregate-is-infinity / -1 malformed / -2 off-curve /
- * -3 subgroup.  Infinity pubkeys contribute nothing (callers reject them
- * upstream at KeyValidate). */
+/* Aggregate n compressed G1 pubkeys -> the compressed sum (48 B; the
+ * infinity encoding when the sum is infinity).  Returns 0 ok / 1
+ * aggregate-is-infinity / -1 malformed / -2 off-curve / -3 subgroup.
+ * Infinity pubkeys contribute nothing (callers reject them upstream at
+ * KeyValidate). */
 int lodestar_bls_g1_aggregate(const uint8_t *pks, size_t n, int check_each,
-                              int32_t out_x[32], int32_t out_y[32]) {
-  memset(out_x, 0, 32 * sizeof(int32_t));
-  memset(out_y, 0, 32 * sizeof(int32_t));
+                              uint8_t out[48]) {
   g1p acc;
   g1_infinity(&acc);
   for (size_t i = 0; i < n; i++) {
@@ -1544,12 +1565,27 @@ int lodestar_bls_g1_aggregate(const uint8_t *pks, size_t n, int check_each,
     if (check_each && !g1_in_subgroup(&p)) return -3;
     g1_add(&acc, &acc, &p);
   }
-  if (g1_is_infinity(&acc)) return 1;
-  fp x, y;
-  g1_to_affine(x, y, &acc);
-  fp_to_limbs12(out_x, x);
-  fp_to_limbs12(out_y, y);
-  return 0;
+  g1_compress(out, &acc);
+  return g1_is_infinity(&acc) ? 1 : 0;
+}
+
+/* Aggregate n compressed G2 signatures -> the compressed sum (96 B).
+ * Same return codes as lodestar_bls_g1_aggregate; check_each runs each
+ * signature's subgroup check. */
+int lodestar_bls_g2_aggregate(const uint8_t *sigs, size_t n, int check_each,
+                              uint8_t out[96]) {
+  g2p acc;
+  g2_infinity(&acc);
+  for (size_t i = 0; i < n; i++) {
+    g2p p;
+    int rc = g2_parse_compressed_aff(sigs + 96 * i, &p.X, &p.Y, check_each);
+    if (rc == 1) continue;
+    if (rc != 0) return rc;
+    fp2_one(&p.Z);
+    g2_add(&acc, &acc, &p);
+  }
+  g2_compress(out, &acc);
+  return g2_is_infinity(&acc) ? 1 : 0;
 }
 
 /* ---------------- batched set marshalling ----------------

@@ -28,6 +28,9 @@ def _lib():
         lib = host_tier()
         sigs = {
             "lodestar_bls_g1_decompress": [_VP, _VP, _VP, _INT],
+            "lodestar_bls_g2_decompress": [_VP, _VP, _VP, _INT],
+            "lodestar_bls_g1_aggregate": [_VP, _SZ, _INT, _VP],
+            "lodestar_bls_g2_aggregate": [_VP, _SZ, _INT, _VP],
             "lodestar_bls_hash_to_g2": [_VP, _SZ, _VP, _SZ, _VP, _VP],
             "lodestar_bls_sign": [_VP, _VP, _SZ, _VP, _SZ, _VP],
             "lodestar_bls_sk_to_pk": [_VP, _VP],
@@ -39,6 +42,8 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _INT
+        lib.lodestar_sha256_level.argtypes = [_VP, _SZ, _VP]
+        lib.lodestar_sha256_level.restype = None
         _FN = lib
     return _FN
 
@@ -60,6 +65,58 @@ def g1_decompress(data: bytes, check_subgroup: bool = True):
     rc = _lib().lodestar_bls_g1_decompress(
         _buf(data), _ptr(out[0]), _ptr(out[1]), int(check_subgroup))
     return rc, out
+
+
+def g2_decompress(data: bytes, check_subgroup: bool = True):
+    """96 B compressed G2 → (rc, (2, 2, 32) int32 x/y limbs), rc as for
+    `g1_decompress`."""
+    if len(data) != 96:
+        raise ValueError("G2 compressed point must be 96 bytes")
+    out = np.zeros((2, 2, 32), np.int32)
+    rc = _lib().lodestar_bls_g2_decompress(
+        _buf(data), _ptr(out[0]), _ptr(out[1]), int(check_subgroup))
+    return rc, out
+
+
+def g1_aggregate(pks: bytes, check_each: bool = False):
+    """n × 48 B compressed G1 keys → (rc, 48 B compressed sum). rc: 0 ok,
+    1 the sum is infinity (its encoding returned), −1 malformed, −2
+    off-curve, −3 a key out of the subgroup (only with `check_each`).
+    Infinity keys add nothing."""
+    if len(pks) % 48:
+        raise ValueError("need n*48 pubkey bytes")
+    out = ctypes.create_string_buffer(48)
+    rc = _lib().lodestar_bls_g1_aggregate(_buf(pks), len(pks) // 48, int(check_each), out)
+    return rc, out.raw
+
+
+def g2_aggregate(sigs: bytes, check_each: bool = False):
+    """n × 96 B compressed G2 signatures → (rc, 96 B compressed sum), rc
+    as for `g1_aggregate`."""
+    if len(sigs) % 96:
+        raise ValueError("need n*96 signature bytes")
+    out = ctypes.create_string_buffer(96)
+    rc = _lib().lodestar_bls_g2_aggregate(_buf(sigs), len(sigs) // 96, int(check_each), out)
+    return rc, out.raw
+
+
+def sha256_level(data: bytes) -> bytes:
+    """N × 64 bytes → N × 32 bytes: one merkle level in one C call."""
+    n = len(data) // 64
+    if len(data) != 64 * n:
+        raise ValueError("a level is n*64 bytes")
+    out = ctypes.create_string_buffer(32 * n)
+    if n:
+        _lib().lodestar_sha256_level(data, n, out)
+    return out.raw
+
+
+def install_ssz_backend() -> None:
+    """Route SSZ merkleization (`ssz.hashing`, `ssz.tree_cache`) through
+    `sha256_level`; the default is hashlib."""
+    from ..ssz import hashing
+
+    hashing.set_hash_backend(sha256_level)
 
 
 def hash_to_g2(msg: bytes, dst: bytes):

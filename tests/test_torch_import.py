@@ -2,7 +2,10 @@
 its modules loads neither JAX nor any module of the JAX package (nor does
 importing the serving seams alone: the facade and the epoch table, nor
 the observability modules alone, nor the serving stack alone, nor the
-lifecycle spans and the library store alone, nor a spawned mesh worker), no module of it reads a `LODESTAR_TPU_*` variable
+lifecycle spans and the library store alone, nor a spawned mesh worker,
+nor block import's host layer alone: params, config, SSZ, types, the
+state transition and `profile_block`), no module of it reads a
+`LODESTAR_TPU_*` variable (the host layer's none at all)
 (the serving stack's none at all), and the verifier's entry points do
 not fall back to the CPU unasked."""
 
@@ -49,8 +52,49 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "observability.runtime", "observability.spans", "ops.aot_store",
                  "metrics.registry", "parallel.mesh",
                  "parallel.mesh_pool", "parallel.sharded", "parallel.fleet",
-                 "parallel.fleet_host") + SERVING_MODULES:
+                 "parallel.fleet_host") + SERVING_MODULES + HOST_LAYER_MODULES:
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
+
+
+# block import's host layer: none reads any environment variable at all
+HOST_LAYER_MODULES = (
+    "params", "params.constants", "params.presets", "params.fork_name", "config",
+    "config.chain_config", "config.fork_config", "config.beacon_config", "ssz", "ssz.hashing",
+    "ssz.core", "ssz.tree_cache", "types", "types.phase0", "types.altair", "types.bellatrix",
+    "types.capella", "bls.api", "state_transition", "state_transition.util",
+    "state_transition.cache", "state_transition.hasher", "state_transition.block",
+    "state_transition.epoch", "state_transition.altair", "state_transition.signature_sets",
+    "state_transition.stf", "state_transition.genesis", "profile_block")
+
+HOST_LAYER_PROBE = r"""
+import json, sys
+import lodestar_tpu_torch.params, lodestar_tpu_torch.config, lodestar_tpu_torch.ssz
+import lodestar_tpu_torch.types, lodestar_tpu_torch.state_transition
+import lodestar_tpu_torch.state_transition.signature_sets, lodestar_tpu_torch.profile_block
+from lodestar_tpu_torch.params import ACTIVE_PRESET, MAINNET
+from lodestar_tpu_torch.types import get_types
+get_types(MAINNET)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu."))
+print(json.dumps({"bad": bad, "mainnet": ACTIVE_PRESET is MAINNET}))
+"""
+
+
+def test_host_layer_loads_no_jax_and_reads_no_environment():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["LODESTAR_TPU_PRESET"] = "minimal"  # the JAX package's knob: the port ignores it
+    out = subprocess.run(
+        [sys.executable, "-c", HOST_LAYER_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": [], "mainnet": True}
+    for name in HOST_LAYER_MODULES:
+        path = os.path.join(REPO, "lodestar_tpu_torch", *name.split("."))
+        path = path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"\b(environ|getenv|putenv|env_str)\b", text), path
 
 
 # the serving stack's modules: none reads any environment variable at all

@@ -2,15 +2,20 @@
 sources built with `cc` and loaded with ctypes) against the JAX package's
 `lodestar_tpu.native`: byte- and limb-identical results for
 `g1_decompress`, `hash_to_g2`, `sign` and `verify_sets`, the pinned KAT
-signatures of `tests/test_device_kats.py` accepted, and `sk_to_pk` (the
-one entry point the copy adds) equal to the oracle's public keys. One
-departure: the copy's `verify_sets` keeps each set's own message after a
-set it refuses before hashing (the last test).
+signatures of `tests/test_device_kats.py` accepted, and `sk_to_pk` (an
+entry point the copy adds) equal to the oracle's public keys. The G1
+aggregate returns the compressed sum (the JAX `aggregate_pubkeys(...)
+.to_bytes()`), the G2 aggregate (another addition) the JAX
+`aggregate_signatures`' bytes, `sha256_level` hashlib's digests, and the
+port's `bls.api` over them the JAX API's answers. One departure: the
+copy's `verify_sets` keeps each set's own message after a set it refuses
+before hashing.
 """
 
 import os
 
 import numpy as np
+import pytest
 
 from lodestar_tpu import native as jnative
 from lodestar_tpu.bls import api as bls
@@ -123,3 +128,93 @@ def test_verify_sets_keeps_later_sets_after_a_refused_one():
     batch = native.verify_sets(b"".join(pks), msgs, b"".join(sigs), DST_G2)
     assert batch == alone
     assert native.verify_sets(b"".join(pks), msgs, b"".join(sigs), DST_G2, threads=3) == alone
+
+
+INFINITY_G1 = b"\xc0" + b"\x00" * 47
+INFINITY_G2 = b"\xc0" + b"\x00" * 95
+
+
+def test_g1_aggregate_is_the_jax_compressed_sum():
+    sks = keys(5, first=20)
+    pks = [bls.PublicKey.from_bytes(native.sk_to_pk(sk.to_bytes())[1]) for sk in sks]
+    for group in (pks[:1], pks[:2], pks, pks + pks[:1]):
+        rc, agg = native.g1_aggregate(b"".join(pk.to_bytes() for pk in group))
+        assert rc == 0
+        assert agg == bls.aggregate_pubkeys(group).to_bytes()
+    jrc, jlimbs = jnative.bls_g1_aggregate(b"".join(pk.to_bytes() for pk in pks), check_each=True)
+    _, limbs = native.g1_decompress(native.g1_aggregate(
+        b"".join(pk.to_bytes() for pk in pks), check_each=True)[1])
+    assert jrc == 0
+    np.testing.assert_array_equal(limbs, np.stack([jlimbs[0], jlimbs[1]]))
+    # P + (−P) is infinity; an infinity key adds nothing; bad bytes are refused
+    neg = bytearray(pks[0].to_bytes())
+    neg[0] ^= 0x20
+    assert native.g1_aggregate(pks[0].to_bytes() + bytes(neg)) == (1, INFINITY_G1)
+    assert native.g1_aggregate(pks[1].to_bytes() + INFINITY_G1)[1] == pks[1].to_bytes()
+    assert native.g1_aggregate(bytes([0x80]) + b"\xff" * 47)[0] < 0
+
+
+def test_g2_aggregate_is_the_jax_sum():
+    msg = b"\x33" * 32
+    sigs = [native.sign(sk.to_bytes(), msg, DST_G2)[1] for sk in keys(4, first=30)]
+    for group in (sigs[:1], sigs[:3], sigs + sigs[:1]):
+        rc, agg = native.g2_aggregate(b"".join(group), check_each=True)
+        want = bls.aggregate_signatures(
+            [bls.Signature.from_bytes(s, validate=False) for s in group]).to_bytes()
+        assert (rc, agg) == (0, want)
+    neg = bytearray(sigs[0])
+    neg[0] ^= 0x20
+    assert native.g2_aggregate(sigs[0] + bytes(neg)) == (1, INFINITY_G2)
+    assert native.g2_aggregate(sigs[2] + INFINITY_G2)[1] == sigs[2]
+    bad = bytearray(sigs[0])
+    bad[0] &= 0x7F
+    assert native.g2_aggregate(bytes(bad))[0] == -1
+
+
+def test_sha256_level_is_hashlib_and_the_jax_packages():
+    import hashlib
+
+    rng = np.random.default_rng(16)
+    for n in (0, 1, 3, 64):
+        data = rng.bytes(64 * n)
+        want = b"".join(hashlib.sha256(data[64 * i: 64 * i + 64]).digest() for i in range(n))
+        assert native.sha256_level(data) == want == jnative.sha256_level(data)
+
+
+def test_bls_api_over_the_host_tier_matches_the_jax_api():
+    """`lodestar_tpu_torch.bls.api`: interop keys, KeyValidate, the
+    aggregates' bytes, `verify` and `fast_aggregate_verify` as the JAX
+    API answers them."""
+    from lodestar_tpu_torch.bls import api as papi
+
+    sks, jsks = [papi.interop_secret_key(i) for i in range(3)], keys(3)
+    assert [sk.to_bytes() for sk in sks] == [sk.to_bytes() for sk in jsks]
+    pks = [sk.to_public_key() for sk in sks]
+    assert [pk.to_bytes() for pk in pks] == [
+        native.sk_to_pk(sk.to_bytes())[1] for sk in jsks]
+    msg = b"\x5c" * 32
+    sigs = [sk.sign(msg) for sk in sks]
+    assert [s.to_bytes() for s in sigs] == [
+        jnative.bls_sign(sk.to_bytes(), msg, DST_G2)[1] for sk in jsks]
+    jpks = [bls.PublicKey.from_bytes(pk.to_bytes()) for pk in pks]
+    assert papi.aggregate_pubkeys(pks).to_bytes() == bls.aggregate_pubkeys(jpks).to_bytes()
+    agg = papi.aggregate_signatures(sigs)
+    assert agg.to_bytes() == bls.aggregate_signatures(
+        [bls.Signature.from_bytes(s.to_bytes(), validate=False) for s in sigs]).to_bytes()
+    assert papi.fast_aggregate_verify(pks, msg, agg)
+    assert not papi.fast_aggregate_verify(pks[:2], msg, agg)
+    assert not papi.fast_aggregate_verify([], msg, agg)
+    assert papi.verify(pks[0], msg, sigs[0]) and not papi.verify(pks[1], msg, sigs[0])
+    # KeyValidate refuses infinity and a key off the curve; a signature
+    # must decode; an infinity signature never verifies
+    for bad in (INFINITY_G1, bytes([0x80]) + b"\xff" * 47):
+        with pytest.raises(papi.BlsError):
+            papi.PublicKey.from_bytes(bad)
+    assert papi.PublicKey.from_bytes(INFINITY_G1, validate=False).to_bytes() == INFINITY_G1
+    flagless = bytearray(sigs[0].to_bytes())
+    flagless[0] &= 0x7F
+    with pytest.raises(papi.BlsError):
+        papi.Signature.from_bytes(bytes(flagless))
+    assert not papi.verify(pks[0], msg, papi.Signature.from_bytes(INFINITY_G2))
+    with pytest.raises(papi.BlsError):
+        papi.aggregate_pubkeys([])
