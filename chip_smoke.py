@@ -168,10 +168,11 @@ it runs the single-device path it names on a host of any card count):
           each batch that held a tampered set, with no verdict mismatch,
           deadline, retry or double failure, the breaker closed, and K2p
           launched at least once per 128-set job the facade ran. Then
-          the slot's first 1 s (1024 calls, one of them tampered) again
+          the slot's first 0.5 s (512 calls, set 500 tampered) again
           with coalescing and the attestation cap at 4096, root after
-          root (the best case for root grouping), cut to keep the
-          script's time, under the same checks.
+          root (the best case for root grouping), cut (from the first
+          1 s, 1024 calls, in PRs 14–16) to keep the script's time with
+          the chain phase, under the same checks.
           (c) drills through the port's supervisor on serve-128's job
           (cooldown 2 s, deadline 5 s, an injected fault seam): exceptions
           (the host tier serves, the breaker opens on the third, the canary
@@ -262,7 +263,8 @@ it runs the single-device path it names on a host of any card count):
           512-key sync aggregate: 131 sets) and a tampered copy of it (two
           aggregates' signatures swapped, re-rooted and re-signed), made
           with the C host tier; each imported through a cold
-          `build_bls_stack(device="cuda")` as block import runs a block
+          `build_bls_stack(device="cuda")` (one lane worker flushing at 64
+          sets, for the chain phase's gossip) as block import runs a block
           (the pre-state advanced, the sets built, the verdict with
           `batchable=False` on a worker thread beside the state
           transition), the epoch table populated with the state's keys at
@@ -279,9 +281,45 @@ it runs the single-device path it names on a host of any card count):
           closed. Prints each block's sets, seconds of pre-state, sets,
           state transition and verdict, import wall, planner path,
           supervisor counts and launches, the per-set blame's seconds,
-          paths and launches, and the setup's seconds.
+          paths and launches, and the setup's seconds. It leaves its stack
+          (epoch table populated) and its genesis and blocks to the chain
+          phase.
+12f. chain  the port's chain (`profile_chain.run`) on block_import's
+          genesis, blocks and stack: a `BeaconChain` on the genesis with a
+          `ManualClock`, serving through the stack's lane dispatcher.
+          (a) blocks 1-3 through `process_block_segment` (18 sets, one
+          verdict); (b) the tampered Altair block refused
+          (`BlockImportError`, head and blocks unchanged); (c) the Altair
+          block ACCEPTed by `validate_gossip_block`, then imported (head
+          its root, post-state root the block's); (d) one single-bit
+          attestation from each of the slot's 512 committee members
+          through `validate_gossip_attestation` from 64 threads (the
+          attestation lane), with two signed by another validator
+          (REJECT), a replay (IGNORE) and one on the wrong subnet (REJECT);
+          (e) a `SignedAggregateAndProof` from every aggregator of the 4
+          committees (by selection proof; each leaves out a different
+          member) from 16 threads on the aggregate lane, plus one with
+          another aggregator's selection proof (REJECT), then the head the
+          Altair block, its weight the 512 votes and the proposer boost;
+          (f) at slot 34 `produce_block` from the pools, signed by its
+          proposer, ACCEPTed as gossip, imported, carrying the 4
+          aggregates, the new head. Fails unless every action and reason
+          is the expected one, every verdict the host tier's on the same
+          sets, and the card gave every verdict: the supervisor's only
+          host-tier calls the negative audits of the refused verdicts (one
+          for the tampered block, those of the batches holding the bad
+          gossip sets), no overturned verdict, deadline, retry or double
+          failure, K2p and K3-fe launched at least once per 128-set
+          facade job and a Miller kernel per per-set job, the breaker
+          closed at the end. Prints per step its seconds (for blocks the
+          chain's spans: pre-state, verdict, state transition, fork choice,
+          import), for (d) and (e) the makespan, validations per second,
+          p50, p99 and max latency, the coalesced batches and their sizes,
+          the planner paths, launches, epoch-table hits and misses, the
+          first checkpoint-state regen; the chain's launches on a line of
+          their own, and the card line.
 
-The main-path verdicts of phases 6-12e run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-12f run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
 (per part of a split one, per chunk of a flat one, per worker in phases
@@ -1695,7 +1733,8 @@ NODE_SLOT_S = 12.0
 NODE_CALLERS = 1024  # gossip validation threads, each blocked in its call
 NODE_TAMPERED = (1000, 3000)  # carry the next set's signature (same root, another key)
 NODE_BLOCK_AT = (0.0, 2.0)  # the 128-set block job's arrivals
-NODE_CUT_CALLS = 1024  # the coalesce-4096 twin: the slot's first 1 s, to keep the script's time
+NODE_CUT_CALLS = 512  # the coalesce-4096 twin: the slot's first 0.5 s, to keep the script's time
+NODE_CUT_TAMPERED = (500,)  # the twin's one tampered set, among its 512 calls
 NODE_BOOT_SLO_S = 10.0  # dashboards/slo_rules.json `serving_ready`
 NODE_SIZE_BINS = (1, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 NODE_KERNELS = ("K1", "K4", "K2", "K2p", "K3", "K3-fe")  # the preload launches each once
@@ -1911,7 +1950,7 @@ def _node_boot(torch):
 
 
 def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatcher_args=None,
-               calls: int | None = None, interleaved: bool = True):
+               calls: int | None = None, interleaved: bool = True, tampered_at=NODE_TAMPERED):
     """(b) one slot of gossip through a fresh `build_bls_stack` on cuda:0:
     4096 one-set attestation calls arriving uniformly over 4 s from a pool
     of 1024 caller threads, two of them tampered, and the 128-set block
@@ -1921,7 +1960,8 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatc
     roots interleaved, as on mainnet, where every committee attests at
     about the same moment; False: root after root (the slice's order, the
     best case for root grouping). `calls` keeps the first calls of that
-    stream only (the same arrival rate) and the tampered sets among them.
+    stream only (the same arrival rate) and the tampered sets among them;
+    `tampered_at` names the sets that carry another set's signature.
 
     Fails unless every verdict is the host tier's, the block lane shed
     nothing, no waiter timed out, every shed was prompt, and the card did
@@ -1937,12 +1977,12 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatc
     from lodestar_tpu_torch.observability import device_ledger
 
     att = list(slice_sets)
-    for k in NODE_TAMPERED:
+    for k in tampered_at:
         att = _tamper_one(att, k, "signature", k + 1)
     want = list(slice_host)
-    for k, ok in zip(NODE_TAMPERED, _host_verdicts([att[k] for k in NODE_TAMPERED])):
+    for k, ok in zip(tampered_at, _host_verdicts([att[k] for k in tampered_at])):
         want[k] = ok
-    if [k for k, ok in enumerate(want) if not ok] != list(NODE_TAMPERED):
+    if [k for k, ok in enumerate(want) if not ok] != list(tampered_at):
         raise AssertionError(f"{tag} the host tier does not reject exactly the tampered sets")
     rng = np.random.default_rng(SEED + 80)
     times = np.sort(rng.uniform(0.0, NODE_WINDOW_S, len(att)))
@@ -1951,7 +1991,7 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatc
     calls = calls or len(att)
     order, times = [int(i) for i in order[:calls]], times[:calls]
     arrived = set(order)
-    tampered = [k for k in NODE_TAMPERED if k in arrived]
+    tampered = [k for k in tampered_at if k in arrived]
     bad_ids = {id(att[k]) for k in tampered}
 
     stack = build_bls_stack(device="cuda:0", mesh=None, dispatcher_args=dispatcher_args,
@@ -2548,14 +2588,15 @@ def phase_node(torch, np, grouped, serve_batch, per_set_sets):
     out["slot"] = timed("node (b) slot 512", _node_slot, torch, np,
                         f"{tag} (b) slot, max_coalesce 512:", slice_sets, slice_host, block_sets,
                         keys)
-    # the twin: the slot's first second, root after root (the best case)
+    # the twin, cut to keep the script's time: the slot's first 0.5 s (512
+    # calls, one tampered), root after root (the best case)
     out["slot_4096"] = timed(
         "node (b) slot 4096", _node_slot, torch, np,
-        f"{tag} (b) slot's first 1 s, max_coalesce 4096, best case:", slice_sets, slice_host,
-        block_sets, keys,
+        f"{tag} (b) slot's first 0.5 s (cut), max_coalesce 4096, best case:", slice_sets,
+        slice_host, block_sets, keys,
         {"max_coalesce": 4096,
          "lane_caps": {"attestation": 4096, "aggregate": 1024, "sync_committee": 512}},
-        NODE_CUT_CALLS, False)
+        NODE_CUT_CALLS, False, NODE_CUT_TAMPERED)
     out["drills"] = timed("node (c) drills", _node_drills, torch, np, block_sets, per_set_sets)
     out["mesh_drill"] = timed("node (c) mesh drill", _node_mesh_drill, torch, np, block_sets)
     out["aot_drill"] = timed("node (e) aot drill", _node_aot_drill, torch, np, block_sets)
@@ -3183,6 +3224,7 @@ def phase_fleet(torch, np, mesh, per_set_sets, per_set_host, per_set_bad, per_se
 
 BLOCK_VALIDATORS = 16384  # 4 committees of 128 per slot on the mainnet preset
 BLOCK_PHASE0 = 3  # phase0 blocks at slots 1..3
+CHAIN_DISPATCHER = {"workers": 1, "max_sigs": 64}  # profile_chain.GOSSIP_THREADS callers
 
 
 def phase_block_import(torch, np):
@@ -3200,14 +3242,20 @@ def phase_block_import(torch, np):
     and its state transition with inline checks on the host tier refused;
     in every call no overturned verdict, deadline, retry or double
     failure, and the breaker closed at the end; and the epoch table
-    populated at the Altair boundary."""
+    populated at the Altair boundary. Returns the summary, and the stack
+    (open), the scenario and the facade's job counter for the chain
+    phase; the stack is closed here only when the phase fails."""
     from lodestar_tpu_torch import profile_block
     from lodestar_tpu_torch.native import install_ssz_backend
     from lodestar_tpu_torch.node.bls_stack import build_bls_stack
 
     install_ssz_backend()
     t0 = time.perf_counter()
-    stack = build_bls_stack(device="cuda")
+    # one lane worker flushing at 64 sets: the chain phase's 64 gossip
+    # callers coalesce into one batch while a verdict runs (the supervisor
+    # serves one batch at a time, so a second worker, or a flush at the
+    # default 32, splits them in two); block import goes past the lanes
+    stack = build_bls_stack(device="cuda", dispatcher_args=CHAIN_DISPATCHER)
     build_s = time.perf_counter() - t0
     jobs = _counting(stack.device._inner, "verify_signature_sets",
                      "verify_signature_sets_individual")
@@ -3220,8 +3268,16 @@ def phase_block_import(torch, np):
                                                if not k.endswith("_s")},
                                 log=log)
         breaker = stack.supervisor.breaker_state
-    finally:
+        summary = _check_block_import(out, breaker, per_job, build_s)
+    except BaseException:
         stack.close()
+        raise
+    return summary, stack, out["scenario"], jobs
+
+
+def _check_block_import(out, breaker, per_job, build_s):
+    from lodestar_tpu_torch import profile_block
+
     pop = out["populate"]
     if "error" in pop or pop.get("rows") != BLOCK_VALIDATORS:
         raise AssertionError(f"block_import: epoch table population {pop}")
@@ -3276,6 +3332,61 @@ def phase_block_import(torch, np):
     return {**profile_block.summary(out), "stack_build_s": build_s}
 
 
+def _chain_jobs(rec, tag, audits):
+    """The card gave the step's verdicts: the supervisor moved no count but
+    negative audits (exactly `audits` of them when it is an int, at least
+    one when it is "some", none when 0), K2p and K3-fe launched at least
+    once per facade batch job and K2p or K3 once per per-set job."""
+    sup = dict(rec["supervisor"])
+    n_audits = sup.pop("fallback_negative_audit", 0)
+    if sup or (n_audits != audits if isinstance(audits, int) else not n_audits):
+        raise AssertionError(f"chain {tag}: the supervisor {rec['supervisor']} "
+                             f"(negative audits expected: {audits})")
+    jobs = rec["probe"].get("verify_signature_sets", 0)
+    per_set = rec["probe"].get("verify_signature_sets_individual", 0)
+    if not jobs:
+        raise AssertionError(f"chain {tag}: no facade job ran ({rec['probe']})")
+    _need(rec["launches"], f"chain {tag}", "K2p", "K3-fe")
+    miller = rec["launches"]["K2p"] + rec["launches"]["K3"]
+    if min(rec["launches"]["K2p"], rec["launches"]["K3-fe"]) < jobs or miller < jobs + per_set:
+        raise AssertionError(f"chain {tag}: launches {rec['launches']} for {jobs} facade jobs "
+                             f"and {per_set} per-set jobs")
+
+
+def phase_chain(torch, np, stack, scenario, jobs):
+    """The chain (`profile_chain.run`) on block_import's genesis, blocks
+    and stack, every check of the module docstring's 12f; closes the
+    stack."""
+    from lodestar_tpu_torch import profile_chain
+
+    try:
+        out = profile_chain.run(stack.verifier, scenario=scenario, observer=stack.pipeline,
+                                sync=torch.cuda.synchronize,
+                                probe=lambda: {k: v for k, v in jobs.items()
+                                               if not k.endswith("_s")},
+                                log=log)
+        breaker = stack.supervisor.breaker_state
+    finally:
+        stack.close()
+    profile_chain.log_steps(out, log)
+    if out["failures"]:
+        raise AssertionError(f"chain: {out['failures']}")
+    if breaker != "closed":
+        raise AssertionError(f"chain: the supervisor's breaker is {breaker}")
+    steps = out["steps"]
+    for name, audits in (("segment", 0), ("tampered", 1), ("altair", 0),
+                         ("attestations", "some"), ("aggregates", "some"), ("produce", 0)):
+        _chain_jobs(steps[name], name, audits)
+    att = steps["attestations"]
+    if "root_grouped" not in att["paths"]:
+        log(f"[chain] the attestation batches did not go root_grouped: paths {att['paths']}")
+    launches = Counter()
+    for rec in steps.values():
+        launches.update(rec["launches"])
+    log(f"[chain] launches in the chain phase: {json.dumps(dict(launches))}; card: {card_line()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3320,7 +3431,8 @@ def main() -> int:
     node = timed("node", phase_node, torch, np, grouped, serve["batch"], sets)
     mesh = timed("mesh", phase_mesh, torch, np, grouped, pk["batch"], sets, host_ok, bad, host_bad)
     fleet = timed("fleet", phase_fleet, torch, np, mesh, sets, host_ok, bad, host_bad)
-    blocks = timed("block_import", phase_block_import, torch, np)
+    blocks, chain_stack, scenario, chain_jobs = timed("block_import", phase_block_import, torch, np)
+    chain = timed("chain", phase_chain, torch, np, chain_stack, scenario, chain_jobs)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -3394,6 +3506,17 @@ def main() -> int:
                     for r in blocks["blocks"])
         + f"; epoch table {blocks['populate']['rows']} rows in {blocks['populate']['seconds']:.3f} s"
         f"; script {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
+    st = chain["steps"]
+    log(f"[summary] chain ({chain['validators']} validators, {chain['preset']}): init "
+        f"{chain['chain_init_s']:.3f} s; "
+        + "; ".join(f"{k} {st[k]['seconds']:.3f} s" for k in st)
+        + "; " + "; ".join(
+            f"{k} {st[k]['calls']} calls in {st[k]['makespan_s']:.3f} s "
+            f"({st[k]['validations_per_s']:.1f}/s, p50 {st[k]['latency_p50_s']:.4f} p99 "
+            f"{st[k]['latency_p99_s']:.4f} max {st[k]['latency_max_s']:.4f} s, "
+            f"{st[k]['batches']} batches, largest {max(st[k]['batch_sizes'], default=0)})"
+            for k in ("attestations", "aggregates"))
+        + f"; script {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
     log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "

@@ -26,6 +26,10 @@ a conversion is a dtype- and shape-checked copy onto a device.
 - `ssz_from_jax(obj, port_type)` / `ssz_to_jax(obj, jax_type)` — an SSZ
   container (a state, a block) of one package → the other's, through its
   serialized bytes.
+- `fork_choice_from_jax(jax_fork_choice)` — a JAX `ForkChoice` (its
+  `ProtoArray` nodes, indices and weights, its votes, balances, queued
+  attestations and store checkpoints) → the port's, as numpy arrays,
+  ints and bytes, so a script run halfway in JAX can finish in both.
 
 The port never imports the JAX package; callers (the tests) pass its
 arrays and types in.
@@ -180,3 +184,69 @@ def ssz_to_jax(obj, jax_type):
     `jax_type` (which the caller passes in), through the serialized
     bytes."""
     return jax_type.deserialize(obj.serialize())
+
+
+def _plain(value):
+    """A JAX fork-choice field → plain Python and numpy: arrays copied as
+    int64, bytes kept, tuples, lists, sets and dicts converted item by
+    item."""
+    if value is None or isinstance(value, (bool, str)):
+        return value
+    if isinstance(value, (bytes, bytearray)):
+        return bytes(value)
+    if isinstance(value, np.ndarray):
+        return np.array(value, np.int64)
+    if isinstance(value, (int, np.integer)):
+        return int(value)
+    if isinstance(value, tuple):
+        return tuple(_plain(v) for v in value)
+    if isinstance(value, list):
+        return [_plain(v) for v in value]
+    if isinstance(value, set):
+        return {_plain(v) for v in value}
+    if isinstance(value, dict):
+        return {_plain(k): _plain(v) for k, v in value.items()}
+    raise TypeError(f"no conversion for {type(value).__name__}")
+
+
+# the mutable state of a ForkChoice beside its store and proto-array
+_FORK_CHOICE_STATE = (
+    "proposer_boost_root", "_justified_proposer_boost_score", "_vote_current",
+    "_vote_next", "_vote_current_root", "_vote_next_epoch", "_equivocating",
+    "_queued_attestations", "_balances_used", "head_root",
+)
+
+
+def fork_choice_from_jax(jfc, justified_balances_getter=None):
+    """A JAX `ForkChoice` → the port's `ForkChoice` in the same state: the
+    proto-array's nodes (in order), indices, weights, epochs and boost
+    bookkeeping, the store's checkpoints and balances, the votes, the
+    equivocating set and the queued attestations. The JAX object is left
+    as it is. `justified_balances_getter` is the port chain's, when the
+    fork choice serves one."""
+    import dataclasses
+
+    from .fork_choice import ForkChoice, ForkChoiceStore, ProtoArray, ProtoNode
+
+    jp = jfc.proto
+    proto = ProtoArray(int(jp.justified_epoch), int(jp.finalized_epoch),
+                       int(jp.slots_per_epoch))
+    proto.nodes = [ProtoNode(**{f.name: _plain(getattr(n, f.name))
+                                for f in dataclasses.fields(ProtoNode)}) for n in jp.nodes]
+    proto.indices = _plain(jp.indices)
+    proto.weights = _plain(jp.weights)
+    proto.current_slot = int(jp.current_slot)
+    proto.previous_proposer_boost = _plain(jp.previous_proposer_boost)
+    proto.prune_threshold = int(jp.prune_threshold)
+    store = ForkChoiceStore(**{f.name: _plain(getattr(jfc.store, f.name))
+                               for f in dataclasses.fields(ForkChoiceStore)})
+    fc = ForkChoice(store, proto, int(jfc.slots_per_epoch),
+                    seconds_per_slot=int(jfc.seconds_per_slot),
+                    proposer_score_boost=int(jfc.proposer_score_boost),
+                    safe_slots_to_update_justified=int(jfc.safe_slots_to_update_justified),
+                    proposer_boost_enabled=bool(jfc.proposer_boost_enabled),
+                    justified_balances_getter=justified_balances_getter)
+    proto.current_slot = int(jp.current_slot)
+    for name in _FORK_CHOICE_STATE:
+        setattr(fc, name, _plain(getattr(jfc, name)))
+    return fc

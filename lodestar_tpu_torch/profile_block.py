@@ -393,25 +393,16 @@ def host_verdicts(sets, threads: int | None = None) -> list[bool]:
         threads=threads or os.cpu_count() or 1)
 
 
-def run(stack_verifier, *, validators: int, blocks: int, preset=None, swap=(5, 77),
-        populate=None, observer=None, sync=None, probe=None, log=print) -> dict:
-    """The whole scenario through `stack_verifier`: genesis, the blocks,
-    their import in order (`populate(epoch, pubkeys)` at the Altair
-    boundary, if given) and the tampered block. Returns the records and
-    the checks' inputs; raises if a valid block fails to import or the
-    tampered one does not fail. `swap` names the Altair block's two
-    attestations whose signatures the tampered copy swaps; the verifier's
-    `verify_signature_sets_individual` gives its per-set verdicts, with
-    what they moved in `observer`'s and `probe()`'s counts and their
-    launches under "individual_*"."""
-    from .parallel.mesh_pool import launch_counts
+def make_scenario(*, validators: int, blocks: int, preset=None, swap=(5, 77),
+                  log=print) -> dict:
+    """The scenario's genesis and blocks, made once: a dict of the config,
+    the genesis `CachedBeaconState`, the phase0 blocks, the Altair block,
+    its tampered copy, the swapped indices and the seconds of each step
+    ("setup"). `run` and `profile_chain.run` take it, so that a script
+    running both makes one genesis."""
     from .params import MAINNET
-    from .state_transition import state_transition
-    from .state_transition.block import BlockProcessingError
-    from .state_transition.stf import fork_types
 
     preset = preset or MAINNET
-    out: dict = {"validators": validators, "preset": preset.PRESET_BASE, "blocks": []}
     t0 = time.perf_counter()
     config, genesis, genesis_s = interop_chain(block_import_config(), preset, validators)
     t1 = time.perf_counter()
@@ -421,10 +412,41 @@ def run(stack_verifier, *, validators: int, blocks: int, preset=None, swap=(5, 7
         phase0, altair, tampered, swap, make_s = make_blocks(factory, genesis, blocks, swap)
     finally:
         factory.close()
-    out["setup"] = {**genesis_s, "genesis_total_s": t1 - t0, "keys_s": t2 - t1,
-                    "blocks_s": make_s, "total_s": time.perf_counter() - t0}
+    setup = {**genesis_s, "genesis_total_s": t1 - t0, "keys_s": t2 - t1,
+             "blocks_s": make_s, "total_s": time.perf_counter() - t0}
     log(f"[block] setup {validators} validators ({preset.PRESET_BASE}): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in out["setup"].items()))
+        + ", ".join(f"{k} {v:.3f}" for k, v in setup.items()))
+    return {"validators": validators, "preset": preset, "config": config, "genesis": genesis,
+            "phase0": phase0, "altair": altair, "tampered": tampered, "swap": swap,
+            "setup": setup}
+
+
+def run(stack_verifier, *, validators: int, blocks: int, preset=None, swap=(5, 77),
+        populate=None, observer=None, sync=None, probe=None, scenario=None,
+        log=print) -> dict:
+    """The whole scenario through `stack_verifier`: genesis, the blocks
+    (`scenario`, made by `make_scenario` when not given), their import in
+    order (`populate(epoch, pubkeys)` at the Altair boundary, if given)
+    and the tampered block. Returns the records and the checks' inputs,
+    the scenario under "scenario"; raises if a valid block fails to
+    import or the tampered one does not fail. `swap` names the Altair
+    block's two attestations whose signatures the tampered copy swaps;
+    the verifier's `verify_signature_sets_individual` gives its per-set
+    verdicts, with what they moved in `observer`'s and `probe()`'s counts
+    and their launches under "individual_*"."""
+    from .parallel.mesh_pool import launch_counts
+    from .state_transition import state_transition
+    from .state_transition.block import BlockProcessingError
+    from .state_transition.stf import fork_types
+
+    if scenario is None:
+        scenario = make_scenario(validators=validators, blocks=blocks, preset=preset,
+                                 swap=swap, log=log)
+    genesis, phase0, altair = scenario["genesis"], scenario["phase0"], scenario["altair"]
+    tampered, swap, config = scenario["tampered"], scenario["swap"], scenario["config"]
+    out: dict = {"validators": scenario["validators"],
+                 "preset": scenario["preset"].PRESET_BASE, "blocks": [],
+                 "setup": scenario["setup"], "scenario": scenario}
 
     pool = ThreadPoolExecutor(1)
     try:
@@ -432,7 +454,7 @@ def run(stack_verifier, *, validators: int, blocks: int, preset=None, swap=(5, 7
         for signed in phase0 + [altair]:
             if signed is altair and populate is not None:
                 keys = [bytes(pk) for pk in state.flat.pubkeys]
-                out["populate"] = populate(factory.config.ALTAIR_FORK_EPOCH, keys)
+                out["populate"] = populate(config.ALTAIR_FORK_EPOCH, keys)
                 log(f"[block] epoch table populated at the boundary: {out['populate']}")
             parent = state
             state, rec = import_block(parent, signed, stack_verifier, pool, observer, sync, probe)
@@ -506,9 +528,10 @@ def stack_populate(stack, timeout: float | None = None):
 
 
 def summary(out: dict) -> dict:
-    """The run's records without the sets, for JSON."""
-    return {**out, "blocks": [{k: v for k, v in rec.items() if k != "signature_sets"}
-                              for rec in out["blocks"]]}
+    """The run's records without the sets and the scenario, for JSON."""
+    return {**{k: v for k, v in out.items() if k != "scenario"},
+            "blocks": [{k: v for k, v in rec.items() if k != "signature_sets"}
+                       for rec in out["blocks"]]}
 
 
 def main(argv=None) -> int:

@@ -4,8 +4,10 @@ importing the serving seams alone: the facade and the epoch table, nor
 the observability modules alone, nor the serving stack alone, nor the
 lifecycle spans and the library store alone, nor a spawned mesh worker,
 nor block import's host layer alone: params, config, SSZ, types, the
-state transition and `profile_block`), no module of it reads a
-`LODESTAR_TPU_*` variable (the host layer's none at all)
+state transition and `profile_block`, nor the chain alone: `BeaconChain`,
+the gossip validators, fork choice and `profile_chain`), no module of it
+reads a `LODESTAR_TPU_*` variable (the host layer's and the chain's none
+at all, and `LODESTAR_TPU_IMPORT_WAIT_TIMEOUT` set changes nothing)
 (the serving stack's none at all), and the verifier's entry points do
 not fall back to the CPU unasked."""
 
@@ -52,7 +54,8 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "observability.runtime", "observability.spans", "ops.aot_store",
                  "metrics.registry", "parallel.mesh",
                  "parallel.mesh_pool", "parallel.sharded", "parallel.fleet",
-                 "parallel.fleet_host") + SERVING_MODULES + HOST_LAYER_MODULES:
+                 "parallel.fleet_host") + SERVING_MODULES + HOST_LAYER_MODULES \
+            + CHAIN_MODULES:
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
 
 
@@ -95,6 +98,46 @@ def test_host_layer_loads_no_jax_and_reads_no_environment():
         with open(path) as f:
             text = f.read()
         assert not re.search(r"\b(environ|getenv|putenv|env_str)\b", text), path
+
+
+# the chain: none reads any environment variable at all
+CHAIN_MODULES = (
+    "fork_choice", "fork_choice.proto_array", "fork_choice.fork_choice",
+    "state_transition.unrealized", "chain", "chain.chain", "chain.validation",
+    "chain.clock", "chain.state_cache", "chain.seen_cache", "chain.proposer_cache",
+    "chain.emitter", "chain.reprocess", "chain.op_pools", "chain.regen", "chain.archiver",
+    "chain.prepare_next_slot", "db", "db.controller", "db.repository", "db.beacon",
+    "light_client", "light_client.server", "profile_chain")
+
+CHAIN_PROBE = r"""
+import inspect, json, sys
+import lodestar_tpu_torch.chain.chain, lodestar_tpu_torch.chain.validation
+import lodestar_tpu_torch.fork_choice, lodestar_tpu_torch.profile_chain
+from lodestar_tpu_torch.chain.chain import BeaconChain, _bounded_result
+wait = inspect.signature(BeaconChain).parameters["import_wait_timeout_s"].default
+bound = inspect.signature(_bounded_result).parameters["timeout"].default
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu."))
+print(json.dumps({"bad": bad, "wait": wait, "bound": bound}))
+"""
+
+
+def test_chain_loads_no_jax_and_reads_no_environment():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["LODESTAR_TPU_IMPORT_WAIT_TIMEOUT"] = "1.5"  # the JAX chain's knob: the port ignores it
+    out = subprocess.run(
+        [sys.executable, "-c", CHAIN_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "bad": [], "wait": 300.0, "bound": 300.0}
+    for name in CHAIN_MODULES:
+        path = os.path.join(REPO, "lodestar_tpu_torch", *name.split("."))
+        path = path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"\b(environ|getenv|putenv|env_str|env_float)\b", text), path
 
 
 # the serving stack's modules: none reads any environment variable at all

@@ -59,12 +59,15 @@ def port_chain(n: int = N, plan=PLAN, threads: int = 2) -> Chain:
     return chain
 
 
-def jax_genesis(n: int = N):
-    """(JAX BeaconConfig, JAX CachedBeaconState) of the same genesis."""
+def jax_genesis(n: int = N, chain_config=None):
+    """(JAX BeaconConfig, JAX CachedBeaconState) of the same genesis
+    (`chain_config`: a JAX chain config, `jax_chain_config()` when not
+    given)."""
     t = jget_types(JMINIMAL)
-    state = j_interop_genesis(JChainForkConfig(jax_chain_config(), JMINIMAL), t.phase0, n,
+    chain_config = chain_config or jax_chain_config()
+    state = j_interop_genesis(JChainForkConfig(chain_config, JMINIMAL), t.phase0, n,
                               genesis_time=profile_block.GENESIS_TIME)
-    config = JBeaconConfig(jax_chain_config(), bytes(state.genesis_validators_root), JMINIMAL)
+    config = JBeaconConfig(chain_config, bytes(state.genesis_validators_root), JMINIMAL)
     return config, JCached(config, state, JMINIMAL)
 
 
