@@ -145,8 +145,10 @@ it runs the single-device path it names on a host of any card count):
           defaults: the epoch table populated on its daemon thread with
           32,768 keys (the slice phase's 4096, 28,672 from sk_to_pk, the
           block job's 128) while the calls arrive; the slice's 4096 sets as
-          4096 one-set attestation calls, uniform over 4 s, from 1024 caller
-          threads, two of them carrying another key's signature; serve-128's
+          one-set attestation calls, uniform over 4 s, from 1024 caller
+          threads, of which the first 2 s run (2048 calls, cut from the
+          whole slot of PRs 14–17 to make room for the capella phase), the
+          set arriving 1000th carrying another key's signature; serve-128's
           job on the block lane at 0 s and 2 s, each run as block import
           runs a block (a root `chain/process_block` span, its context
           handed to a worker thread that opens `chain/bls_verify` around
@@ -154,7 +156,7 @@ it runs the single-device path it names on a host of any card count):
           under `chain/bls_verify` in each, and `/metrics`
           `lodestar_lifecycle_traces_total` equal to the traces finished.
           Every verdict the host
-          tier's (exactly the two tampered calls False), no block shed, no
+          tier's (exactly the tampered call False), no block shed, no
           waiter timeout, every shed under 1 s, K1, K2p and K3-fe launched;
           reports the makespan against 12 s, attestation sets/s, block p50
           and max, sheds, coalesced batch sizes, lane_overlap_fraction, the
@@ -165,7 +167,7 @@ it runs the single-device path it names on a host of any card count):
           calls arrive in a seeded shuffle (the 64 committees' roots
           interleaved, as on mainnet). The card must have done the work:
           the supervisor's only fallbacks are the two negative audits of
-          each batch that held a tampered set, with no verdict mismatch,
+          the batch that held the tampered set, with no verdict mismatch,
           deadline, retry or double failure, the breaker closed, and K2p
           launched at least once per 128-set job the facade ran. Then
           the slot's first 0.5 s (512 calls, set 500 tampered) again
@@ -317,9 +319,46 @@ it runs the single-device path it names on a host of any card count):
           p50, p99 and max latency, the coalesced batches and their sizes,
           the planner paths, launches, epoch-table hits and misses, the
           first checkpoint-state regen; the chain's launches on a line of
-          their own, and the card line.
+          their own, and the card line. It leaves its stack to the capella
+          phase.
+12g. capella  a post-merge Capella chain (`profile_capella.run`) on
+          block_import's genesis and stack: (a) a copy of the genesis
+          under Altair at 1, Bellatrix at 2 and Capella at 3 advanced by
+          `process_slots` to slot 96 (each epoch transition timed): fork
+          Capella, the default payload header, withdrawal cursors 0; then
+          the genesis upgraded at slot 0 to Altair, Bellatrix and Capella
+          (all at epoch 0), the header anchored at an EL genesis hash and
+          the genesis time, validators 0-63 given an excess of 1,000,000
+          Gwei, and a `BeaconChain` with an `ExecutionEngineMock` on the
+          stack. (b) slot 1: 32 signed BLS-to-execution changes
+          (validators 0-31) and the 512-member sync contributions in the
+          pools; `produce_block` builds the payload through the engine;
+          the block (16 changes, a full sync aggregate: 19 sets) ACCEPTed
+          as gossip and imported: validators 0-15 hold 0x01 credentials,
+          the engine's head is the payload's hash. (c) slot 2: one
+          aggregate per committee of slot 1 through the attestation pool,
+          a block with them and changes 16-31 whose payload withdraws the
+          excess of validators 0-15 (16 withdrawals after a timed sweep
+          over 16,384 validators): the amounts, the debited balances and
+          `next_withdrawal_index` 16. (d) a slot-3 block one of whose
+          changes carries another change's signature, re-rooted and
+          re-signed: verdict False as on the host tier, the per-set
+          verdicts blaming exactly that set, the import refused, the head
+          kept. (e) a slot-3 block whose payload the engine calls
+          INVALID: the import refused on the payload with the verdict
+          True, fork choice without the block. (f) `prepare_next_slot`
+          opens a building session for slot 3; the block produced from the
+          prepared state imports as head and the engine's head follows.
+          Every step with a verdict: each verdict the host tier's, the
+          card's (the supervisor's only host-tier calls the negative
+          audits of the tampered step, the facade's jobs those the set
+          counts imply, K2p and K3-fe launched at least once per job), the
+          breaker closed at the end; closes the stack. Prints each step's
+          seconds (produce, gossip, import and the chain's spans), the
+          sweep's, the planner paths and launches, and a `[summary]
+          capella` line with the card.
 
-The main-path verdicts of phases 6-12f run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-12g run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
 (per part of a split one, per chunk of a flat one, per worker in phases
@@ -1732,6 +1771,8 @@ NODE_WINDOW_S = 4.0  # attestations arrive over the first third of the 12 s slot
 NODE_SLOT_S = 12.0
 NODE_CALLERS = 1024  # gossip validation threads, each blocked in its call
 NODE_TAMPERED = (1000, 3000)  # carry the next set's signature (same root, another key)
+NODE_MAIN_CALLS = 2048  # the coalesce-512 slot: its first 2 s, to make room for the capella phase
+NODE_MAIN_TAMPERED_AT = 1000  # the arrival whose set is tampered among those 2048 calls
 NODE_BLOCK_AT = (0.0, 2.0)  # the 128-set block job's arrivals
 NODE_CUT_CALLS = 512  # the coalesce-4096 twin: the slot's first 0.5 s, to keep the script's time
 NODE_CUT_TAMPERED = (500,)  # the twin's one tampered set, among its 512 calls
@@ -1949,6 +1990,16 @@ def _node_boot(torch):
     return doc
 
 
+def _node_order(np, n: int, interleaved: bool):
+    """(order, times) of a slot's n one-set calls: order[j] is the set that
+    arrives j-th, at times[j] seconds, over the gossip window; in a seeded
+    shuffle when `interleaved`, else root after root."""
+    rng = np.random.default_rng(SEED + 80)
+    times = np.sort(rng.uniform(0.0, NODE_WINDOW_S, n))
+    order = rng.permutation(n) if interleaved else np.arange(n)
+    return order, times
+
+
 def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatcher_args=None,
                calls: int | None = None, interleaved: bool = True, tampered_at=NODE_TAMPERED):
     """(b) one slot of gossip through a fresh `build_bls_stack` on cuda:0:
@@ -1984,10 +2035,7 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatc
         want[k] = ok
     if [k for k, ok in enumerate(want) if not ok] != list(tampered_at):
         raise AssertionError(f"{tag} the host tier does not reject exactly the tampered sets")
-    rng = np.random.default_rng(SEED + 80)
-    times = np.sort(rng.uniform(0.0, NODE_WINDOW_S, len(att)))
-    # order[j] is the set that arrives j-th, at times[j]
-    order = rng.permutation(len(att)) if interleaved else np.arange(len(att))
+    order, times = _node_order(np, len(att), interleaved)
     calls = calls or len(att)
     order, times = [int(i) for i in order[:calls]], times[:calls]
     arrived = set(order)
@@ -2574,8 +2622,8 @@ def _node_mesh_drill(torch, np, serve_sets):
 
 def phase_node(torch, np, grouped, serve_batch, per_set_sets):
     """12b. the port's serving stack: (a) the warm-boot ladder in a
-    subprocess, (b) one slot of gossip at the JAX defaults and again with
-    coalescing up to 4096, (c) the supervisor's drills and the mesh drill,
+    subprocess, (b) the first 2 s of one slot of gossip at the JAX
+    defaults and its first 0.5 s with coalescing up to 4096, (c) the supervisor's drills and the mesh drill,
     (d) the scrape, (e) the ahead-of-time store's drill, and the host cost
     of a lifecycle span."""
     tag = "[node]"
@@ -2585,9 +2633,13 @@ def phase_node(torch, np, grouped, serve_batch, per_set_sets):
         raise AssertionError(f"{tag} the host tier rejects the block job")
     out = {"boot": timed("node (a) boot", _node_boot, torch)}
     keys = _node_keys(np, slice_sets, block_sets)
+    # the slot's first 2 s (2048 calls, one tampered), cut to keep the
+    # script's time
+    order, _ = _node_order(np, len(slice_sets), True)
     out["slot"] = timed("node (b) slot 512", _node_slot, torch, np,
-                        f"{tag} (b) slot, max_coalesce 512:", slice_sets, slice_host, block_sets,
-                        keys)
+                        f"{tag} (b) slot's first 2 s (cut), max_coalesce 512:", slice_sets,
+                        slice_host, block_sets, keys, None, NODE_MAIN_CALLS, True,
+                        (int(order[NODE_MAIN_TAMPERED_AT]),))
     # the twin, cut to keep the script's time: the slot's first 0.5 s (512
     # calls, one tampered), root after root (the best case)
     out["slot_4096"] = timed(
@@ -3355,19 +3407,24 @@ def _chain_jobs(rec, tag, audits):
 
 def phase_chain(torch, np, stack, scenario, jobs):
     """The chain (`profile_chain.run`) on block_import's genesis, blocks
-    and stack, every check of the module docstring's 12f; closes the
-    stack."""
+    and stack, every check of the module docstring's 12f; leaves the stack
+    to the capella phase (closes it only when this phase fails)."""
+    try:
+        return _chain_phase(torch, stack, scenario, jobs)
+    except BaseException:
+        stack.close()
+        raise
+
+
+def _chain_phase(torch, stack, scenario, jobs):
     from lodestar_tpu_torch import profile_chain
 
-    try:
-        out = profile_chain.run(stack.verifier, scenario=scenario, observer=stack.pipeline,
-                                sync=torch.cuda.synchronize,
-                                probe=lambda: {k: v for k, v in jobs.items()
-                                               if not k.endswith("_s")},
-                                log=log)
-        breaker = stack.supervisor.breaker_state
-    finally:
-        stack.close()
+    out = profile_chain.run(stack.verifier, scenario=scenario, observer=stack.pipeline,
+                            sync=torch.cuda.synchronize,
+                            probe=lambda: {k: v for k, v in jobs.items()
+                                           if not k.endswith("_s")},
+                            log=log)
+    breaker = stack.supervisor.breaker_state
     profile_chain.log_steps(out, log)
     if out["failures"]:
         raise AssertionError(f"chain: {out['failures']}")
@@ -3384,6 +3441,57 @@ def phase_chain(torch, np, stack, scenario, jobs):
     for rec in steps.values():
         launches.update(rec["launches"])
     log(f"[chain] launches in the chain phase: {json.dumps(dict(launches))}; card: {card_line()}")
+    return out
+
+
+CAPELLA_STEPS = (("slot1", 0), ("slot2", 0), ("tampered", 2), ("invalid_payload", 0),
+                 ("prepare", 0))  # the step and its negative audits: the verdict's and the blame's
+
+
+def phase_capella(torch, np, stack, scenario, jobs):
+    """12g. a post-merge Capella chain (`profile_capella.run`) on
+    block_import's genesis and the chain phase's stack, every check of the
+    module docstring's 12g; closes the stack."""
+    from lodestar_tpu_torch import profile_capella
+    from lodestar_tpu_torch.params import MAINNET
+
+    per_job = stack.device.max_sets_per_job
+    try:
+        out = profile_capella.run(stack.verifier, scenario=scenario, observer=stack.pipeline,
+                                  sync=torch.cuda.synchronize,
+                                  probe=lambda: {k: v for k, v in jobs.items()
+                                                 if not k.endswith("_s")},
+                                  log=log)
+        breaker = stack.supervisor.breaker_state
+    finally:
+        stack.close()
+    profile_capella.log_steps(out, log)
+    if out["failures"]:
+        raise AssertionError(f"capella: {out['failures']}")
+    if breaker != "closed":
+        raise AssertionError(f"capella: the supervisor's breaker is {breaker}")
+    steps = out["steps"]
+    for name, audits in CAPELLA_STEPS:
+        rec = steps[name]
+        _chain_jobs(rec, f"capella {name}", audits)
+        want = {"verify_signature_sets": sum(-(-n // per_job) for n in rec["batch_call_sets"]),
+                "verify_signature_sets_individual": sum(
+                    -(-n // per_job) for n in rec["individual_call_sets"])}
+        got = {k: rec["probe"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"capella {name}: facade jobs {got}, the set counts imply {want}")
+    p, slot2 = MAINNET, steps["slot2"]
+    if steps["slot1"]["sets"] != 3 + p.MAX_BLS_TO_EXECUTION_CHANGES:
+        raise AssertionError(f"capella slot1: {steps['slot1']['sets']} sets")
+    if len(slot2["withdrawals"]) != p.MAX_WITHDRAWALS_PER_PAYLOAD \
+            or slot2["sweep_validators"] != BLOCK_VALIDATORS:
+        raise AssertionError(f"capella slot2: {len(slot2['withdrawals'])} withdrawals after a "
+                             f"sweep of {slot2['sweep_validators']} validators")
+    launches = Counter()
+    for name, _ in CAPELLA_STEPS:
+        launches.update(steps[name]["launches"])
+    log(f"[capella] launches in the capella phase: {json.dumps(dict(launches))}; "
+        f"card: {card_line()}")
     return out
 
 
@@ -3433,6 +3541,7 @@ def main() -> int:
     fleet = timed("fleet", phase_fleet, torch, np, mesh, sets, host_ok, bad, host_bad)
     blocks, chain_stack, scenario, chain_jobs = timed("block_import", phase_block_import, torch, np)
     chain = timed("chain", phase_chain, torch, np, chain_stack, scenario, chain_jobs)
+    capella = timed("capella", phase_capella, torch, np, chain_stack, scenario, chain_jobs)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -3517,6 +3626,23 @@ def main() -> int:
             f"{st[k]['batches']} batches, largest {max(st[k]['batch_sizes'], default=0)})"
             for k in ("attestations", "aggregates"))
         + f"; script {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
+    st, setup = capella["steps"], capella["setup"]
+    log(f"[summary] capella ({capella['validators']} validators, {capella['preset']}): upgrades "
+        + ", ".join(f"epoch {e['epoch']} {e['seconds']:.3f} s" for e in st["upgrades"]["epochs"])
+        + f"; capella state {setup['capella_state_s']:.3f} s, chain init "
+        f"{setup['chain_init_s']:.3f} s; "
+        + "; ".join(f"{k} {st[k]['seconds']:.3f} s ({st[k]['sets']} sets"
+                    + (f", produce {st[k]['produce_s']:.3f} s" if "produce_s" in st[k] else "")
+                    + (f", verdict {st[k]['bls_verify_s']:.3f} s" if "bls_verify_s" in st[k]
+                       else "")
+                    + (f", process_block {st[k]['process_block_s']:.3f} s"
+                       if "process_block_s" in st[k] else "")
+                    + f", paths {sorted(st[k]['paths'])})"
+                    for k, _ in CAPELLA_STEPS)
+        + f"; sweep of {st['slot2']['sweep_validators']} validators "
+        f"{st['slot2']['sweep_s']:.4f} s, {len(st['slot2']['withdrawals'])} withdrawals; phase "
+        f"{PHASE_SECONDS['capella']:.1f} s; script {time.perf_counter() - t_start:.1f} s; "
+        f"card: {card_line()}")
     log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "

@@ -1,13 +1,11 @@
 """BeaconChain: the chain aggregate + block import pipeline.
 
 The port's copy of `lodestar_tpu/chain/chain.py`. It departs from it in
-three places: with no verifier it builds the port's serving stack
+two places: with no verifier it builds the port's serving stack
 (`node.bls_stack.build_bls_stack(device)`, the GPU unless `device` says
 otherwise, raising without one) and serves through its lane dispatcher;
-the import wait's bound is the `import_wait_timeout_s` argument (≤ 0
-disables it), not an environment variable; and where the JAX chain
-reaches Bellatrix or Capella (the execution payload's check and
-production, `build_payload_attributes`) it raises `NotImplementedError`.
+and the import wait's bound is the `import_wait_timeout_s` argument (≤ 0
+disables it), not an environment variable.
 
 Reference: `chain/chain.ts:66` (BeaconChain), `chain/blocks/` (BlockProcessor
 → verifyBlocksSanityChecks → verifyBlocksInEpoch [state transition ∥
@@ -578,9 +576,47 @@ class BeaconChain:
         import records the right optimistic execution_status."""
         if self.execution_engine is None or not post.is_execution:
             return None
-        raise NotImplementedError(
-            "the execution payload check (Bellatrix, Capella) is not ported"
-        )
+        from ..execution.engine import ExecutePayloadStatus
+        from ..state_transition.bellatrix import has_execution_payload
+
+        body = signed_block.message.body
+        if not has_execution_payload(body):
+            return None  # pre-merge empty payload: nothing for the EL
+        status = self.execution_engine.notify_new_payload(body.execution_payload)
+        if status in (ExecutePayloadStatus.INVALID, ExecutePayloadStatus.INVALID_BLOCK_HASH):
+            # optimistic-sync invalidation: with a RESOLVABLE
+            # latestValidHash, ancestors after the LVH block (and their
+            # descendants) become non-viable (reference LVH walk —
+            # round-1 VERDICT fork-choice gap). An unresolvable LVH
+            # invalidates NOTHING extra: the offending block was never
+            # imported, and guessing would brick a valid head.
+            lvh = getattr(self.execution_engine, "last_latest_valid_hash", None)
+            lvh_root = self._block_root_of_payload(lvh) if lvh else None
+            if lvh_root is not None:
+                parent_root = bytes(signed_block.message.parent_root)
+                invalidated = self.fork_choice.proto.invalidate_payloads(
+                    parent_root, lvh_root
+                )
+                if invalidated:
+                    _log.warning(
+                        "engine INVALID invalidated %d optimistic ancestors",
+                        len(invalidated),
+                    )
+            raise BlockImportError(f"execution payload invalid: {status}")
+        return status
+
+    def _block_root_of_payload(self, block_hash: bytes) -> bytes | None:
+        """Beacon block root whose payload has `block_hash` (walks the hot
+        blocks; None when unknown — then only the offending head is
+        invalidated)."""
+        for root, signed in self.blocks.items():
+            if signed is None:
+                continue
+            body = signed.message.body
+            payload = getattr(body, "execution_payload", None)
+            if payload is not None and bytes(payload.block_hash) == block_hash:
+                return root
+        return None
 
     def _justified_balances_for(self, checkpoint):
         """Effective balances of the checkpoint's OWN state for fork-choice
@@ -857,9 +893,24 @@ class BeaconChain:
         engine_forkchoiceUpdated on head change, importBlock.ts)."""
         if self.execution_engine is None or not self.head_state.is_execution:
             return
-        raise NotImplementedError(
-            "the engine's forkchoice update (Bellatrix, Capella) is not ported"
+        from ..state_transition.bellatrix import is_merge_transition_complete
+
+        state = self.head_state.state
+        if not is_merge_transition_complete(state):
+            return
+        head_hash = bytes(state.latest_execution_payload_header.block_hash)
+        fin_root = self.fork_choice.store.finalized_checkpoint[1]
+        fin_state = self.state_cache.get_by_block_root(fin_root)
+        fin_hash = (
+            bytes(fin_state.state.latest_execution_payload_header.block_hash)
+            if fin_state is not None and fin_state.is_execution
+            else b"\x00" * 32
         )
+        try:
+            self.execution_engine.notify_forkchoice_update(head_hash, head_hash, fin_hash)
+        except Exception as e:
+            # EL sync is advisory for the beacon side
+            _log.debug("forkchoiceUpdated notification failed: %s", e)
 
     # -- attestation intake (gossip path) ------------------------------------
 
@@ -1015,9 +1066,46 @@ class BeaconChain:
         header, no engine building) → None, leaving the default payload."""
         if self.execution_engine is None:
             return None
-        raise NotImplementedError(
-            "execution payload production (Bellatrix, Capella) is not ported"
+        prepared = build_payload_attributes(self.config, pre, types, fee_recipient)
+        if prepared is None:
+            return None  # pre-merge: empty payload until the EL offers one
+        parent_hash, attributes = prepared
+        payload_id = self.execution_engine.notify_forkchoice_update(
+            parent_hash, parent_hash, parent_hash, attributes
         )
+        if payload_id is None:
+            return None
+        fork = "capella" if pre.is_capella else "bellatrix"
+        built = self.execution_engine.get_payload(payload_id, fork=fork)
+
+        # engines return either a _MockPayload-like object (snake_case
+        # attributes) or engine-API JSON (camelCase, hex quantities)
+        from ..execution.engine import engine_json_field
+
+        def got(name, default=None):
+            return engine_json_field(built, name, default)
+
+        fields = dict(
+            parent_hash=_as_bytes(got("parent_hash", b"\x00" * 32)),
+            fee_recipient=_as_bytes(got("fee_recipient", fee_recipient)),
+            state_root=_as_bytes(got("state_root", b"\x00" * 32)),
+            receipts_root=_as_bytes(got("receipts_root", b"\x00" * 32)),
+            logs_bloom=_as_bytes(got("logs_bloom", b"\x00" * 256)),
+            prev_randao=_as_bytes(got("prev_randao", attributes.prev_randao)),
+            block_number=_as_int(got("block_number", 0)),
+            gas_limit=_as_int(got("gas_limit", 30_000_000)),
+            gas_used=_as_int(got("gas_used", 0)),
+            timestamp=_as_int(got("timestamp", attributes.timestamp)),
+            extra_data=_as_bytes(got("extra_data", b"")),
+            base_fee_per_gas=_as_int(got("base_fee_per_gas", 7)),
+            block_hash=_as_bytes(got("block_hash", b"\x00" * 32)),
+            transactions=[_as_bytes(tx) for tx in got("transactions", []) or []],
+        )
+        if pre.is_capella:
+            fields["withdrawals"] = [
+                _as_withdrawal(types, w) for w in got("withdrawals", []) or []
+            ]
+        return types.ExecutionPayload(**fields)
 
     @property
     def finalized_checkpoint(self):
@@ -1032,9 +1120,54 @@ def build_payload_attributes(config, pre, types, fee_recipient: bytes = b"\x00" 
     """(parent_hash, PayloadAttributes) for building the next payload on
     `pre`'s head, or None pre-merge. Shared by produce_block and the
     prepare-next-slot scheduler (reference: prepareExecutionPayload)."""
-    raise NotImplementedError(
-        "payload attributes (Bellatrix, Capella) are not ported"
+    from ..execution.engine import PayloadAttributes
+    from ..state_transition.bellatrix import (
+        compute_timestamp_at_slot,
+        get_randao_mix,
+        is_merge_transition_complete,
     )
+
+    state = pre.state
+    if not is_merge_transition_complete(state):
+        return None
+    withdrawals = []
+    if pre.is_capella:
+        from ..state_transition.capella import get_expected_withdrawals
+
+        withdrawals = get_expected_withdrawals(pre, types)
+    attributes = PayloadAttributes(
+        timestamp=compute_timestamp_at_slot(config, state),
+        prev_randao=get_randao_mix(state, pre.current_epoch, pre.preset),
+        suggested_fee_recipient=fee_recipient,
+        withdrawals=withdrawals,
+    )
+    return bytes(state.latest_execution_payload_header.block_hash), attributes
+
+
+def _as_bytes(value) -> bytes:
+    """Engine JSON uses 0x-hex strings; mocks use bytes."""
+    if isinstance(value, str):
+        return bytes.fromhex(value[2:] if value.startswith("0x") else value)
+    return bytes(value)
+
+
+def _as_int(value) -> int:
+    """Engine JSON uses hex-quantity strings ("0x1"); mocks use ints."""
+    if isinstance(value, str):
+        return int(value, 16) if value.startswith("0x") else int(value)
+    return int(value)
+
+
+def _as_withdrawal(types, w):
+    """Engine JSON withdrawal dict (camelCase hex) or an SSZ Withdrawal."""
+    if isinstance(w, dict):
+        return types.Withdrawal(
+            index=_as_int(w.get("index", 0)),
+            validator_index=_as_int(w.get("validatorIndex", w.get("validator_index", 0))),
+            address=_as_bytes(w.get("address", b"\x00" * 20)),
+            amount=_as_int(w.get("amount", 0)),
+        )
+    return w
 
 
 def _exec_status_for_fork_choice(payload_status, post) -> str:

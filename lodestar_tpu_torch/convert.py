@@ -24,8 +24,8 @@ a conversion is a dtype- and shape-checked copy onto a device.
   `parallel.verifier.batch_verify_kernel_raw`.
 
 - `ssz_from_jax(obj, port_type)` / `ssz_to_jax(obj, jax_type)` — an SSZ
-  container (a state, a block) of one package → the other's, through its
-  serialized bytes.
+  container (a state, a block, a payload, of any fork from phase0 to
+  Capella) of one package → the other's, through its serialized bytes.
 - `fork_choice_from_jax(jax_fork_choice)` — a JAX `ForkChoice` (its
   `ProtoArray` nodes, indices and weights, its votes, balances, queued
   attestations and store checkpoints) → the port's, as numpy arrays,

@@ -1,13 +1,12 @@
 """The consensus state transition of block import, on the host.
 
-The port's copy of `lodestar_tpu/state_transition` as far as block
-import needs it: phase0 and Altair (`stf`, `block`, `epoch`, `altair`),
-the flat validator columns and epoch caches (`cache`), the incremental
-state root (`hasher`), genesis (`genesis`) and every signature-set
-producer (`signature_sets`). It runs on numpy and the C host tier; the
-verdict over a block's sets is the device's (`profile_block`). A config
-that schedules Bellatrix or Capella at a reached epoch raises
-`NotImplementedError`.
+The port's copy of `lodestar_tpu/state_transition`: phase0, Altair,
+Bellatrix and Capella (`stf`, `block`, `epoch`, `altair`, `bellatrix`,
+`capella`), the flat validator columns and epoch caches (`cache`), the
+incremental state root (`hasher`), genesis (`genesis`), weak
+subjectivity (`weak_subjectivity`) and every signature-set producer
+(`signature_sets`). It runs on numpy and the C host tier; the verdict
+over a block's sets is the device's (`profile_block`).
 
 All consensus arithmetic is host ints / numpy uint64 — never floats.
 """

@@ -32,7 +32,6 @@ from ..params import (
 )
 from . import util
 from .block import (
-    _not_ported,
     _require,
     decrease_balance,
     get_attesting_indices,
@@ -444,8 +443,11 @@ def process_epoch_altair(cached, types) -> None:
     process_slashings_reset(cached)
     process_randao_mixes_reset(cached)
     if cached.is_capella:
-        _not_ported("historical summaries")
-    process_historical_roots_update(cached, types)
+        from .capella import process_historical_summaries_update
+
+        process_historical_summaries_update(cached, types)
+    else:
+        process_historical_roots_update(cached, types)
     process_participation_flag_updates(cached)
     process_sync_committee_updates(cached, types)
 

@@ -14,9 +14,8 @@ controls inline verification on the C host tier (`bls.api` over
 `signature_sets.get_block_signature_sets` and hands them to the device
 batch verifier — the reference's `verifyBlocksSignatures` /
 `getBlockSignatureSets` split (`chain/blocks/verifyBlocksSignatures.ts:28`).
-Bellatrix and Capella blocks raise `NotImplementedError`: their
-execution payloads, withdrawals and BLS-to-execution changes come with
-the port's Bellatrix/Capella slice.
+Bellatrix and Capella blocks go on to `bellatrix.py` (the execution
+payload) and `capella.py` (withdrawals, BLS-to-execution changes).
 """
 
 from __future__ import annotations
@@ -43,12 +42,6 @@ class BlockProcessingError(ValueError):
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise BlockProcessingError(msg)
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} (Bellatrix/Capella) come with the port's Bellatrix and Capella slice"
-    )
 
 
 # --- balance mutators (flat arrays are the compute representation) ----------
@@ -507,7 +500,10 @@ def process_operations(cached, types, body, verify_signatures: bool = True) -> N
     for op in body.voluntary_exits:
         process_voluntary_exit(cached, op, verify_signatures)
     if cached.is_capella:
-        _not_ported("BLS-to-execution changes")
+        from .capella import process_bls_to_execution_change
+
+        for op in body.bls_to_execution_changes:
+            process_bls_to_execution_change(cached, op, verify_signatures)
 
 
 def process_block(
@@ -515,7 +511,14 @@ def process_block(
 ) -> None:
     process_block_header(cached, types, block)
     if cached.is_execution:
-        _not_ported("execution payloads")
+        from .bellatrix import is_execution_enabled, process_execution_payload
+
+        if is_execution_enabled(cached.state, block.body):
+            if cached.is_capella:
+                from .capella import process_withdrawals
+
+                process_withdrawals(cached, types, block.body.execution_payload)
+            process_execution_payload(cached, types, block.body, execution_engine)
     process_randao(cached, block.body, verify_signatures)
     process_eth1_data(cached, types, block.body)
     process_operations(cached, types, block.body, verify_signatures)

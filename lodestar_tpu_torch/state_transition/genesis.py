@@ -33,7 +33,8 @@ from .util import is_valid_merkle_branch
 
 class DepositTree:
     """Incremental depth-32 merkle tree (the deposit-contract algorithm):
-    append leaves, read the root and the proof of the newest leaf. Proofs
+    append leaves, read the root and the proof of the newest leaf at
+    O(depth) hashes each, or the proof of any leaf at O(leaves). Proofs
     include the trailing length mix-in (depth+1 branch) per the spec
     layout."""
 
@@ -45,8 +46,12 @@ class DepositTree:
         # branch[h]: the newest complete left node at height h
         self.branch = list(self.zero_hashes[:depth])
         self.count = 0
+        self.leaves: list[bytes] = []
+        self._levels: list[list[bytes]] | None = None  # proof()'s, at len(leaves)
 
     def append(self, leaf: bytes) -> None:
+        self.leaves.append(leaf)
+        self._levels = None
         self.count += 1
         size, node = self.count, leaf
         for h in range(self.depth):
@@ -78,6 +83,26 @@ class DepositTree:
             self.branch[h] if (i >> h) & 1 else self.zero_hashes[h]
             for h in range(self.depth)
         ]
+        branch.append(self.count.to_bytes(32, "little"))
+        return branch
+
+    def proof(self, index: int) -> list[bytes]:
+        """Branch of leaf `index` against `root()` — depth+1 elements, the
+        last being the length mix-in. The tree's levels are built once per
+        leaf count, so the proofs of a block's deposits share them."""
+        if not 0 <= index < self.count:
+            raise IndexError(f"leaf {index} of {self.count}")
+        if self._levels is None:
+            nodes, self._levels = list(self.leaves), []
+            for h in range(self.depth):
+                if len(nodes) % 2:
+                    nodes.append(self.zero_hashes[h])
+                self._levels.append(nodes)
+                nodes = [sha256(nodes[i] + nodes[i + 1]) for i in range(0, len(nodes), 2)]
+        branch = []
+        for h, nodes in enumerate(self._levels):
+            sibling = (index >> h) ^ 1
+            branch.append(nodes[sibling] if sibling < len(nodes) else self.zero_hashes[h])
         branch.append(self.count.to_bytes(32, "little"))
         return branch
 

@@ -185,10 +185,16 @@ def get_block_signature_sets(
 
 
 def bls_to_execution_change_signature_set(cached, signed_change) -> bls.SignatureSet:
-    """Capella's BLS-to-execution change: its signing root comes with the
-    port's Bellatrix and Capella slice."""
-    raise NotImplementedError(
-        "BLS-to-execution change sets come with the port's Bellatrix and Capella slice"
+    from .capella import bls_to_execution_change_signing_root
+
+    return bls.SignatureSet(
+        pubkey=bls.PublicKey.from_bytes(
+            bytes(signed_change.message.from_bls_pubkey), validate=False
+        ),
+        message=bls_to_execution_change_signing_root(
+            cached.config, cached.state, signed_change.message
+        ),
+        signature=bytes(signed_change.signature),
     )
 
 

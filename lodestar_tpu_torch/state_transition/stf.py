@@ -35,8 +35,7 @@ def _process_epoch_for_fork(cached, types) -> None:
 def _upgrade_at_epoch_boundary(cached) -> None:
     """Apply the scheduled fork upgrade when the state has just entered a
     fork's activation epoch (reference: stateTransition.ts processSlots
-    upgrade hooks). The port upgrades to Altair; reaching a scheduled
-    Bellatrix or Capella epoch raises `NotImplementedError`."""
+    upgrade hooks)."""
     from ..types import get_types
 
     cfg, preset = cached.config, cached.preset
@@ -50,12 +49,18 @@ def _upgrade_at_epoch_boundary(cached) -> None:
             upgrade_state_to_altair(cfg, preset, cached.state, all_types.altair)
         )
     if cached.fork == ForkName.altair and epoch == cfg.BELLATRIX_FORK_EPOCH:
-        raise NotImplementedError(
-            "the Bellatrix upgrade comes with the port's Bellatrix and Capella slice"
+        from .bellatrix import upgrade_state_to_bellatrix
+
+        cached.sync_flat()
+        cached.reload_state(
+            upgrade_state_to_bellatrix(cfg, preset, cached.state, all_types.bellatrix)
         )
     if cached.fork == ForkName.bellatrix and epoch == cfg.CAPELLA_FORK_EPOCH:
-        raise NotImplementedError(
-            "the Capella upgrade comes with the port's Bellatrix and Capella slice"
+        from .capella import upgrade_state_to_capella
+
+        cached.sync_flat()
+        cached.reload_state(
+            upgrade_state_to_capella(cfg, preset, cached.state, all_types.capella)
         )
 
 

@@ -1,8 +1,9 @@
 """Jittered exponential backoff behind one policy object (a copy of the JAX
 package's `utils/retry.py`).
 
-`RetryPolicy` + `retry_call` is the one retry loop of the serving stack:
-`chain/supervisor.py` retries a raised device error through it. The
+`RetryPolicy` + `retry_call` is the one retry loop of the port:
+`chain/supervisor.py` retries a raised device error through it, and the
+engine, eth1 and builder clients a dropped connection. The
 jitter is symmetric (delay × (1 ± jitter)) so several nodes restarting
 against the same dead endpoint do not retry in step.
 """
@@ -39,6 +40,14 @@ class RetryPolicy:
         if self.jitter <= 0:
             return base
         return max(0.0, base * (1.0 + self.jitter * (2.0 * self.rand() - 1.0)))
+
+
+def transient_http(exc: BaseException) -> bool:
+    """The transport-level failures an HTTP or JSON-RPC client retries:
+    socket errors and protocol breakage, never an error reply."""
+    import http.client
+
+    return isinstance(exc, (OSError, http.client.HTTPException))
 
 
 def retry_call(fn, *, policy: RetryPolicy | None = None, on_error=None):

@@ -5,9 +5,11 @@ the observability modules alone, nor the serving stack alone, nor the
 lifecycle spans and the library store alone, nor a spawned mesh worker,
 nor block import's host layer alone: params, config, SSZ, types, the
 state transition and `profile_block`, nor the chain alone: `BeaconChain`,
-the gossip validators, fork choice and `profile_chain`), no module of it
-reads a `LODESTAR_TPU_*` variable (the host layer's and the chain's none
-at all, and `LODESTAR_TPU_IMPORT_WAIT_TIMEOUT` set changes nothing)
+the gossip validators, fork choice and `profile_chain`, nor the
+post-merge layer alone: `execution`, `eth1`, Bellatrix and Capella,
+weak subjectivity and `profile_capella`), no module of it reads a
+`LODESTAR_TPU_*` variable (the host layer's, the chain's and the
+post-merge layer's none at all, and `LODESTAR_TPU_IMPORT_WAIT_TIMEOUT` set changes nothing)
 (the serving stack's none at all), and the verifier's entry points do
 not fall back to the CPU unasked."""
 
@@ -55,7 +57,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "metrics.registry", "parallel.mesh",
                  "parallel.mesh_pool", "parallel.sharded", "parallel.fleet",
                  "parallel.fleet_host") + SERVING_MODULES + HOST_LAYER_MODULES \
-            + CHAIN_MODULES:
+            + CHAIN_MODULES + EXECUTION_MODULES:
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
 
 
@@ -133,6 +135,41 @@ def test_chain_loads_no_jax_and_reads_no_environment():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
         "bad": [], "wait": 300.0, "bound": 300.0}
     for name in CHAIN_MODULES:
+        path = os.path.join(REPO, "lodestar_tpu_torch", *name.split("."))
+        path = path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"\b(environ|getenv|putenv|env_str|env_float)\b", text), path
+
+
+# the post-merge layer: none reads any environment variable at all (the
+# engine's, the eth1 provider's and the relay's addresses are arguments)
+EXECUTION_MODULES = (
+    "execution", "execution.engine", "execution.builder", "eth1", "eth1.deposit_tracker",
+    "eth1.merge_tracker", "eth1.provider", "utils.http", "state_transition.bellatrix",
+    "state_transition.capella", "state_transition.weak_subjectivity", "profile_capella")
+
+EXECUTION_PROBE = r"""
+import json, sys
+import lodestar_tpu_torch.execution, lodestar_tpu_torch.eth1
+import lodestar_tpu_torch.execution.builder, lodestar_tpu_torch.eth1.provider
+import lodestar_tpu_torch.eth1.merge_tracker, lodestar_tpu_torch.profile_capella
+import lodestar_tpu_torch.state_transition.weak_subjectivity
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu."))
+print(json.dumps({"bad": bad}))
+"""
+
+
+def test_execution_and_eth1_load_no_jax_and_read_no_environment():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", EXECUTION_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": []}
+    for name in EXECUTION_MODULES:
         path = os.path.join(REPO, "lodestar_tpu_torch", *name.split("."))
         path = path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
         with open(path) as f:

@@ -3,8 +3,7 @@ signature_sets.py` against the JAX package's, as (pubkey bytes, message,
 signature) triples on the same state and the same operations (helpers in
 `torch_chain.py`; operations made from a numpy seed, their signatures
 random bytes: producers copy them, they do not check them). Tolerance:
-bytes equal. Capella's BLS-to-execution change raises
-`NotImplementedError` in the port."""
+bytes equal."""
 
 import numpy as np
 import pytest
@@ -155,6 +154,19 @@ def test_sync_committee_gossip_producers(pair):
 
 
 def test_bls_to_execution_change_is_not_ported(pair):
-    pre, _, _ = pair
-    with pytest.raises(NotImplementedError, match="Capella"):
-        pss.bls_to_execution_change_signature_set(pre, None)
+    """Named for the port's former refusal of Capella's BLS-to-execution
+    change: its set now equals the JAX package's, signed under the genesis
+    fork version whatever the state's fork."""
+    pre, jpre, _ = pair
+    rng = np.random.default_rng(SEED)
+    t, jt = get_types(MINIMAL).capella, jget_types(JMINIMAL).capella
+    for k in range(4):
+        index = int(rng.integers(0, len(pre.flat)))
+        change = t.SignedBLSToExecutionChange(
+            message=t.BLSToExecutionChange(validator_index=index,
+                                           from_bls_pubkey=bytes(pre.flat.pubkeys[index]),
+                                           to_execution_address=rng.bytes(20)),
+            signature=rng.bytes(96))
+        jchange = jt.SignedBLSToExecutionChange.deserialize(change.serialize())
+        assert triples(pss.bls_to_execution_change_signature_set(pre, change)) == triples(
+            jss.bls_to_execution_change_signature_set(jpre, jchange)), k

@@ -243,11 +243,22 @@ def test_ssz_carry_round_trips_phase0_and_altair_states(chain):
 
 
 def test_a_scheduled_bellatrix_upgrade_is_refused():
+    """Named for the port's former refusal of a scheduled Bellatrix upgrade:
+    Altair and Bellatrix both scheduled at epoch 1 now upgrade in turn at
+    the boundary, to the JAX package's state root."""
+    from lodestar_tpu.state_transition import process_slots as j_process_slots
     from lodestar_tpu_torch import profile_block
     from lodestar_tpu_torch.state_transition import CachedBeaconState
 
+    n, spe = 16, MINIMAL.SLOTS_PER_EPOCH
     cc = torch_chain.port_chain_config(BELLATRIX_FORK_EPOCH=1)
-    config, genesis, _ = profile_block.interop_chain(cc, MINIMAL, 16)
+    config, genesis, _ = profile_block.interop_chain(cc, MINIMAL, n)
+    _, jcached = torch_chain.jax_genesis(n, torch_chain.jax_chain_config(BELLATRIX_FORK_EPOCH=1))
     cached = CachedBeaconState(config, genesis.state.copy(), MINIMAL)
-    with pytest.raises(NotImplementedError, match="Bellatrix"):
-        process_slots(cached, fork_types(cached), MINIMAL.SLOTS_PER_EPOCH + 1)
+    assert cached.hash_tree_root() == jcached.hash_tree_root()
+    for slot in (spe, spe + 1):
+        process_slots(cached, fork_types(cached), slot)
+        j_process_slots(jcached, jget_types(JMINIMAL).by_fork[jcached.fork], slot)
+        assert cached.fork == jcached.fork == "bellatrix"
+        assert cached.hash_tree_root() == jcached.hash_tree_root(), slot
+    assert bytes(cached.state.fork.current_version) == bytes(cc.BELLATRIX_FORK_VERSION)
