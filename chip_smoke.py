@@ -169,12 +169,10 @@ it runs the single-device path it names on a host of any card count):
           the supervisor's only fallbacks are the two negative audits of
           the batch that held the tampered set, with no verdict mismatch,
           deadline, retry or double failure, the breaker closed, and K2p
-          launched at least once per 128-set job the facade ran. Then
-          the slot's first 0.5 s (512 calls, set 500 tampered) again
-          with coalescing and the attestation cap at 4096, root after
-          root (the best case for root grouping), cut (from the first
-          1 s, 1024 calls, in PRs 14–16) to keep the script's time with
-          the chain phase, under the same checks.
+          launched at least once per 128-set job the facade ran. (Its
+          twin at coalescing 4096, cut to 512 calls where no batch can
+          pass 512, is gone: it no longer showed coalescing past the main
+          slot's cap, and its time went to the network phase.)
           (c) drills through the port's supervisor on serve-128's job
           (cooldown 2 s, deadline 5 s, an injected fault seam): exceptions
           (the host tier serves, the breaker opens on the third, the canary
@@ -294,18 +292,20 @@ it runs the single-device path it names on a host of any card count):
           (`BlockImportError`, head and blocks unchanged); (c) the Altair
           block ACCEPTed by `validate_gossip_block`, then imported (head
           its root, post-state root the block's); (d) one single-bit
-          attestation from each of the slot's 512 committee members
-          through `validate_gossip_attestation` from 64 threads (the
-          attestation lane), with two signed by another validator
-          (REJECT), a replay (IGNORE) and one on the wrong subnet (REJECT);
-          (e) a `SignedAggregateAndProof` from every aggregator of the 4
-          committees (by selection proof; each leaves out a different
-          member) from 16 threads on the aggregate lane, plus one with
-          another aggregator's selection proof (REJECT), then the head the
-          Altair block, its weight the 512 votes and the proposer boost;
-          (f) at slot 34 `produce_block` from the pools, signed by its
-          proposer, ACCEPTed as gossip, imported, carrying the 4
-          aggregates, the new head. Fails unless every action and reason
+          attestation from each of committee 0's 128 members (cut
+          from the slot's 512 to pay for the network phase, which
+          carries the whole slot from the wire) through
+          `validate_gossip_attestation` from 64 threads (the attestation
+          lane), with two signed by another validator (REJECT), a replay
+          (IGNORE) and one on the wrong subnet (REJECT), all four among
+          those members; (e) a `SignedAggregateAndProof` from every
+          aggregator of committee 0 (by selection proof; each leaves out a
+          different member) from 16 threads on the aggregate lane, plus
+          one with another aggregator's selection proof (REJECT), then the
+          head the Altair block, its weight the 128 votes and the proposer
+          boost; (f) at slot 34 `produce_block` from the pools, signed by
+          its proposer, ACCEPTed as gossip, imported, carrying committee
+          0's aggregate, the new head. Fails unless every action and reason
           is the expected one, every verdict the host tier's on the same
           sets, and the card gave every verdict: the supervisor's only
           host-tier calls the negative audits of the refused verdicts (one
@@ -319,10 +319,53 @@ it runs the single-device path it names on a host of any card count):
           p50, p99 and max latency, the coalesced batches and their sizes,
           the planner paths, launches, epoch-table hits and misses, the
           first checkpoint-state regen; the chain's launches on a line of
-          their own, and the card line. It leaves its stack to the capella
+          their own, and the card line. It leaves its stack, its chain and
+          the whole slot's messages (every committee's) to the network
           phase.
-12g. capella  a post-merge Capella chain (`profile_capella.run`) on
-          block_import's genesis and stack: (a) a copy of the genesis
+12h. network  the network (`profile_network.run`), after the chain phase
+          and before capella, on block_import's genesis and the chain
+          phase's stack, in one process on loopback: P, a `Network` over
+          the chain phase's chain (blocks 1-3, 33 and 34 already verified
+          on the card, so P costs no verdict), serving status and
+          `beacon_blocks_by_range` and answering discovery, subscribed to
+          no gossip topic; R, a new `BeaconChain` on the genesis (manual
+          clock) behind a `Network` with every subnet's topic, whose
+          router runs on a manual clock; Q1-Q32, each a `Transport`,
+          `GossipsubService` and `Gossipsub` with its own identity and no
+          subscriptions. During each flood the stack's lane flushes at
+          its cohort, or after 1 s: the messages in flight (one per peer,
+          at most the topic queue's concurrency) times a message's sets,
+          32 for the attestations, 16 x 3 for the aggregates. (a) R finds P by discovery
+          over UDP from P's
+          record and dials it (the handshake both ways, then status);
+          Q1-Q32 dial R; the dial seconds and the host us of Ed25519 sign
+          and verify, X25519, HKDF, the AEAD and snappy are printed. (b)
+          R range-syncs slots 1-33 from P (blocks 1-3 and 33 as
+          ssz_snappy chunks) and imports them with
+          `process_block_segment`: one verdict of 149 sets; R's head is
+          P's block 33. (c) slot 33's 512 attestations spread round-robin
+          over Q1-Q32 on their subnets' topics, with the chain phase's two
+          bad signatures and wrong subnet (REJECT), a second vote of one
+          attester on block 3 (IGNORE), and after the flood a
+          byte-identical replay from a second peer: counted by R's router
+          as a duplicate, never validated; every other ACCEPT; each
+          peer's gossipsub score on R equal to what `score.py` gives for
+          the deliveries and REJECTs it sent; the makespan,
+          validations/s, publish-to-result p50, p99 and max, the coalesced
+          batches and their flush reasons, planner paths and epoch-table
+          hits printed. (d) every aggregator's aggregate of the slot the
+          same way, one with another's selection proof (REJECT). (e)
+          block 34 published by Q1: ACCEPT, imported; R's head and its
+          weight are P's. Fails unless every action is the expected one,
+          every verdict the host tier's and the card's (the supervisor's
+          only host-tier calls negative audits; the facade's batch and
+          per-set jobs those the sent sets and coalesced batches imply;
+          K1, K2p and K3-fe launched in every job), the breaker closed,
+          and no node, connection, socket or thread left; prints the
+          phase's seconds against its 150 s bound. It leaves its stack to
+          the capella phase.
+12g. capella  a post-merge Capella chain (`profile_capella.run`), after
+          the network phase, on block_import's genesis and stack: (a) a copy of the genesis
           under Altair at 1, Bellatrix at 2 and Capella at 3 advanced by
           `process_slots` to slot 96 (each epoch transition timed): fork
           Capella, the default payload header, withdrawal cursors 0; then
@@ -358,7 +401,7 @@ it runs the single-device path it names on a host of any card count):
           sweep's, the planner paths and launches, and a `[summary]
           capella` line with the card.
 
-The main-path verdicts of phases 6-12g run with the launch counts of K1-K4,
+The main-path verdicts of phases 6-12h run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
 of their path was launched no time: K2p and K3-fe once per batch verdict
 (per part of a split one, per chunk of a flat one, per worker in phases
@@ -1774,8 +1817,6 @@ NODE_TAMPERED = (1000, 3000)  # carry the next set's signature (same root, anoth
 NODE_MAIN_CALLS = 2048  # the coalesce-512 slot: its first 2 s, to make room for the capella phase
 NODE_MAIN_TAMPERED_AT = 1000  # the arrival whose set is tampered among those 2048 calls
 NODE_BLOCK_AT = (0.0, 2.0)  # the 128-set block job's arrivals
-NODE_CUT_CALLS = 512  # the coalesce-4096 twin: the slot's first 0.5 s, to keep the script's time
-NODE_CUT_TAMPERED = (500,)  # the twin's one tampered set, among its 512 calls
 NODE_BOOT_SLO_S = 10.0  # dashboards/slo_rules.json `serving_ready`
 NODE_SIZE_BINS = (1, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 NODE_KERNELS = ("K1", "K4", "K2", "K2p", "K3", "K3-fe")  # the preload launches each once
@@ -1990,28 +2031,25 @@ def _node_boot(torch):
     return doc
 
 
-def _node_order(np, n: int, interleaved: bool):
+def _node_order(np, n: int):
     """(order, times) of a slot's n one-set calls: order[j] is the set that
-    arrives j-th, at times[j] seconds, over the gossip window; in a seeded
-    shuffle when `interleaved`, else root after root."""
+    arrives j-th, at times[j] seconds, over the gossip window, in a seeded
+    shuffle (the committees' roots interleaved)."""
     rng = np.random.default_rng(SEED + 80)
     times = np.sort(rng.uniform(0.0, NODE_WINDOW_S, n))
-    order = rng.permutation(n) if interleaved else np.arange(n)
-    return order, times
+    return rng.permutation(n), times
 
 
-def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatcher_args=None,
-               calls: int | None = None, interleaved: bool = True, tampered_at=NODE_TAMPERED):
+def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys,
+               calls: int | None = None, tampered_at=NODE_TAMPERED):
     """(b) one slot of gossip through a fresh `build_bls_stack` on cuda:0:
     4096 one-set attestation calls arriving uniformly over 4 s from a pool
     of 1024 caller threads, two of them tampered, and the 128-set block
     job at 0 s and 2 s, while the epoch table is populated.
 
-    `interleaved`: the sets arrive in a seeded shuffle, the 64 committees'
-    roots interleaved, as on mainnet, where every committee attests at
-    about the same moment; False: root after root (the slice's order, the
-    best case for root grouping). `calls` keeps the first calls of that
-    stream only (the same arrival rate) and the tampered sets among them;
+    The sets arrive in a seeded shuffle, the 64 committees' roots
+    interleaved, as on mainnet, where every committee attests at about the
+    same moment. `calls` keeps the first calls of that stream only (the same arrival rate) and the tampered sets among them;
     `tampered_at` names the sets that carry another set's signature.
 
     Fails unless every verdict is the host tier's, the block lane shed
@@ -2035,15 +2073,14 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatc
         want[k] = ok
     if [k for k, ok in enumerate(want) if not ok] != list(tampered_at):
         raise AssertionError(f"{tag} the host tier does not reject exactly the tampered sets")
-    order, times = _node_order(np, len(att), interleaved)
+    order, times = _node_order(np, len(att))
     calls = calls or len(att)
     order, times = [int(i) for i in order[:calls]], times[:calls]
     arrived = set(order)
     tampered = [k for k in tampered_at if k in arrived]
     bad_ids = {id(att[k]) for k in tampered}
 
-    stack = build_bls_stack(device="cuda:0", mesh=None, dispatcher_args=dispatcher_args,
-                            metrics_port=0)
+    stack = build_bls_stack(device="cuda:0", mesh=None, metrics_port=0)
     traces0 = stack.tracer.completed_total
     pm, lanes, sup = stack.pipeline, stack.verifier, stack.supervisor
     batches = []  # (sets, reason, overlapped, seconds, held a tampered set)
@@ -2181,7 +2218,7 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys, dispatc
     waits = [w for w, _ in device_calls]
     ran = sum(r for _, r in device_calls)
     out = dict(
-        order="interleaved" if interleaved else "root-major",
+        order="interleaved",
         makespan_s=max(ends), slot_s=NODE_SLOT_S, att_sets_per_s=len(order) / att_done,
         att_done_s=att_done, block_p50_s=_pct(block_lat, 0.5), block_max_s=max(block_lat),
         att_sheds=len(sheds), shed_max_s=max((r[3] - r[2] for r in sheds), default=0.0),
@@ -2623,7 +2660,7 @@ def _node_mesh_drill(torch, np, serve_sets):
 def phase_node(torch, np, grouped, serve_batch, per_set_sets):
     """12b. the port's serving stack: (a) the warm-boot ladder in a
     subprocess, (b) the first 2 s of one slot of gossip at the JAX
-    defaults and its first 0.5 s with coalescing up to 4096, (c) the supervisor's drills and the mesh drill,
+    defaults, (c) the supervisor's drills and the mesh drill,
     (d) the scrape, (e) the ahead-of-time store's drill, and the host cost
     of a lifecycle span."""
     tag = "[node]"
@@ -2635,20 +2672,11 @@ def phase_node(torch, np, grouped, serve_batch, per_set_sets):
     keys = _node_keys(np, slice_sets, block_sets)
     # the slot's first 2 s (2048 calls, one tampered), cut to keep the
     # script's time
-    order, _ = _node_order(np, len(slice_sets), True)
+    order, _ = _node_order(np, len(slice_sets))
     out["slot"] = timed("node (b) slot 512", _node_slot, torch, np,
                         f"{tag} (b) slot's first 2 s (cut), max_coalesce 512:", slice_sets,
-                        slice_host, block_sets, keys, None, NODE_MAIN_CALLS, True,
+                        slice_host, block_sets, keys, NODE_MAIN_CALLS,
                         (int(order[NODE_MAIN_TAMPERED_AT]),))
-    # the twin, cut to keep the script's time: the slot's first 0.5 s (512
-    # calls, one tampered), root after root (the best case)
-    out["slot_4096"] = timed(
-        "node (b) slot 4096", _node_slot, torch, np,
-        f"{tag} (b) slot's first 0.5 s (cut), max_coalesce 4096, best case:", slice_sets,
-        slice_host, block_sets, keys,
-        {"max_coalesce": 4096,
-         "lane_caps": {"attestation": 4096, "aggregate": 1024, "sync_committee": 512}},
-        NODE_CUT_CALLS, False, NODE_CUT_TAMPERED)
     out["drills"] = timed("node (c) drills", _node_drills, torch, np, block_sets, per_set_sets)
     out["mesh_drill"] = timed("node (c) mesh drill", _node_mesh_drill, torch, np, block_sets)
     out["aot_drill"] = timed("node (e) aot drill", _node_aot_drill, torch, np, block_sets)
@@ -3405,25 +3433,32 @@ def _chain_jobs(rec, tag, audits):
                              f"and {per_set} per-set jobs")
 
 
+CHAIN_FLOOD_COMMITTEES = 1  # the chain phase's floods: committee 0 of the slot
+
+
 def phase_chain(torch, np, stack, scenario, jobs):
     """The chain (`profile_chain.run`) on block_import's genesis, blocks
     and stack, every check of the module docstring's 12f; leaves the stack
-    to the capella phase (closes it only when this phase fails)."""
+    and its chain (with the whole slot's gossip) to the network phase
+    (closes both only when this phase fails)."""
+    out = {}
     try:
-        return _chain_phase(torch, stack, scenario, jobs)
+        return _chain_phase(torch, stack, scenario, jobs, out)
     except BaseException:
+        if out.get("chain") is not None:
+            out["chain"].close()
         stack.close()
         raise
 
 
-def _chain_phase(torch, stack, scenario, jobs):
+def _chain_phase(torch, stack, scenario, jobs, out):
     from lodestar_tpu_torch import profile_chain
 
-    out = profile_chain.run(stack.verifier, scenario=scenario, observer=stack.pipeline,
-                            sync=torch.cuda.synchronize,
-                            probe=lambda: {k: v for k, v in jobs.items()
-                                           if not k.endswith("_s")},
-                            log=log)
+    out.update(profile_chain.run(stack.verifier, scenario=scenario, observer=stack.pipeline,
+                                 sync=torch.cuda.synchronize,
+                                 probe=lambda: {k: v for k, v in jobs.items()
+                                                if not k.endswith("_s")},
+                                 flood_committees=CHAIN_FLOOD_COMMITTEES, keep=True, log=log))
     breaker = stack.supervisor.breaker_state
     profile_chain.log_steps(out, log)
     if out["failures"]:
@@ -3441,6 +3476,64 @@ def _chain_phase(torch, stack, scenario, jobs):
     for rec in steps.values():
         launches.update(rec["launches"])
     log(f"[chain] launches in the chain phase: {json.dumps(dict(launches))}; card: {card_line()}")
+    return out
+
+
+NETWORK_STEPS = (("range_sync", 0), ("attestations", "some"), ("aggregates", "some"),
+                 ("block", 0))  # the steps with verdicts and their negative audits
+NETWORK_BOUND_S = 150.0
+
+
+def _jobs_of(sets, per_job: int) -> int:
+    return sum(-(-n // per_job) for n in sets)
+
+
+def phase_network(torch, np, stack, scenario, jobs, chain_out):
+    """12h. the network (`profile_network.run`) on the chain phase's chain
+    and stack, every check of the module docstring's 12h; leaves the stack
+    to the capella phase (closes it only when this phase fails)."""
+    from lodestar_tpu_torch import profile_network
+
+    per_job = stack.device.max_sets_per_job
+    try:
+        out = profile_network.run(stack.verifier, scenario=scenario, chain_out=chain_out,
+                                  observer=stack.pipeline, sync=torch.cuda.synchronize,
+                                  probe=lambda: {k: v for k, v in jobs.items()
+                                                 if not k.endswith("_s")},
+                                  log=log)
+        breaker = stack.supervisor.breaker_state
+        profile_network.log_steps(out, log)
+        if out["failures"]:
+            raise AssertionError(f"network: {out['failures']}")
+        if breaker != "closed":
+            raise AssertionError(f"network: the supervisor's breaker is {breaker}")
+        steps = out["steps"]
+        for name, audits in NETWORK_STEPS:
+            rec = steps[name]
+            _chain_jobs(rec, f"network {name}", audits)
+            if "batch_sets" in rec:  # a flood: its coalesced batches
+                want = {"verify_signature_sets": _jobs_of(rec["batch_sets"], per_job),
+                        "verify_signature_sets_individual": _jobs_of(rec["failed_batch_sets"],
+                                                                     per_job)}
+            else:
+                want = {"verify_signature_sets": _jobs_of(rec["call_sets"], per_job),
+                        "verify_signature_sets_individual": 0}
+            got = {k: rec["probe"].get(k, 0) for k in want}
+            if got != want:
+                raise AssertionError(f"network {name}: facade jobs {got}, the sets it sent "
+                                     f"imply {want}")
+            if rec["launches"]["K1"] < got["verify_signature_sets"]:
+                raise AssertionError(f"network {name}: launches {rec['launches']} for "
+                                     f"{got} facade jobs")
+    except BaseException:
+        stack.close()
+        raise
+    launches = Counter()
+    for name, _ in NETWORK_STEPS:
+        launches.update(out["steps"][name]["launches"])
+    out["launches"] = dict(launches)
+    log(f"[network] launches in the network phase: {json.dumps(dict(launches))}; "
+        f"card: {card_line()}")
     return out
 
 
@@ -3541,6 +3634,8 @@ def main() -> int:
     fleet = timed("fleet", phase_fleet, torch, np, mesh, sets, host_ok, bad, host_bad)
     blocks, chain_stack, scenario, chain_jobs = timed("block_import", phase_block_import, torch, np)
     chain = timed("chain", phase_chain, torch, np, chain_stack, scenario, chain_jobs)
+    network = timed("network", phase_network, torch, np, chain_stack, scenario, chain_jobs,
+                    chain)
     capella = timed("capella", phase_capella, torch, np, chain_stack, scenario, chain_jobs)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
@@ -3558,19 +3653,17 @@ def main() -> int:
     log(f"[summary] observe: 128-set job median {observe['median_s']['A']:.6f} s with "
         f"PipelineMetrics, {observe['median_s']['B']:.6f} s with NullObserver; observing "
         f"costs the host {observe['host_cost_us']['job_us']:.1f} us per job")
-    boot, slots = node["boot"], (node["slot"], node["slot_4096"])
+    boot, s = node["boot"], node["slot"]
     log(f"[summary] node: boot serving_ready {boot['serving_ready_seconds']} s (SLO "
         f"{'met' if boot['slo_met'] else 'missed'}), peak {boot['peak_device_bytes']} B; "
-        + "; ".join(f"slot max_coalesce {c} ({s['calls']} calls, {s['order']}): makespan "
-                    f"{s['makespan_s']:.3f} s, "
-                    f"{s['att_sets_per_s']:.1f} attestation sets/s, block p50 "
-                    f"{s['block_p50_s']:.3f} max {s['block_max_s']:.3f} s, sheds {s['att_sheds']}, "
-                    f"{s['batches']} batches (largest {s['batch_max']}), overlap "
-                    f"{s['overlap_fraction']}, utilisation {s['utilization']:.4f}, tampered cost "
-                    f"{s['per_set_s']:.3f} s per-set + {s['audit_batch_s']:.3f} s audit, "
-                    f"dispatch worker busy {s['worker_busy']:.4f}, queued {s['device_wait_s']:.3f} s"
-                    for c, s in zip((512, 4096), slots))
-        + f"; drills: breaker re-closed {node['drills']['exception']['reclose_s']:.3f} s after "
+        f"slot max_coalesce 512 ({s['calls']} calls, {s['order']}): makespan "
+        f"{s['makespan_s']:.3f} s, {s['att_sets_per_s']:.1f} attestation sets/s, block p50 "
+        f"{s['block_p50_s']:.3f} max {s['block_max_s']:.3f} s, sheds {s['att_sheds']}, "
+        f"{s['batches']} batches (largest {s['batch_max']}), overlap "
+        f"{s['overlap_fraction']}, utilisation {s['utilization']:.4f}, tampered cost "
+        f"{s['per_set_s']:.3f} s per-set + {s['audit_batch_s']:.3f} s audit, "
+        f"dispatch worker busy {s['worker_busy']:.4f}, queued {s['device_wait_s']:.3f} s"
+        f"; drills: breaker re-closed {node['drills']['exception']['reclose_s']:.3f} s after "
         f"clearing, latency {node['drills']['latency_s']:.3f} s, flaky "
         f"{node['drills']['flaky_s']:.3f} s; mesh drill raise {node['mesh_drill']['raise_s']:.6f} s, "
         f"served single-device {node['mesh_drill']['evicted_served_s']:.3f} s, re-admitted "
@@ -3626,6 +3719,25 @@ def main() -> int:
             f"{st[k]['batches']} batches, largest {max(st[k]['batch_sizes'], default=0)})"
             for k in ("attestations", "aggregates"))
         + f"; script {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
+    st = network["steps"]
+    log(f"[summary] network ({network['validators']} validators, {network['peers']} peers on "
+        f"loopback): connect {st['connect']['seconds']:.3f} s (dial p50 "
+        f"{st['connect']['dial_p50_ms']:.1f} ms, ed25519 sign "
+        f"{st['connect']['primitive_us']['ed25519_sign']:.1f} us, verify "
+        f"{st['connect']['primitive_us']['ed25519_verify']:.1f} us); range sync "
+        f"{st['range_sync']['seconds']:.3f} s (blocks {st['range_sync']['blocks']}, "
+        f"{st['range_sync']['sets']} sets); "
+        + "; ".join(
+            f"{k} {st[k]['calls']} validated in {st[k]['makespan_s']:.3f} s "
+            f"({st[k]['validations_per_s']:.1f}/s, p50 {st[k]['latency_p50_s']:.4f} p99 "
+            f"{st[k]['latency_p99_s']:.4f} max {st[k]['latency_max_s']:.4f} s, "
+            f"{st[k]['batches']} batches, largest {max(st[k]['batch_sizes'], default=0)})"
+            for k in ("attestations", "aggregates"))
+        + f"; block {st['block']['seconds']:.3f} s, weight {st['block']['weight'][0]}; phase "
+        f"{PHASE_SECONDS['network']:.1f} s (bound {NETWORK_BOUND_S:.0f} s"
+        f"{'' if PHASE_SECONDS['network'] <= NETWORK_BOUND_S else ', OVER'}); launches "
+        f"{json.dumps(network['launches'])}; script {time.perf_counter() - t_start:.1f} s; "
+        f"card: {card_line()}")
     st, setup = capella["steps"], capella["setup"]
     log(f"[summary] capella ({capella['validators']} validators, {capella['preset']}): upgrades "
         + ", ".join(f"epoch {e['epoch']} {e['seconds']:.3f} s" for e in st["upgrades"]["epochs"])

@@ -13,7 +13,8 @@ C interface and are loaded with `ctypes` (no Python or PyTorch headers,
 so a build takes seconds).
 
 - `host_tier()`: the C host tier (BLS12-381 decompression, hash-to-curve,
-  signing, CPU verification) with `cc`.
+  signing, CPU verification; SHA-256 levels; the network's snappy codec,
+  xxHash64 and ChaCha20-Poly1305) with `cc`.
 - `mont_mul_host()`: the K1 arithmetic headers (`fp_mont.cuh`'s
   one-thread CIOS, `fp_mont_group.cuh`'s half-warp product with its
   shuffles emulated) built for the host with `c++`, for the CPU tests.
@@ -197,7 +198,9 @@ MXU_HEADERS = ["mxu_mont.cuh", "fp_mont.cuh"]
 CC, CXX = ("cc", "gcc", "clang"), ("c++", "g++", "clang++")
 
 LIBRARIES = {lib.name: lib for lib in (
-    Library("bls12_host", CC, ["-O2", "-shared", "-fPIC"], ["host/bls12.c", "host/sha256.c"],
+    Library("bls12_host", CC, ["-O2", "-shared", "-fPIC"], ["host/bls12.c", "host/sha256.c",
+                                                        "host/snappy_codec.c", "host/xxhash64.c",
+                                                        "host/chacha20poly1305.c"],
             ["host/bls12_consts.h"]),
     Library("mont_mul_host", CXX, HOST_FLAGS, ["mont_mul_host.cpp"], MONT_MUL_HEADERS),
     Library("mont_mul", ("nvcc",), NVCC_FLAGS, ["mont_mul.cu"], MONT_MUL_HEADERS),

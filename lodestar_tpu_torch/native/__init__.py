@@ -1,8 +1,10 @@
 """The C host tier of BLS12-381 through its plain C ABI (`ctypes`).
 
 The sources are the port's own copy under `csrc/host/` (bls12.c,
-bls12_consts.h, sha256.c), built by `build.host_tier()` with `cc` at
-first use. Limb outputs are (..., 32) int32 Montgomery limbs, the layout
+bls12_consts.h, sha256.c, and for the network snappy_codec.c,
+xxhash64.c and chacha20poly1305.c), built by `build.host_tier()` with
+`cc` at first use (there is no Python fallback: without a C compiler
+these calls raise). Limb outputs are (..., 32) int32 Montgomery limbs, the layout
 of `ops/limbs.py`. ctypes releases the GIL for each call, so the batch
 helpers split their work across threads.
 """
@@ -44,6 +46,18 @@ def _lib():
             fn.restype = _INT
         lib.lodestar_sha256_level.argtypes = [_VP, _SZ, _VP]
         lib.lodestar_sha256_level.restype = None
+        lib.lodestar_xxh64.argtypes = [_VP, _SZ, ctypes.c_uint64]
+        lib.lodestar_xxh64.restype = ctypes.c_uint64
+        lib.lodestar_snappy_max_compressed.argtypes = [_SZ]
+        lib.lodestar_snappy_max_compressed.restype = _SZ
+        lib.lodestar_snappy_compress.argtypes = [_VP, _SZ, _VP]
+        lib.lodestar_snappy_compress.restype = _SZ
+        lib.lodestar_snappy_uncompress.argtypes = [_VP, _SZ, _VP, _SZ]
+        lib.lodestar_snappy_uncompress.restype = _INT
+        for name in ("lodestar_aead_seal", "lodestar_aead_open"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_VP, _VP, _VP, _SZ, _VP, _SZ, _VP]
+            fn.restype = _INT
         _FN = lib
     return _FN
 
@@ -109,6 +123,69 @@ def sha256_level(data: bytes) -> bytes:
     if n:
         _lib().lodestar_sha256_level(data, n, out)
     return out.raw
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    """XXH64 of `data` (the gossip fast message id)."""
+    return int(_lib().lodestar_xxh64(bytes(data), len(data), seed))
+
+
+def snappy_compress(data: bytes) -> bytes:
+    """Snappy block format: the varint length, then literals and copies."""
+    data = bytes(data)
+    if len(data) > 0xFFFFFFFF:
+        raise ValueError("input too large for snappy block")
+    lib = _lib()
+    out = ctypes.create_string_buffer(lib.lodestar_snappy_max_compressed(len(data)))
+    n = lib.lodestar_snappy_compress(data, len(data), out)
+    if n == 0:
+        raise MemoryError("snappy compression failed")
+    return out.raw[:n]
+
+
+def _snappy_declared(data: bytes) -> int:
+    value = 0
+    for i in range(min(len(data), 5)):
+        value |= (data[i] & 0x7F) << (7 * i)
+        if not data[i] & 0x80:
+            if value > 0xFFFFFFFF:
+                break
+            return value
+    raise ValueError("bad snappy header")
+
+
+def snappy_uncompress(data: bytes) -> bytes:
+    """The inverse of `snappy_compress`; ValueError on a corrupt stream."""
+    data = bytes(data)
+    declared = _snappy_declared(data)
+    out = ctypes.create_string_buffer(max(declared, 1))
+    rc = _lib().lodestar_snappy_uncompress(data, len(data), out, declared)
+    if rc != 0:
+        raise ValueError(f"corrupt snappy stream ({rc})")
+    return out.raw[:declared]
+
+
+def aead_seal(key: bytes, nonce: bytes, plaintext: bytes, aad: bytes = b"") -> bytes:
+    """ChaCha20-Poly1305 (RFC 8439): ciphertext || 16-byte tag."""
+    if len(key) != 32 or len(nonce) != 12:
+        raise ValueError("ChaCha20-Poly1305 takes a 32-byte key and a 12-byte nonce")
+    out = ctypes.create_string_buffer(len(plaintext) + 16)
+    _lib().lodestar_aead_seal(bytes(key), bytes(nonce), bytes(aad), len(aad),
+                              bytes(plaintext), len(plaintext), out)
+    return out.raw
+
+
+def aead_open(key: bytes, nonce: bytes, ciphertext: bytes, aad: bytes = b"") -> bytes | None:
+    """The plaintext of `aead_seal`'s output, or None when its tag does
+    not verify."""
+    if len(key) != 32 or len(nonce) != 12:
+        raise ValueError("ChaCha20-Poly1305 takes a 32-byte key and a 12-byte nonce")
+    if len(ciphertext) < 16:
+        return None
+    out = ctypes.create_string_buffer(max(len(ciphertext) - 16, 1))
+    rc = _lib().lodestar_aead_open(bytes(key), bytes(nonce), bytes(aad), len(aad),
+                                   bytes(ciphertext), len(ciphertext), out)
+    return None if rc else out.raw[:len(ciphertext) - 16]
 
 
 def install_ssz_backend() -> None:

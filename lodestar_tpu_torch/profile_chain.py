@@ -132,18 +132,24 @@ def host_mismatches(calls, threads: int | None = None) -> list[dict]:
 
 class _BatchSpy:
     """Records the size and reason of every batch a `BlsLaneDispatcher`
-    dispatches while entered (nothing for another verifier)."""
+    dispatches while entered (nothing for another verifier), and the
+    sizes of those whose verdict was False (each then took a per-set
+    pass)."""
 
     def __init__(self, verifier):
         self.verifier = verifier
         self.batches: list[tuple[int, str]] = []
+        self.failed: list[int] = []
 
     def __enter__(self):
         real = getattr(self.verifier, "_dispatch_batch", None)
         if real is not None:
             def spy(entries, n_sets, reason, overlapped):
                 self.batches.append((int(n_sets), str(reason)))
-                return real(entries, n_sets, reason, overlapped)
+                out = real(entries, n_sets, reason, overlapped)
+                if not all(holder[0] for _, _, holder, _, _ in entries):
+                    self.failed.append(int(n_sets))
+                return out
 
             self.verifier._dispatch_batch = spy
         return self
@@ -262,7 +268,7 @@ def _count(xs) -> dict:
 def run(verifier, *, validators: int = 16384, blocks: int = 3, preset=None, swap=(5, 77),
         scenario=None, observer=None, probe=None, sync=None,
         gossip_threads: int = GOSSIP_THREADS, aggregate_threads: int = AGGREGATE_THREADS,
-        log=print) -> dict:
+        flood_committees: int | None = None, keep: bool = False, log=print) -> dict:
     """Steps (a)–(f) of the module's docstring through `verifier` on
     `scenario` (`profile_block.make_scenario`'s; made here when not
     given). Returns the records by step ("steps"), each with its seconds,
@@ -270,7 +276,14 @@ def run(verifier, *, validators: int = 16384, blocks: int = 3, preset=None, swap
     launches; the verifier's calls whose verdicts differ from the host
     tier's ("host_mismatches"); and every failed check ("failures",
     empty when all pass). `sync` (e.g. a device synchronise) runs around
-    each step."""
+    each step.
+
+    `flood_committees` cuts (d) and (e) to the slot's first committees
+    (the four mixed-in messages among their members, and only their
+    aggregates; None: every committee). With `keep` the chain is not
+    closed: it is returned as "chain" (the caller closes it), with the
+    whole slot's messages as "gossip" (every committee's attestation
+    tasks, aggregates and the produced block) for `profile_network`."""
     from .chain.chain import BeaconChain, BlockImportError
     from .chain.clock import ManualClock
     from .chain.validation import (
@@ -384,10 +397,12 @@ def run(verifier, *, validators: int = 16384, blocks: int = 3, preset=None, swap
         att_domain = config.get_domain(DOMAIN_BEACON_ATTESTER, slot, epoch)
         signing = [compute_signing_root(d.hash_tree_root(), att_domain) for d in datas]
         members = [(i, pos, v) for i, c in enumerate(committees) for pos, v in enumerate(c)]
+        flooded = cps if flood_committees is None else min(flood_committees, cps)
+        used = [m for m in members if m[0] < flooded]
         # a donor outside these committees signs the two bad messages
         donors = [int(v) for v in ctx.get_beacon_committee(slot + 1, 0)[:2]]
-        bad_at = [members[1], members[len(committees[0]) + 1 if cps > 1 else 2]]
-        replay_at, wrong_at = members[-1], members[-2]
+        bad_at = [used[1], used[len(committees[0]) + 1 if flooded > 1 else 2]]
+        replay_at, wrong_at = used[-1], used[-2]
         t1 = time.perf_counter()
         sigs = factory.sign([(v, signing[i]) for i, _, v in members]
                             + [(d, signing[m[0]]) for d, m in zip(donors, bad_at)])
@@ -401,7 +416,7 @@ def run(verifier, *, validators: int = 16384, blocks: int = 3, preset=None, swap
         def subnet(i):
             return (cps * (slot % spe) + i) % ATTESTATION_SUBNET_COUNT
 
-        tasks = []
+        all_tasks = []  # (committee, task) for the whole slot
         for k, (i, pos, v) in enumerate(members):
             att = attestation(i, pos, sigs[k])
             task = [(att, "ACCEPT", "", (subnet(i),))]
@@ -411,11 +426,11 @@ def run(verifier, *, validators: int = 16384, blocks: int = 3, preset=None, swap
                 task.insert(0, (bad, "REJECT", "invalid signature", (subnet(i),)))
             if (i, pos, v) == replay_at:
                 task.append((att, "IGNORE", "already seen", (subnet(i),)))
-            tasks.append(task)
+            all_tasks.append((i, task))
             if (i, pos, v) == wrong_at:
-                tasks.append([(att, "REJECT", "wrong subnet",
-                               ((subnet(i) + 1) % ATTESTATION_SUBNET_COUNT,))])
-        tasks = _chains_first(tasks, SEED)
+                all_tasks.append((i, [(att, "REJECT", "wrong subnet",
+                                       ((subnet(i) + 1) % ATTESTATION_SUBNET_COUNT,))]))
+        tasks = _chains_first([t for i, t in all_tasks if i < flooded], SEED)
         with step() as rec:
             t1 = time.perf_counter()
             chain.regen.get_checkpoint_state(epoch, target_root)
@@ -427,14 +442,15 @@ def run(verifier, *, validators: int = 16384, blocks: int = 3, preset=None, swap
                     lambda att, res: chain.on_gossip_attestation(att, res.data_root))
         calls = recorder.take()
         _flood_record(rec, flat, lats, makespan, spy)
-        rec.update(sign_s=sign_s, committees=cps, members=len(members),
+        rec.update(sign_s=sign_s, committees=cps, flooded=flooded, members=len(used),
                    sets=sum(len(c["sets"]) for c in calls), verdicts=len(calls),
                    lanes=sorted({str(c["lane"]) for c in calls}),
                    host_mismatches=host_mismatches(calls))
         steps["attestations"] = rec
         expect(not rec["unexpected"], f"attestations: unexpected {rec['unexpected'][:4]}")
         expect(rec["lanes"] == ["attestation"], f"attestations: lanes {rec['lanes']}")
-        pooled = [chain.attestation_pool.get_aggregate(slot, d.hash_tree_root()) for d in datas]
+        pooled = [chain.attestation_pool.get_aggregate(slot, d.hash_tree_root())
+                  for d in datas[:flooded]]
         expect(all(g is not None and all(g[1]) for g in pooled),
                "attestations: the pool does not hold every committee's full aggregate")
 
@@ -478,7 +494,8 @@ def run(verifier, *, validators: int = 16384, blocks: int = 3, preset=None, swap
                   for m, s in zip(msgs + [bad_msg], env)]
         tasks = [[(s, "ACCEPT", "", ())] for s in signed[:-1]]
         tasks[0].insert(0, (signed[-1], "REJECT", "invalid signatures", ()))
-        tasks = _chains_first(tasks, SEED + 1)
+        all_aggregates = [(a[0], t) for a, t in zip(aggregators, tasks)]
+        tasks = _chains_first([t for i, t in all_aggregates if i < flooded], SEED + 1)
         with step() as rec:
             with _BatchSpy(verifier) as spy:
                 flat, lats, makespan = _flood(
@@ -496,7 +513,7 @@ def run(verifier, *, validators: int = 16384, blocks: int = 3, preset=None, swap
                    host_mismatches=host_mismatches(calls))
         fc = chain.fork_choice
         weight = int(fc.proto.weights[fc.proto.indices[altair_root]])
-        votes = int(chain.head_state.flat.effective_balance[[v for _, _, v in members]].sum())
+        votes = int(chain.head_state.flat.effective_balance[[v for _, _, v in used]].sum())
         boost = fc._compute_proposer_boost_score() if fc.proposer_boost_root == altair_root else 0
         rec.update(weight=weight, votes=votes, boost=boost)
         steps["aggregates"] = rec
@@ -537,16 +554,23 @@ def run(verifier, *, validators: int = 16384, blocks: int = 3, preset=None, swap
         expect(rec["gossip"] == ["ACCEPT", ""], f"produce: gossip {rec['gossip']}")
         expect(root == block.hash_tree_root() and chain.head_root == root,
                "produce: the produced block is not the head")
-        expect(rec["carried"] == list(range(cps)),
+        expect(rec["carried"] == list(range(flooded)),
                f"produce: the block carries the aggregates of committees {rec['carried']}")
         for name, r in steps.items():
             expect(not r["host_mismatches"],
                    f"{name}: verdicts differ from the host tier's: {r['host_mismatches'][:2]}")
         out["head"] = chain.head_root.hex()
         out["justified"] = [chain.justified_checkpoint[0], chain.justified_checkpoint[1].hex()]
+        if keep:
+            out["gossip"] = {"slot": slot, "block_root": altair_root, "subnets":
+                             [subnet(i) for i in range(cps)], "attestations": all_tasks,
+                             "aggregates": all_aggregates, "produced": produced}
     finally:
-        chain.close()
         factory.close()
+        if keep:
+            out["chain"] = chain
+        else:
+            chain.close()
     return out
 
 

@@ -57,7 +57,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "metrics.registry", "parallel.mesh",
                  "parallel.mesh_pool", "parallel.sharded", "parallel.fleet",
                  "parallel.fleet_host") + SERVING_MODULES + HOST_LAYER_MODULES \
-            + CHAIN_MODULES + EXECUTION_MODULES:
+            + CHAIN_MODULES + EXECUTION_MODULES + NETWORK_MODULES:
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
 
 
@@ -175,6 +175,57 @@ def test_execution_and_eth1_load_no_jax_and_read_no_environment():
         with open(path) as f:
             text = f.read()
         assert not re.search(r"\b(environ|getenv|putenv|env_str|env_float)\b", text), path
+
+
+# the network and its utilities: none reads any environment variable at all
+# (the invalid-block directory is an argument), and none imports the
+# `cryptography` wheel (the primitives are the port's own)
+NETWORK_MODULES = (
+    "utils.errors", "utils.queue", "network", "network.crypto", "network.transport",
+    "network.peers", "network.subnets", "network.discovery", "network.network",
+    "network.gossip", "network.gossip.encoding", "network.gossip.topic", "network.gossip.rpc",
+    "network.gossip.score", "network.gossip.gossipsub", "network.gossip.handlers",
+    "network.reqresp", "network.reqresp.snappy_frames", "network.reqresp.codec",
+    "network.reqresp.protocols", "network.reqresp.handlers", "network.reqresp.service",
+    "profile_network")
+
+NETWORK_PROBE = r"""
+import importlib, json, pkgutil, sys
+import lodestar_tpu_torch.network as net
+import lodestar_tpu_torch.utils as utils
+names = []
+for pkg in (net, utils):
+    names.append(pkg.__name__)
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(info.name)
+        names.append(info.name)
+import lodestar_tpu_torch.profile_network
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu.")
+             or m == "cryptography" or m.startswith("cryptography."))
+print(json.dumps({"bad": bad, "modules": sorted(names)}))
+"""
+
+
+def test_network_loads_no_jax_no_cryptography_and_reads_no_environment():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["LODESTAR_TPU_PERSIST_INVALID"] = "/nonexistent"  # the JAX handlers' knob: ignored
+    out = subprocess.run(
+        [sys.executable, "-c", NETWORK_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    for name in NETWORK_MODULES[:-1]:
+        assert f"lodestar_tpu_torch.{name}" in result["modules"], name
+    for name in NETWORK_MODULES:
+        path = os.path.join(REPO, "lodestar_tpu_torch", *name.split("."))
+        path = path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"\b(environ|getenv|putenv|env_str|env_float)\b", text), path
+        assert not re.search(r"^\s*(from|import) cryptography", text, re.M), path
 
 
 # the serving stack's modules: none reads any environment variable at all
