@@ -146,9 +146,11 @@ it runs the single-device path it names on a host of any card count):
           32,768 keys (the slice phase's 4096, 28,672 from sk_to_pk, the
           block job's 128) while the calls arrive; the slice's 4096 sets as
           one-set attestation calls, uniform over 4 s, from 1024 caller
-          threads, of which the first 2 s run (2048 calls, cut from the
-          whole slot of PRs 14–17 to make room for the capella phase), the
-          set arriving 1000th carrying another key's signature; serve-128's
+          threads, of which the first 1 s runs (1024 calls: cut from the
+          whole slot to its first 2 s, 2048 calls, to make room for the
+          capella phase, then to its first 1 s for the network phase's
+          node steps and the cli phase), the set arriving 500th carrying
+          another key's signature; serve-128's
           job on the block lane at 0 s and 2 s, each run as block import
           runs a block (a root `chain/process_block` span, its context
           handed to a worker thread that opens `chain/bls_verify` around
@@ -328,11 +330,20 @@ it runs the single-device path it names on a host of any card count):
           the chain phase's chain (blocks 1-3, 33 and 34 already verified
           on the card, so P costs no verdict), serving status and
           `beacon_blocks_by_range` and answering discovery, subscribed to
-          no gossip topic; R, a new `BeaconChain` on the genesis (manual
-          clock) behind a `Network` with every subnet's topic, whose
+          no gossip topic, and serving the port's Beacon API on an
+          ephemeral loopback port; R, a port `BeaconNode` built as the
+          CLI builds one from `--checkpoint-sync-url`: P's finalized state
+          over `BeaconApiClient.getStateV2`, `init_beacon_state` at clock
+          epoch 1 (origin "checkpoint", the genesis state root), then
+          `BeaconNode.init` on a `NativeKvDb` datadir in a temporary
+          directory, REST and metrics on ephemeral ports, its own lane
+          dispatcher over the chain phase's supervisor (the JAX node's
+          defaults: two workers, a flush at 32 sets) behind the recording
+          verifier, the manual clock; behind a
+          `Network` with every subnet's topic, attached to the node, whose
           router runs on a manual clock; Q1-Q32, each a `Transport`,
           `GossipsubService` and `Gossipsub` with its own identity and no
-          subscriptions. During each flood the stack's lane flushes at
+          subscriptions. During each flood R's lanes flush at
           its cohort, or after 1 s: the messages in flight (one per peer,
           at most the topic queue's concurrency) times a message's sets,
           32 for the attestations, 16 x 3 for the aggregates. (a) R finds P by discovery
@@ -340,10 +351,14 @@ it runs the single-device path it names on a host of any card count):
           record and dials it (the handshake both ways, then status);
           Q1-Q32 dial R; the dial seconds and the host us of Ed25519 sign
           and verify, X25519, HKDF, the AEAD and snappy are printed. (b)
-          R range-syncs slots 1-33 from P (blocks 1-3 and 33 as
-          ssz_snappy chunks) and imports them with
-          `process_block_segment`: one verdict of 149 sets; R's head is
-          P's block 33. (c) slot 33's 512 attestations spread round-robin
+          R range-syncs slots 1-33 from P through `sync.RangeSync` over
+          the status-holding peers of `Network.sync_peers` (P alone: the
+          Q peers serve no req/resp, and the CLI, which hands RangeSync
+          every peer, would rotate past them), in the loop's executor:
+          one batch (blocks 1-3 and 33
+          as ssz_snappy chunks) imported with `process_block_segment`: one
+          verdict of 149 sets; R's head is P's block 33, the batch states
+          RangeSync exported are printed. (c) slot 33's 512 attestations spread round-robin
           over Q1-Q32 on their subnets' topics, with the chain phase's two
           bad signatures and wrong subnet (REJECT), a second vote of one
           attester on block 3 (IGNORE), and after the flood a
@@ -356,7 +371,19 @@ it runs the single-device path it names on a host of any card count):
           hits printed. (d) every aggregator's aggregate of the slot the
           same way, one with another's selection proof (REJECT). (e)
           block 34 published by Q1: ACCEPT, imported; R's head and its
-          weight are P's. Fails unless every action is the expected one,
+          weight are P's. (node) R's slot 34 through `node.on_clock_slot`;
+          R's /metrics shows head slot 34 and the finalized epoch,
+          fork-choice nodes and db entries its chain and db hold, the STF
+          families (epoch transition, state root, shuffling cache) and
+          its lanes' `lodestar_bls_*` families moved; R's REST answers
+          getBlockHeader("head"), getStateFinalityCheckpoints("head"),
+          getStateValidator("head", 0), getSyncingStatus, getHealth,
+          getProposerDuties(1), produceAttestationData(slot 34, committee
+          0) and getNodePeers as its chain, fork choice and network hold
+          them. (close) after the networks stop, `node.close()` persists
+          the head; a fresh `NativeKvDb` on the datadir gives
+          `init_beacon_state` origin "db" at block 34's state root; each
+          of these steps' seconds is printed. Fails unless every action is the expected one,
           every verdict the host tier's and the card's (the supervisor's
           only host-tier calls negative audits; the facade's batch and
           per-set jobs those the sent sets and coalesced batches imply;
@@ -400,6 +427,25 @@ it runs the single-device path it names on a host of any card count):
           seconds (produce, gossip, import and the chain's spans), the
           sweep's, the planner paths and launches, and a `[summary]
           capella` line with the card.
+12i. cli  the port's normal entry point, last: `python -m
+          lodestar_tpu_torch.cli beacon --network minimal-dev
+          --genesis-validators 64 --genesis-time <now - 12> --datadir <tmp>
+          --rest --metrics --run-seconds 40` (free loopback ports) as a
+          subprocess on its default device, the card; once it answers
+          `/eth/v1/node/health`, the same interop genesis built here and
+          its slot-1 block made by `profile_block.BlockFactory` are POSTed
+          to `/eth/v1/beacon/blocks` by the port's `BeaconApiClient`;
+          `getBlockHeader("head")` must name the block; the subprocess's
+          /metrics must show its planner decisions and device stages moved,
+          no supervisor fallback to the host tier and no native-KV
+          fallback, and a build-info gauge naming `cuda` and the card;
+          SIGINT must end it with 0, its last log line (the launches
+          since the node was ready: it sets the counts to 0 past its
+          preload) must count K1 or K4, K2p and K3-fe launched at least
+          once each, and its `<tmp>/kv` must open here with
+          `NativeKvDb` and resume at slot 1 with the block's state root.
+          Prints the seconds to health, the block's import and the
+          process's total, and the phase's against its 45 s bound.
 
 The main-path verdicts of phases 6-12h run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
@@ -1814,8 +1860,9 @@ NODE_WINDOW_S = 4.0  # attestations arrive over the first third of the 12 s slot
 NODE_SLOT_S = 12.0
 NODE_CALLERS = 1024  # gossip validation threads, each blocked in its call
 NODE_TAMPERED = (1000, 3000)  # carry the next set's signature (same root, another key)
-NODE_MAIN_CALLS = 2048  # the coalesce-512 slot: its first 2 s, to make room for the capella phase
-NODE_MAIN_TAMPERED_AT = 1000  # the arrival whose set is tampered among those 2048 calls
+NODE_MAIN_CALLS = 1024  # the coalesce-512 slot: its first 1 s, to make room for the capella,
+# network-node and cli work
+NODE_MAIN_TAMPERED_AT = 500  # the arrival whose set is tampered among those 1024 calls
 NODE_BLOCK_AT = (0.0, 2.0)  # the 128-set block job's arrivals
 NODE_BOOT_SLO_S = 10.0  # dashboards/slo_rules.json `serving_ready`
 NODE_SIZE_BINS = (1, 32, 64, 128, 256, 512, 1024, 2048, 4096)
@@ -2659,7 +2706,7 @@ def _node_mesh_drill(torch, np, serve_sets):
 
 def phase_node(torch, np, grouped, serve_batch, per_set_sets):
     """12b. the port's serving stack: (a) the warm-boot ladder in a
-    subprocess, (b) the first 2 s of one slot of gossip at the JAX
+    subprocess, (b) the first 1 s of one slot of gossip at the JAX
     defaults, (c) the supervisor's drills and the mesh drill,
     (d) the scrape, (e) the ahead-of-time store's drill, and the host cost
     of a lifecycle span."""
@@ -2670,11 +2717,11 @@ def phase_node(torch, np, grouped, serve_batch, per_set_sets):
         raise AssertionError(f"{tag} the host tier rejects the block job")
     out = {"boot": timed("node (a) boot", _node_boot, torch)}
     keys = _node_keys(np, slice_sets, block_sets)
-    # the slot's first 2 s (2048 calls, one tampered), cut to keep the
+    # the slot's first 1 s (1024 calls, one tampered), cut to keep the
     # script's time
     order, _ = _node_order(np, len(slice_sets))
     out["slot"] = timed("node (b) slot 512", _node_slot, torch, np,
-                        f"{tag} (b) slot's first 2 s (cut), max_coalesce 512:", slice_sets,
+                        f"{tag} (b) slot's first 1 s (cut), max_coalesce 512:", slice_sets,
                         slice_host, block_sets, keys, NODE_MAIN_CALLS,
                         (int(order[NODE_MAIN_TAMPERED_AT]),))
     out["drills"] = timed("node (c) drills", _node_drills, torch, np, block_sets, per_set_sets)
@@ -3496,11 +3543,10 @@ def phase_network(torch, np, stack, scenario, jobs, chain_out):
 
     per_job = stack.device.max_sets_per_job
     try:
-        out = profile_network.run(stack.verifier, scenario=scenario, chain_out=chain_out,
+        out = profile_network.run(stack.supervisor, scenario=scenario, chain_out=chain_out,
                                   observer=stack.pipeline, sync=torch.cuda.synchronize,
                                   probe=lambda: {k: v for k, v in jobs.items()
-                                                 if not k.endswith("_s")},
-                                  log=log)
+                                                 if not k.endswith("_s")}, log=log)
         breaker = stack.supervisor.breaker_state
         profile_network.log_steps(out, log)
         if out["failures"]:
@@ -3539,6 +3585,167 @@ def phase_network(torch, np, stack, scenario, jobs, chain_out):
 
 CAPELLA_STEPS = (("slot1", 0), ("slot2", 0), ("tampered", 2), ("invalid_payload", 0),
                  ("prepare", 0))  # the step and its negative audits: the verdict's and the blame's
+
+
+CLI_VALIDATORS = 64
+CLI_RUN_S = 40  # the subprocess's own limit (--run-seconds); SIGINT ends it first
+CLI_BOUND_S = 45.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_cli(torch, np):
+    """12i. the port's CLI (`python -m lodestar_tpu_torch.cli beacon`) as a
+    subprocess on the card, one REST-posted block, SIGINT and a resume from
+    its `kv/`, every check of the module docstring's 12i."""
+    import signal
+    import tempfile
+
+    from lodestar_tpu_torch import profile_block
+    from lodestar_tpu_torch.api.client import BeaconApiClient
+    from lodestar_tpu_torch.config.beacon_config import BeaconConfig, ChainForkConfig
+    from lodestar_tpu_torch.config.chain_config import MINIMAL_CHAIN_CONFIG
+    from lodestar_tpu_torch.db import BeaconDb
+    from lodestar_tpu_torch.db.controller import NativeKvDb
+    from lodestar_tpu_torch.node import init_beacon_state
+    from lodestar_tpu_torch.params import MINIMAL
+    from lodestar_tpu_torch.profile_network import prom_total, prom_values, scrape
+    from lodestar_tpu_torch.state_transition import CachedBeaconState, interop_genesis_state
+    from lodestar_tpu_torch.types import get_types
+
+    tag = "[cli]"
+    t_start = time.perf_counter()
+    genesis_time = int(time.time()) - 12
+    rest_port, metrics_port = _free_port(), _free_port()
+    out = {"genesis_time": genesis_time}
+    with tempfile.TemporaryDirectory(prefix="cli-") as tmp:
+        datadir = os.path.join(tmp, "node")
+        cmd = [sys.executable, "-m", "lodestar_tpu_torch.cli", "beacon",
+               "--network", "minimal-dev", "--genesis-validators", str(CLI_VALIDATORS),
+               "--genesis-time", str(genesis_time), "--datadir", datadir,
+               "--rest", "--rest-port", str(rest_port),
+               "--metrics", "--metrics-port", str(metrics_port),
+               "--run-seconds", str(CLI_RUN_S)]
+        log_path = os.path.join(tmp, "beacon.log")
+        with open(log_path, "w") as log_f:
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT)
+        try:
+            # the same interop genesis and its slot-1 block, made here while
+            # the node starts
+            t0 = time.perf_counter()
+            fork_config = ChainForkConfig(MINIMAL_CHAIN_CONFIG, MINIMAL)
+            types_all = get_types(MINIMAL)
+            state = interop_genesis_state(fork_config, types_all.phase0, CLI_VALIDATORS,
+                                          genesis_time=genesis_time)
+            config = BeaconConfig(MINIMAL_CHAIN_CONFIG, bytes(state.genesis_validators_root),
+                                  MINIMAL)
+            factory = profile_block.BlockFactory(config, CLI_VALIDATORS)
+            try:
+                signed, _ = factory.block(factory.advance(
+                    CachedBeaconState(config, state, MINIMAL), 1), [])
+            finally:
+                factory.close()
+            out["block_make_s"] = time.perf_counter() - t0
+            root = signed.message.hash_tree_root()
+            client = BeaconApiClient("127.0.0.1", rest_port, timeout=60.0)
+
+            def healthy():
+                if proc.poll() is not None:
+                    raise AssertionError(f"{tag} the node exited with {proc.returncode}")
+                try:
+                    client.getHealth()
+                    return True
+                except OSError:
+                    return False
+
+            health_s = _wait_for(healthy, 30.0, 0.1)
+            if health_s is None:
+                raise AssertionError(f"{tag} no /eth/v1/node/health within 30 s")
+            out["health_s"] = time.perf_counter() - t_start
+            t0 = time.perf_counter()
+            client.publishBlock(body=signed.to_obj())
+            out["import_s"] = time.perf_counter() - t0
+            header = client.getBlockHeader("head")
+            values = prom_values(scrape(metrics_port))
+            out["head"] = header["root"]
+            if header["root"] != "0x" + root.hex() or header["header"]["message"]["slot"] != "1":
+                raise AssertionError(f"{tag} head {header}, posted {root.hex()} at slot 1")
+            moved = {k: prom_total(values, k) for k in (
+                "lodestar_bls_verifier_planner_decisions_total",
+                "lodestar_bls_pipeline_stage_seconds_count",
+                "lodestar_bls_verifier_sets_total", "lodestar_bls_supervisor_fallbacks_total",
+                "lodestar_db_native_kv_fallbacks_total", "beacon_processed_blocks_total")}
+            out["metrics"] = moved
+            build = [labels for (name, labels), v in values.items()
+                     if name == "lodestar_tpu_build_info" and v == 1]
+            out["build_info"] = build
+            card = torch.cuda.get_device_name(0)
+            # a block's sets go past the lanes' coalescing straight to the
+            # supervisor (`batchable=False`), so the lanes' own set counter
+            # stays 0; the facade's planner and device stages move
+            if not (moved["lodestar_bls_verifier_planner_decisions_total"] > 0
+                    and moved["lodestar_bls_pipeline_stage_seconds_count"] > 0
+                    and moved["beacon_processed_blocks_total"] == 1):
+                raise AssertionError(f"{tag} the facade's counters did not move: {moved}")
+            if moved["lodestar_bls_supervisor_fallbacks_total"] \
+                    or moved["lodestar_db_native_kv_fallbacks_total"]:
+                raise AssertionError(f"{tag} a fallback: {moved}")
+            if len(build) != 1 or 'backend="cuda"' not in build[0] \
+                    or f'device_kind="{card}"' not in build[0]:
+                raise AssertionError(f"{tag} build info {build}, the card {card}")
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=30)
+            out["stop_s"] = time.perf_counter() - t0
+            out["process_s"] = time.perf_counter() - t_start
+            if rc != 0:
+                raise AssertionError(f"{tag} SIGINT: exit code {rc}")
+            with open(log_path) as f:
+                last = [ln for ln in f if "kernel launches" in ln]
+            out["launches"] = json.loads(last[-1].split("kernel launches", 1)[1]) if last else {}
+            # the counts start at 0 once the node is ready (past its
+            # preload): the block's verdict launches its products' K1 or K4
+            # and at least one K2p and one K3-fe
+            n = out["launches"]
+            if not (n.get("K1", 0) + n.get("K4", 0) >= 1
+                    and all(n.get(k, 0) >= 1 for k in ("K2p", "K3-fe"))):
+                raise AssertionError(f"{tag} the node's kernel launches {out['launches']}")
+        except BaseException:
+            with open(log_path) as f:
+                log(f"{tag} the node's log:\n" + "".join(f.readlines()[-40:]))
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if os.path.exists(os.path.join(datadir, "chain.db")):
+            raise AssertionError(f"{tag} the node wrote a FileDb")
+        kv = NativeKvDb(os.path.join(datadir, "kv"))
+        try:
+            resumed, origin = init_beacon_state(fork_config, types_all,
+                                                BeaconDb(types_all.phase0, kv))
+            out["resume"] = {"origin": origin, "slot": int(resumed.slot),
+                             "entries": kv.stats()["entries"]}
+            if origin != "db" or resumed.slot != 1 \
+                    or resumed.hash_tree_root() != bytes(signed.message.state_root):
+                raise AssertionError(f"{tag} resumed {out['resume']}, not the block's state")
+        finally:
+            kv.close()
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"{tag} health {out['health_s']:.3f} s after the start, block made here "
+        f"{out['block_make_s']:.3f} s, posted block imported in {out['import_s']:.3f} s, "
+        f"SIGINT to exit {out['stop_s']:.3f} s, process {out['process_s']:.3f} s; the node's "
+        f"kernel launches {json.dumps(out['launches'])}; /metrics "
+        f"{json.dumps(out['metrics'])}; resumed {json.dumps(out['resume'])}; phase "
+        f"{out['phase_s']:.1f} s (bound {CLI_BOUND_S:.0f} s"
+        f"{'' if out['phase_s'] <= CLI_BOUND_S else ', OVER'}); card: {card_line()}")
+    return out
 
 
 def phase_capella(torch, np, stack, scenario, jobs):
@@ -3637,6 +3844,7 @@ def main() -> int:
     network = timed("network", phase_network, torch, np, chain_stack, scenario, chain_jobs,
                     chain)
     capella = timed("capella", phase_capella, torch, np, chain_stack, scenario, chain_jobs)
+    cli = timed("cli", phase_cli, torch, np)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -3733,7 +3941,11 @@ def main() -> int:
             f"{st[k]['latency_p99_s']:.4f} max {st[k]['latency_max_s']:.4f} s, "
             f"{st[k]['batches']} batches, largest {max(st[k]['batch_sizes'], default=0)})"
             for k in ("attestations", "aggregates"))
-        + f"; block {st['block']['seconds']:.3f} s, weight {st['block']['weight'][0]}; phase "
+        + f"; block {st['block']['seconds']:.3f} s, weight {st['block']['weight'][0]}; node R: "
+        f"anchor {st['anchor']['seconds']:.3f} s (origin {st['anchor']['origin']}), range sync "
+        f"batches {json.dumps(st['range_sync']['batch_states'])}, slot and checks "
+        f"{st['node']['seconds']:.3f} s, close {st['close']['close_s']:.3f} s, resume "
+        f"{st['close']['resume_s']:.3f} s (origin {st['close']['origin']}); phase "
         f"{PHASE_SECONDS['network']:.1f} s (bound {NETWORK_BOUND_S:.0f} s"
         f"{'' if PHASE_SECONDS['network'] <= NETWORK_BOUND_S else ', OVER'}); launches "
         f"{json.dumps(network['launches'])}; script {time.perf_counter() - t_start:.1f} s; "
@@ -3755,6 +3967,10 @@ def main() -> int:
         f"{st['slot2']['sweep_s']:.4f} s, {len(st['slot2']['withdrawals'])} withdrawals; phase "
         f"{PHASE_SECONDS['capella']:.1f} s; script {time.perf_counter() - t_start:.1f} s; "
         f"card: {card_line()}")
+    log(f"[summary] cli (minimal-dev, {CLI_VALIDATORS} validators, a subprocess on the card): "
+        f"health {cli['health_s']:.3f} s, block import {cli['import_s']:.3f} s, process "
+        f"{cli['process_s']:.3f} s, phase {PHASE_SECONDS['cli']:.1f} s (bound {CLI_BOUND_S:.0f} "
+        f"s); script {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
     log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "

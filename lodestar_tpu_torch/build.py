@@ -14,7 +14,8 @@ so a build takes seconds).
 
 - `host_tier()`: the C host tier (BLS12-381 decompression, hash-to-curve,
   signing, CPU verification; SHA-256 levels; the network's snappy codec,
-  xxHash64 and ChaCha20-Poly1305) with `cc`.
+  xxHash64 and ChaCha20-Poly1305; the beacon database's KV engine,
+  `kvstore.c`) with `cc`.
 - `mont_mul_host()`: the K1 arithmetic headers (`fp_mont.cuh`'s
   one-thread CIOS, `fp_mont_group.cuh`'s half-warp product with its
   shuffles emulated) built for the host with `c++`, for the CPU tests.
@@ -200,7 +201,8 @@ CC, CXX = ("cc", "gcc", "clang"), ("c++", "g++", "clang++")
 LIBRARIES = {lib.name: lib for lib in (
     Library("bls12_host", CC, ["-O2", "-shared", "-fPIC"], ["host/bls12.c", "host/sha256.c",
                                                         "host/snappy_codec.c", "host/xxhash64.c",
-                                                        "host/chacha20poly1305.c"],
+                                                        "host/chacha20poly1305.c",
+                                                        "host/kvstore.c"],
             ["host/bls12_consts.h"]),
     Library("mont_mul_host", CXX, HOST_FLAGS, ["mont_mul_host.cpp"], MONT_MUL_HEADERS),
     Library("mont_mul", ("nvcc",), NVCC_FLAGS, ["mont_mul.cu"], MONT_MUL_HEADERS),

@@ -1,0 +1,7 @@
+"""CLI: `python -m lodestar_tpu_torch.cli <cmd>`.
+
+Reference: `packages/cli` yargs commands. The port's copy of the JAX
+package's `cli/`, with the `beacon` command: a beacon node whose
+signature verdicts run on the GPU (`--device cuda`, the default) or on
+the kernels' plain versions (`--device cpu`).
+"""

@@ -142,3 +142,100 @@ class FileDb(MemoryDb):
 
     def close(self) -> None:
         self._fh.close()
+
+
+class NativeKvDb:
+    """IDatabaseController over the C storage engine (`csrc/host/kvstore.c`,
+    the port's copy of the JAX package's, bound by `native.kv_*`). Values
+    live on disk; only the key index is in memory, so datadirs can exceed
+    process memory. Crash-tolerant (CRC-framed records, torn tails dropped
+    on replay), batched writes fsync once, dead space reclaimed by
+    compaction. The on-disk format is the JAX package's: a datadir written
+    by either opens in the other.
+
+    `seg_limit` (bytes per segment, 0: 256 MiB) and `verify_reads` (CRC on
+    every get) are the engine's two knobs, off by default as in the JAX
+    package.
+
+    Thread-safe: one lock serializes writers (the engine itself is
+    single-writer by design).
+    """
+
+    def __init__(self, path: str, seg_limit: int = 0, verify_reads: bool = False):
+        import threading
+
+        from .. import native
+
+        self._native = native
+        self._h = native.kv_open(path, seg_limit, verify_reads)
+        self._lock = threading.Lock()
+        self.path = path
+
+    # NOTE: the C engine mutates its index with the GIL released, so
+    # READERS take the same lock as writers (a reader racing kv_grow or
+    # compact would use freed memory).
+
+    def _handle(self) -> int:
+        if self._h is None:
+            raise ValueError("invalid or closed KV handle")
+        return self._h
+
+    def get(self, key: bytes) -> bytes | None:
+        with self._lock:
+            return self._native.kv_get(self._handle(), key)
+
+    def put(self, key: bytes, value: bytes) -> None:
+        with self._lock:
+            self._native.kv_put(self._handle(), key, value)
+
+    def delete(self, key: bytes) -> None:
+        with self._lock:
+            self._native.kv_delete(self._handle(), key)
+
+    def batch_put(self, items) -> None:
+        with self._lock:
+            self._native.kv_batch_put(self._handle(), [(bytes(k), bytes(v)) for k, v in items])
+            self._native.kv_compact(self._handle())  # no-op below the dead-ratio gate
+
+    def keys_stream(self, gte: bytes, lt: bytes):
+        with self._lock:
+            keys = self._native.kv_range(self._handle(), gte, lt)
+        yield from keys
+
+    def values_stream(self, gte: bytes, lt: bytes):
+        for _, v in self.entries_stream(gte, lt):
+            yield v
+
+    def entries_stream(self, gte: bytes, lt: bytes):
+        with self._lock:
+            keys = self._native.kv_range(self._handle(), gte, lt)
+        for k in keys:
+            with self._lock:
+                v = self._native.kv_get(self._handle(), k)
+            if v is not None:
+                yield k, v
+
+    def stats(self) -> dict:
+        with self._lock:
+            count, live, dead, seg = self._native.kv_stats(self._handle())
+        return {
+            "entries": count,
+            "live_bytes": live,
+            "dead_bytes": dead,
+            "active_segment": seg,
+        }
+
+    def compact(self) -> None:
+        with self._lock:
+            self._native.kv_compact(self._handle(), force=True)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._h is not None:
+                self._native.kv_close(self._h)  # fsyncs
+                self._h = None
+
+    def __del__(self):  # an unclosed store is closed when collected, as the JAX capsule is
+        if getattr(self, "_h", None) is not None:
+            self._native.kv_close(self._h)
+            self._h = None

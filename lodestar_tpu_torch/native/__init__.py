@@ -1,8 +1,8 @@
 """The C host tier of BLS12-381 through its plain C ABI (`ctypes`).
 
 The sources are the port's own copy under `csrc/host/` (bls12.c,
-bls12_consts.h, sha256.c, and for the network snappy_codec.c,
-xxhash64.c and chacha20poly1305.c), built by `build.host_tier()` with
+bls12_consts.h, sha256.c, for the network snappy_codec.c,
+xxhash64.c and chacha20poly1305.c, and for the database kvstore.c), built by `build.host_tier()` with
 `cc` at first use (there is no Python fallback: without a C compiler
 these calls raise). Limb outputs are (..., 32) int32 Montgomery limbs, the layout
 of `ops/limbs.py`. ctypes releases the GIL for each call, so the batch
@@ -58,8 +58,31 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [_VP, _VP, _VP, _SZ, _VP, _SZ, _VP]
             fn.restype = _INT
+        _U64 = ctypes.c_uint64
+        for name, argtypes, restype in (
+                ("lodestar_kv_open_with", [ctypes.c_char_p, _U64, _INT], _VP),
+                ("lodestar_kv_put", [_VP, _VP, _SZ, _VP, _SZ, _INT], _INT),
+                ("lodestar_kv_delete", [_VP, _VP, _SZ, _INT], _INT),
+                ("lodestar_kv_sync", [_VP], _INT),
+                ("lodestar_kv_get", [_VP, _VP, _SZ, _VP, _SZ], ctypes.c_int64),
+                ("lodestar_kv_range", [_VP, _VP, _SZ, _VP, _SZ, ctypes.POINTER(_U64)],
+                 ctypes.POINTER(_KeyRef)),
+                ("lodestar_kv_free", [_VP], None),
+                ("lodestar_kv_count", [_VP], _U64),
+                ("lodestar_kv_stats", [_VP, ctypes.POINTER(_U64 * 4)], None),
+                ("lodestar_kv_compact", [_VP], _INT),
+                ("lodestar_kv_should_compact", [_VP], _INT),
+                ("lodestar_kv_close", [_VP], None)):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
         _FN = lib
     return _FN
+
+
+class _KeyRef(ctypes.Structure):
+    """`kv_keyref` of kvstore.c: a key in the engine's arena."""
+
+    _fields_ = [("key", ctypes.c_void_p), ("len", ctypes.c_uint16)]
 
 
 def _buf(data: bytes):
@@ -280,3 +303,104 @@ def verify_sets(pks: bytes, msgs: list[bytes], sigs: bytes, dst: bytes,
             sigs[96 * lo_hi[0]: 96 * lo_hi[1]], dst,
         ), zip(bounds[:-1], bounds[1:]))
         return [v for part in parts for v in part]
+
+
+# -- the KV engine (csrc/host/kvstore.c) -------------------------------------
+# The JAX package binds these through CPython wrappers (`module.c:380-480`);
+# here each is one ctypes call, which releases the GIL as those do. The
+# handle is the engine's pointer; the caller serializes calls on it.
+
+
+def kv_open(path: str, seg_limit: int = 0, verify_reads: bool = False) -> int:
+    """Open (and replay) the KV datadir `path` → handle. `seg_limit`: the
+    segment rotation size in bytes (0: 256 MiB); `verify_reads`: check
+    each record's CRC on get. OSError when it cannot be opened."""
+    h = _lib().lodestar_kv_open_with(str(path).encode(), int(seg_limit), int(verify_reads))
+    if not h:
+        raise OSError(f"kv_open failed for {path}")
+    return h
+
+
+def kv_put(h: int, key: bytes, value: bytes, sync: bool = True) -> None:
+    key, value = bytes(key), bytes(value)
+    if _lib().lodestar_kv_put(h, key, len(key), value, len(value), int(sync)) != 0:
+        raise OSError("kv_put failed")
+
+
+def kv_batch_put(h: int, items) -> None:
+    """Every (key, value) written, then one fsync."""
+    for k, v in items:
+        kv_put(h, k, v, sync=False)
+    kv_sync(h)
+
+
+def kv_delete(h: int, key: bytes, sync: bool = True) -> None:
+    key = bytes(key)
+    if _lib().lodestar_kv_delete(h, key, len(key), int(sync)) != 0:
+        raise OSError("kv_delete failed")
+
+
+def kv_sync(h: int) -> None:
+    if _lib().lodestar_kv_sync(h) != 0:
+        raise OSError("kv_sync failed")
+
+
+def kv_get(h: int, key: bytes) -> bytes | None:
+    key = bytes(key)
+    lib = _lib()
+    small = ctypes.create_string_buffer(4096)
+    n = lib.lodestar_kv_get(h, key, len(key), small, 4096)
+    if n == -1:
+        return None
+    if n < 0:
+        raise OSError("kv_get IO error")
+    if n <= 4096:
+        return small.raw[:n]
+    out = ctypes.create_string_buffer(n)
+    if lib.lodestar_kv_get(h, key, len(key), out, n) != n:
+        raise OSError("kv_get IO error")
+    return out.raw
+
+
+def kv_range(h: int, gte: bytes, lt: bytes) -> list[bytes]:
+    """The keys in [gte, lt), sorted (an empty bound is open)."""
+    gte, lt = bytes(gte), bytes(lt)
+    lib = _lib()
+    n = ctypes.c_uint64(0)
+    arr = lib.lodestar_kv_range(h, gte, len(gte), lt, len(lt), ctypes.byref(n))
+    if not arr:
+        raise MemoryError("kv_range failed")
+    try:
+        return [ctypes.string_at(arr[i].key, arr[i].len) for i in range(n.value)]
+    finally:
+        lib.lodestar_kv_free(ctypes.cast(arr, ctypes.c_void_p))
+
+
+def kv_count(h: int) -> int:
+    return int(_lib().lodestar_kv_count(h))
+
+
+def kv_stats(h: int) -> tuple[int, int, int, int]:
+    """(count, live_bytes, dead_bytes, active_segment)."""
+    out = (ctypes.c_uint64 * 4)()
+    _lib().lodestar_kv_stats(h, ctypes.byref(out))
+    return tuple(int(v) for v in out)
+
+
+def kv_should_compact(h: int) -> bool:
+    return bool(_lib().lodestar_kv_should_compact(h))
+
+
+def kv_compact(h: int, force: bool = False) -> bool:
+    """Compact when the dead bytes pass the gate (or `force`); True when it
+    ran."""
+    if not force and not kv_should_compact(h):
+        return False
+    if _lib().lodestar_kv_compact(h) != 0:
+        raise OSError("kv_compact failed")
+    return True
+
+
+def kv_close(h: int) -> None:
+    """fsync and close; the handle is dead after."""
+    _lib().lodestar_kv_close(h)

@@ -14,11 +14,20 @@ loopback in one process and one event loop:
 
 - P: a `Network` over that chain, which serves status and
   `beacon_blocks_by_range` and answers discovery; it leaves every gossip
-  topic, so no message is forwarded to it and it validates nothing;
-- R, the node under test: a new `BeaconChain` on the same genesis and
-  verifier (`RecordingVerifier` around it), a `ManualClock`, and a
-  `Network` with `subscribe_all_subnets=True`; its router's clock is a
-  manual one too, so no score decays during the run;
+  topic, so no message is forwarded to it and it validates nothing. P
+  also serves the Beacon API (`api.BeaconApiServer`) on an ephemeral
+  loopback port;
+- R, the node under test: a `BeaconNode` anchored as the CLI's
+  `--checkpoint-sync-url` anchors one (`BeaconApiClient.getStateV2
+  ("finalized")` from P, `init_beacon_state` at clock epoch 1: origin
+  "checkpoint", the genesis state), on a `NativeKvDb` datadir in a
+  temporary directory, with REST and metrics on ephemeral ports, a
+  `ManualClock`, and its chain verifying through a `RecordingVerifier`
+  around the node's own lane dispatcher over the supervisor it is given
+  (the stack's `SupervisedBlsVerifier`, as the JAX node composes
+  `BlsLaneDispatcher(self.bls_supervisor)`); a `Network` with `subscribe_all_subnets=True`,
+  attached to the node; its router's clock is a manual one too, so no
+  score decays during the run;
 - Q1..Q`peers`: each a `Transport`, `GossipsubService` and `Gossipsub`
   with its own identity and no subscriptions: they publish to R and R
   forwards nothing to them.
@@ -28,10 +37,14 @@ and then, each step timed, with the verifier's counts before and after:
 (a) R finds P through discovery (UDP) from P's record and dials it (the
     handshake both ways, then status); Q1..Q`peers` dial R. Logs each
     dial's seconds and the host µs of each primitive.
-(b) R asks P for `beacon_blocks_by_range` over slots 1..Altair slot and
-    imports what comes (the phase0 blocks and the Altair block) with
-    `process_block_segment`: one verdict; R's head is then P's Altair
-    block.
+(b) R range-syncs to the Altair slot through `sync.RangeSync` in the
+    loop's executor. Its peers are those of `Network.sync_peers` whose
+    status R holds, which is P alone: Q1..Q`peers` serve no req/resp. The
+    CLI hands RangeSync every connected peer, so this step does not drive
+    RangeSync's rotation past peers that fail. One batch, `beacon_blocks_by_range` over
+    slots 1..Altair slot, imported (the phase0 blocks and the Altair
+    block) with `process_block_segment`: one verdict; R's head is then
+    P's Altair block, the batch states RangeSync exported are recorded.
 (c) the slot's attestations (one per committee member) published by
     Q1..Q`peers` round-robin on their subnets' topics, with the chain
     phase's two bad signatures (REJECT), its wrong-subnet attestation
@@ -45,6 +58,17 @@ and then, each step timed, with the verifier's counts before and after:
     Altair block.
 (e) the produced block published by Q1 a slot later: ACCEPT, imported;
     R's head and its weight are then P's.
+(node) `node.on_clock_slot` at the block's slot; a scrape of R's
+    /metrics shows the head slot, finalized epoch, fork-choice nodes and
+    db entries that the chain and db hold, and the STF families and R's
+    lanes' `lodestar_bls_*` families moved; R's
+    REST answers getBlockHeader, getStateFinalityCheckpoints,
+    getStateValidator, getSyncingStatus, getHealth, getProposerDuties,
+    produceAttestationData and getNodePeers as its chain, fork choice and
+    network hold them.
+(close) after the networks stop, `node.close()` persists the head; a
+    fresh `NativeKvDb` on R's datadir gives `init_beacon_state` origin
+    "db" at the head's state root.
 
 A message whose action depends on another (a bad signature before its
 sender's valid attestation, the second vote after it, the bad aggregate
@@ -170,18 +194,15 @@ def node_types(config):
 
 
 @contextlib.contextmanager
-def _cohort_flush(verifier, max_sigs: int, max_wait_s: float = COHORT_WAIT_S):
-    """Flush `verifier`'s lanes (a `BlsLaneDispatcher`) at `max_sigs` sets
-    or `max_wait_s` while entered; another verifier is left as it is."""
-    if not hasattr(verifier, "max_wait"):
-        yield
-        return
-    saved = verifier.max_sigs, verifier.max_wait
-    verifier.max_sigs, verifier.max_wait = max_sigs, max_wait_s
+def _cohort_flush(lanes, max_sigs: int, max_wait_s: float = COHORT_WAIT_S):
+    """Flush `lanes` (a `BlsLaneDispatcher`) at `max_sigs` sets or
+    `max_wait_s` while entered."""
+    saved = lanes.max_sigs, lanes.max_wait
+    lanes.max_sigs, lanes.max_wait = max_sigs, max_wait_s
     try:
         yield
     finally:
-        verifier.max_sigs, verifier.max_wait = saved
+        lanes.max_sigs, lanes.max_wait = saved
 
 
 def _sockets() -> int:
@@ -226,21 +247,23 @@ def primitive_us(reps: int = 20) -> dict:
     return out
 
 
-def run(verifier, *, scenario, chain_out, observer=None, probe=None, sync=None,
+def run(supervisor, *, scenario, chain_out, observer=None, probe=None, sync=None,
         peers: int = PEERS, threads: int = VALIDATION_THREADS, log=print) -> dict:
-    """Steps (a)–(e) of the module's docstring through `verifier` (the
-    stack's lane dispatcher, or any `IBlsVerifier`) on `scenario` and
-    `chain_out` (`profile_chain.run(..., keep=True)`'s result, whose chain
-    this closes). Returns the records by step ("steps") with their
-    seconds, what each moved in `observer`'s and `probe()`'s counts and
-    the kernels' launches, the verifier's calls whose verdicts differ from
-    the host tier's, and every failed check ("failures")."""
+    """Steps (a)–(e) of the module's docstring, between the node steps, on
+    `scenario` and `chain_out` (`profile_chain.run(..., keep=True)`'s
+    result, whose chain this closes). R's node composes its own lane
+    dispatcher over `supervisor` (a `SupervisedBlsVerifier`, the stack's
+    or one over any `IBlsVerifier`), recording into R's registry. Returns the records by step ("steps")
+    with their seconds, what each moved in `observer`'s and `probe()`'s
+    counts and the kernels' launches, the verifier's calls whose verdicts
+    differ from the host tier's, and every failed check ("failures")."""
     threads_before = {t.ident for t in threading.enumerate()}
     sockets_before = _sockets()
     out = {"peers": peers, "validators": scenario["validators"], "steps": {}, "failures": []}
     try:
         asyncio.run(asyncio.wait_for(
-            _run(verifier, scenario, chain_out, observer, probe, sync, peers, threads, out),
+            _run(supervisor, scenario, chain_out, observer, probe, sync, peers, threads,
+                 out),
             5 * WAIT_S))
     except Exception as e:  # noqa: BLE001 — a failed phase is reported, not raised
         out["failures"].append(f"run: {type(e).__name__}: {e}")
@@ -271,9 +294,70 @@ async def _wait_for(cond, timeout_s: float, step_s: float = 0.01) -> bool:
     return True
 
 
-async def _run(verifier, scenario, chain_out, observer, probe, sync, peers, threads, out):
-    from .chain.chain import BeaconChain
+class _Recorded:
+    """An `IPeer` that keeps the blocks each range request returned."""
+
+    def __init__(self, peer):
+        self.peer, self.peer_id, self.blocks = peer, peer.peer_id, []
+
+    def status(self):
+        return self.peer.status()
+
+    def beacon_blocks_by_range(self, start_slot: int, count: int) -> list:
+        got = self.peer.beacon_blocks_by_range(start_slot, count)
+        self.blocks.extend(got)
+        return got
+
+    def beacon_blocks_by_root(self, roots) -> list:
+        return self.peer.beacon_blocks_by_root(roots)
+
+
+def scrape(port: int, path: str = "/metrics") -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10.0) as r:
+        return r.read().decode()
+
+
+def prom_values(text: str) -> dict:
+    """{(family sample name, labels text): value} of a Prometheus exposition."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        out[(name, labels.rstrip("}"))] = float(value)
+    return out
+
+
+def prom_total(values: dict, name: str) -> float:
+    """A family's samples summed over their labels."""
+    return sum(v for (n, _), v in values.items() if n == name)
+
+
+# the STF and BLS families R's /metrics must show moved after the range
+# sync (an epoch transition, state roots, shufflings) and the floods
+NODE_MOVED = ("lodestar_stfn_epoch_transition_seconds_count",
+              "lodestar_stfn_hash_tree_root_seconds_count",
+              "lodestar_shuffling_cache_hits_total",
+              "lodestar_shuffling_cache_misses_total")
+NODE_BLS_MOVED = ("lodestar_bls_verifier_batches_total", "lodestar_bls_verifier_sets_total",
+                  "lodestar_bls_verifier_sets_per_job_count")
+
+
+async def _run(supervisor, scenario, chain_out, observer, probe, sync, peers, threads,
+               out):
+    import tempfile
+
+    from .api import BeaconApiServer
+    from .api.client import BeaconApiClient
+    from .api.impl import BeaconApiImpl
     from .chain.clock import ManualClock
+    from .db import BeaconDb
+    from .db.controller import NativeKvDb
+    from .node import BeaconNode, NodeOptions, init_beacon_state
+    from .sync.range_sync import RangeSync
     from .config.beacon_config import compute_signing_root
     from .network.gossip.encoding import compute_msg_id, encode_message
     from .network.gossip.gossipsub import Gossipsub, GossipsubService
@@ -299,10 +383,51 @@ async def _run(verifier, scenario, chain_out, observer, probe, sync, peers, thre
 
     types = node_types(config)
     digest = config.fork_digest(config.get_fork_name_at_slot(slot))
-    recorder = profile_chain.RecordingVerifier(verifier)
-    r_chain = BeaconChain(config, get_types(p).phase0, genesis.state, verifier=recorder,
-                          clock=ManualClock(genesis.state.genesis_time,
-                                            config.SECONDS_PER_SLOT, spe))
+    step = lambda: profile_chain._Step(observer, probe, sync)  # noqa: E731
+    types_all = get_types(p)
+    tmp = tempfile.TemporaryDirectory(prefix="r-node-")
+    kv_dir = os.path.join(tmp.name, "kv")
+    p_api = BeaconApiServer(BeaconApiImpl(config, types_all.phase0, p_chain))
+    p_api.start()
+    node = None
+    try:
+        # R anchored as the CLI's --checkpoint-sync-url anchors a node: P's
+        # finalized state over REST, the weak-subjectivity check at clock
+        # epoch 1, then BeaconNode.init on a native KV datadir
+        with step() as rec:
+            t0 = time.perf_counter()
+            got = await loop.run_in_executor(
+                None, BeaconApiClient("127.0.0.1", p_api.port).getStateV2, "finalized")
+            rec["fetch_s"] = time.perf_counter() - t0
+            kv = NativeKvDb(kv_dir)
+            anchor, origin = init_beacon_state(
+                config, types_all, BeaconDb(types_all.phase0, kv),
+                checkpoint_state_bytes=bytes.fromhex(got["ssz"].removeprefix("0x")),
+                checkpoint_fork=got["version"], current_epoch=1)
+            t0 = time.perf_counter()
+            node = BeaconNode.init(config, types_all.phase0, anchor, NodeOptions(
+                db_controller=kv, rest=True, rest_port=0, metrics=True, metrics_port=0,
+                supervisor=supervisor,
+                clock=ManualClock(genesis.state.genesis_time, config.SECONDS_PER_SLOT, spe)))
+            rec["node_init_s"] = time.perf_counter() - t0
+        rec.update(origin=origin, version=got["version"], anchor_slot=int(anchor.slot),
+                   state_bytes=len(got["ssz"]) // 2 - 1)
+        steps["anchor"] = rec
+        expect(origin == "checkpoint", f"anchor: origin {origin}")
+        expect(anchor.hash_tree_root() == genesis.state.hash_tree_root(),
+               "anchor: the checkpoint state is not the genesis state")
+    except BaseException:
+        if node is not None:
+            node.close()
+        p_api.close()
+        tmp.cleanup()
+        raise
+    # R's chain verifies through the recording verifier around the node's
+    # lane dispatcher over `supervisor`
+    lanes = node.chain.bls
+    recorder = profile_chain.RecordingVerifier(lanes)
+    node.chain.bls = recorder
+    r_chain = node.chain
     p_net = Network(config, types, p_chain, identity=NodeIdentity.from_seed(b"P"),
                     metrics=Counters())
     r_metrics = Counters()
@@ -322,8 +447,8 @@ async def _run(verifier, scenario, chain_out, observer, probe, sync, peers, thre
         return res
 
     r_net.gossip.validators["/eth2/"] = tap
+    node.attach_network(r_net)
     qs: list = []
-    step = lambda: profile_chain._Step(observer, probe, sync)  # noqa: E731
     try:
         # (a) discovery, the handshakes and status
         with step() as rec:
@@ -366,22 +491,43 @@ async def _run(verifier, scenario, chain_out, observer, probe, sync, peers, thre
         # (b) range sync from P
         blocks_at = [b.message.hash_tree_root() for b in scenario["phase0"]] \
             + [gossip["block_root"]]
+        m = node.metrics
         with step() as rec:
             t0 = time.perf_counter()
-            got = await r_net.reqresp.beacon_blocks_by_range(p_net.peer_id, 1, slot)
-            rec["request_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            roots = await loop.run_in_executor(None, r_chain.process_block_segment, got)
-            rec["segment_s"] = time.perf_counter() - t0
+            # the peers of Network.sync_peers whose status R holds (P;
+            # Q1..Qn serve no req/resp; the CLI takes every sync peer)
+            sync_peers = [_Recorded(pe) for pe in r_net.sync_peers(loop)
+                          if getattr(r_net.peer_manager.peers.get(pe.peer_id), "status", None)
+                          is not None]
+
+            def run_sync() -> int:
+                rs = RangeSync(r_chain, types, spe, metrics=m)
+                for pe in sync_peers:
+                    rs.add_peer(pe)
+                return rs.sync_to(slot)
+
+            synced = await loop.run_in_executor(None, run_sync)
+            rec["sync_s"] = time.perf_counter() - t0
+        got = [b for pe in sync_peers for b in pe.blocks]
+        rec["segment_s"] = sum(m.sync_segment_seconds._sums.values())
+        rec["request_s"] = rec["sync_s"] - rec["segment_s"]
+        rec["batch_states"] = {k[0]: int(v) for k, v in
+                               m.sync_batches_in_state._values.items() if v}
+        roots = [r for r in blocks_at if r in r_chain.fork_choice.proto.indices]
         rec.update(profile_chain._trace_breakdown(_tracer(), "chain/process_segment"))
         calls = recorder.take()
-        rec.update(blocks=[int(b.message.slot) for b in got],
+        rec.update(synced=synced, sync_peers=[pe.peer_id for pe in sync_peers],
+                   blocks=[int(b.message.slot) for b in got],
                    sets=sum(len(c["sets"]) for c in calls), verdicts=len(calls),
                    call_sets=[len(c["sets"]) for c in calls],
                    host_mismatches=profile_chain.host_mismatches(calls))
         steps["range_sync"] = rec
         expect([b.message.hash_tree_root() for b in got] == blocks_at and roots == blocks_at,
                f"range sync: blocks at slots {rec['blocks']}")
+        expect(rec["sync_peers"] == [p_net.peer_id] and synced == slot
+               and rec["batch_states"] == {"Processed": 1},
+               f"range sync: peers {rec['sync_peers']}, synced to {synced}, batches "
+               f"{rec['batch_states']}")
         expect(r_chain.head_root == gossip["block_root"], "range sync: R's head is not P's block")
         expect(len(calls) == 1 and calls[0]["verdicts"] == [True],
                f"range sync: verdicts {[c['verdicts'] for c in calls]}")
@@ -474,8 +620,8 @@ async def _run(verifier, scenario, chain_out, observer, probe, sync, peers, thre
             t0 = time.perf_counter()
             r_chain.regen.get_checkpoint_state(slot // spe, bytes(att.data.target.root))
             rec["checkpoint_regen_s"] = time.perf_counter() - t0
-            with profile_chain._BatchSpy(verifier) as spy, \
-                    _cohort_flush(verifier, cohort(GossipType.beacon_attestation, 1)):
+            with profile_chain._BatchSpy(lanes) as spy, \
+                    _cohort_flush(lanes, cohort(GossipType.beacon_attestation, 1)):
                 flat, lats, makespan = await flood(plan, "attestations")
             # the replay, byte for byte, from another peer than its sender
             owner = next(k for k, msgs in enumerate(plan)
@@ -507,8 +653,8 @@ async def _run(verifier, scenario, chain_out, observer, probe, sync, peers, thre
 
         plan = spread([t for _, t in gossip["aggregates"]], agg_topic_of, SEED + 1)
         with step() as rec:
-            with profile_chain._BatchSpy(verifier) as spy, \
-                    _cohort_flush(verifier, cohort(GossipType.beacon_aggregate_and_proof, 3)):
+            with profile_chain._BatchSpy(lanes) as spy, \
+                    _cohort_flush(lanes, cohort(GossipType.beacon_aggregate_and_proof, 3)):
                 flat, lats, makespan = await flood(plan, "aggregates")
             r_chain.update_head()
         calls = recorder.take()
@@ -557,17 +703,129 @@ async def _run(verifier, scenario, chain_out, observer, probe, sync, peers, thre
         out["head"] = r_chain.head_root.hex()
         out["rx"] = r_metrics.by_label("gossip_rx_total", "outcome")
         out["duplicates"] = r_metrics.gossip_duplicates_total.total()
+
+        # R's slot through the node, then its /metrics and REST against
+        # what its chain, fork choice, db and network hold
+        with step() as rec:
+            t0 = time.perf_counter()
+            node.on_clock_slot(slot + 1)
+            rec["on_clock_slot_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            values = prom_values(await loop.run_in_executor(
+                None, scrape, node.metrics_server.port))
+            rec["scrape_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rest = await loop.run_in_executor(None, _rest_answers, node.api_server.port,
+                                              slot + 1, spe)
+            rec["rest_s"] = time.perf_counter() - t0
+        rec["metrics"] = {k: values.get((k, ""), None) for k in (
+            "beacon_head_slot", "beacon_finalized_epoch", "lodestar_fork_choice_nodes",
+            "lodestar_db_entries")}
+        rec["moved"] = {k: prom_total(values, k) for k in NODE_MOVED + NODE_BLS_MOVED}
+        steps["node"] = rec
+        _check_node(expect, rec, rest, node, r_net, scenario, gossip)
+        out["node_rest"] = rest
     finally:
+        t0 = time.perf_counter()
         for q in qs:
             await q.router.stop()
             await q.transport.close()
         await r_net.stop()
         await p_net.stop()
-        r_chain.close()
+        stop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        head = r_chain.head_state
+        node.close()
+        close_s = time.perf_counter() - t0
+        p_api.close()
         await asyncio.sleep(0)
     left = [len(n.transport.connections) for n in (p_net, r_net)] \
         + [len(q.transport.connections) for q in qs]
     expect(not any(left), f"connections left open: {left}")
+
+    # close() persisted the head: a fresh NativeKvDb on R's datadir
+    # resumes at it
+    t0 = time.perf_counter()
+    kv = NativeKvDb(kv_dir)
+    try:
+        resumed, origin = init_beacon_state(config, types_all, BeaconDb(types_all.phase0, kv))
+        root = resumed.hash_tree_root()
+        stats = kv.stats()
+    finally:
+        kv.close()
+        tmp.cleanup()
+    steps["close"] = {"stop_networks_s": stop_s, "close_s": close_s,
+                      "resume_s": time.perf_counter() - t0, "origin": origin,
+                      "slot": int(resumed.slot), "db_entries": stats["entries"]}
+    want_root = bytes(gossip["produced"].message.state_root)
+    expect(origin == "db" and root == want_root == head.hash_tree_root(),
+           f"close: resumed from {origin} at slot {resumed.slot}, not the head's state")
+
+
+def _rest_answers(port: int, head_slot: int, spe: int) -> dict:
+    """R's answers to the routes the node step checks (at the head's slot
+    and epoch)."""
+    from .api.client import BeaconApiClient
+
+    c = BeaconApiClient("127.0.0.1", port)
+    return {
+        "header": c.getBlockHeader("head"),
+        "finality": c.getStateFinalityCheckpoints("head"),
+        "validator": c.getStateValidator("head", 0),
+        "syncing": c.getSyncingStatus(),
+        "health": c.getHealth(),
+        "duties": c.getProposerDuties(head_slot // spe),
+        "attestation_data": c.produceAttestationData(
+            query={"slot": head_slot, "committee_index": 0}),
+        "peers": c.getNodePeers(),
+    }
+
+
+def _check_node(expect, rec, rest, node, r_net, scenario, gossip):
+    """R's /metrics and REST answers against its chain, fork choice, db
+    and network."""
+    chain = node.chain
+    head = chain.head_state
+    st, spe = head.state, node.config.preset.SLOTS_PER_EPOCH
+    head_slot, epoch = int(st.slot), int(st.slot) // spe
+    hx = lambda b: "0x" + bytes(b).hex()  # noqa: E731
+    want = {"beacon_head_slot": head_slot,
+            "beacon_finalized_epoch": chain.finalized_checkpoint[0],
+            "lodestar_fork_choice_nodes": len(chain.fork_choice.proto.nodes),
+            "lodestar_db_entries": node.db.db.stats()["entries"]}
+    expect(rec["metrics"] == {k: float(v) for k, v in want.items()},
+           f"node: /metrics {rec['metrics']}, the chain and db hold {want}")
+    expect(all(rec["moved"][k] > 0 for k in NODE_MOVED + NODE_BLS_MOVED), f"node: /metrics moved {rec['moved']}")
+    expect(head_slot == int(gossip["produced"].message.slot)
+           and rest["header"]["root"] == hx(chain.head_root)
+           and rest["header"]["header"]["message"]["slot"] == str(head_slot),
+           f"node: getBlockHeader {rest['header']}")
+    cp = lambda c: {"epoch": str(c.epoch), "root": hx(c.root)}  # noqa: E731
+    expect(rest["finality"] == {"previous_justified": cp(st.previous_justified_checkpoint),
+                                "current_justified": cp(st.current_justified_checkpoint),
+                                "finalized": cp(st.finalized_checkpoint)},
+           f"node: getStateFinalityCheckpoints {rest['finality']}")
+    v = rest["validator"]
+    expect(v["index"] == "0" and v["balance"] == str(st.balances[0])
+           and v["validator"]["pubkey"] == hx(st.validators[0].pubkey),
+           f"node: getStateValidator {v}")
+    expect(rest["syncing"] == {"head_slot": str(head_slot), "sync_distance": "0",
+                               "is_syncing": False, "is_optimistic": False},
+           f"node: getSyncingStatus {rest['syncing']}")
+    expect(rest["health"] is None, f"node: getHealth {rest['health']}")
+    duties = [{"pubkey": hx(head.flat.pubkeys[pi]), "validator_index": str(pi),
+               "slot": str(epoch * spe + i)} for i, pi in enumerate(head.epoch_ctx.proposers)]
+    expect(rest["duties"] == duties, "node: getProposerDuties differs from the epoch context")
+    target = scenario["phase0"][-1].message.hash_tree_root()  # the newest block <= epoch start
+    a = rest["attestation_data"]
+    expect(a["slot"] == str(head_slot) and a["index"] == "0"
+           and a["beacon_block_root"] == hx(chain.head_root)
+           and a["source"] == cp(st.current_justified_checkpoint)
+           and a["target"] == {"epoch": str(epoch), "root": hx(target)},
+           f"node: produceAttestationData {a}")
+    connected = {p["peer_id"] for p in rest["peers"] if p["state"] == "connected"}
+    expect(connected == set(r_net.transport.connections) and len(rest["peers"]) == len(connected),
+           f"node: getNodePeers {len(connected)} connected of {len(rest['peers'])}")
 
 
 def _tracer():
@@ -622,6 +880,17 @@ def log_steps(out: dict, log=print) -> None:
         log(f"[network] block slot {r['slot']}: {r['seconds']:.3f} s, gossip {r['gossip']}, "
             f"to head {r['to_head_s']:.3f} s, weight on R and P {r['weight']}, {r['sets']} sets "
             f"in {r['verdicts']} verdicts; {common(r)}")
+    if "node" in s:
+        a, r, c = s["anchor"], s["node"], s.get("close", {})
+        log(f"[network] node R: anchor {a['seconds']:.3f} s (getStateV2 finalized "
+            f"{a['fetch_s']:.3f} s, {a['state_bytes']} B, origin {a['origin']}; "
+            f"BeaconNode.init {a['node_init_s']:.3f} s); range sync through RangeSync batches "
+            f"{json.dumps(s['range_sync'].get('batch_states', {}))}; on_clock_slot "
+            f"{r['on_clock_slot_s']:.3f} s, /metrics scrape {r['scrape_s']:.3f} s "
+            f"{json.dumps(r['metrics'])}, moved {json.dumps(r['moved'])}, REST "
+            f"{r['rest_s']:.3f} s; close {c.get('close_s', float('nan')):.3f} s, resume "
+            f"{c.get('resume_s', float('nan')):.3f} s from {c.get('origin')} at slot "
+            f"{c.get('slot')}")
 
 
 def main(argv=None) -> int:
@@ -639,6 +908,7 @@ def main(argv=None) -> int:
     import torch
 
     from .chain.bls_verifier import CpuBlsVerifier
+    from .chain.supervisor import SupervisedBlsVerifier
     from .native import install_ssz_backend
     from .node.bls_stack import build_bls_stack
     from .params import MAINNET, MINIMAL
@@ -651,6 +921,7 @@ def main(argv=None) -> int:
     stack = None
     if args.verifier == "host":
         verifier, observer, sync = CpuBlsVerifier(), None, None
+        supervisor = SupervisedBlsVerifier(CpuBlsVerifier(), CpuBlsVerifier())
     else:
         stack = build_bls_stack(device=args.device,
                                 dispatcher_args={"workers": 1, "max_sigs": 64})
@@ -659,6 +930,7 @@ def main(argv=None) -> int:
         profile_block.stack_populate(stack)(scenario["config"].ALTAIR_FORK_EPOCH, keys)
         verifier, observer = stack.verifier, stack.pipeline
         sync = torch.cuda.synchronize if cuda else None
+        supervisor = stack.supervisor
     try:
         chain_out = profile_chain.run(verifier, scenario=scenario, observer=observer, sync=sync,
                                       flood_committees=1, keep=True)
@@ -667,12 +939,14 @@ def main(argv=None) -> int:
             chain_out.get("chain") and chain_out["chain"].close()
             out = {"failures": ["chain: " + "; ".join(chain_out["failures"])], "steps": {}}
         else:
-            out = run(verifier, scenario=scenario, chain_out=chain_out, observer=observer,
+            out = run(supervisor, scenario=scenario, chain_out=chain_out, observer=observer,
                       sync=sync, peers=args.peers)
             out["failures"] = chain_out["failures"] + out["failures"]
     finally:
         if stack is not None:
             stack.close()
+        else:
+            supervisor.close()
     log_steps(out)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -216,6 +216,10 @@ class EpochContext:
             self.pubkey_to_index[bytes(flat.pubkeys[i])] = i
 
     def _build_shuffling(self, state, flat: FlatValidators, epoch: int):
+        from . import stf as _stf
+
+        if _stf._METRICS is not None:
+            _stf._METRICS.shuffling_cache_misses_total.inc()
         active = flat.active_indices(epoch)
         seed = util.get_seed(state, epoch, DOMAIN_BEACON_ATTESTER, self.preset)
         shuffled = util.shuffle_list(active, seed, self.preset.SHUFFLE_ROUND_COUNT)
@@ -256,6 +260,10 @@ class EpochContext:
     def _shuffling_at(self, epoch: int) -> EpochShuffling:
         for sh in (self.previous, self.current, self.next):
             if sh is not None and sh.epoch == epoch:
+                from . import stf as _stf
+
+                if _stf._METRICS is not None:
+                    _stf._METRICS.shuffling_cache_hits_total.inc()
                 return sh
         raise ValueError(f"no shuffling cached for epoch {epoch}")
 

@@ -1,7 +1,7 @@
 """state_transition / process_slots — the pure transition driver.
 
-The port's copy of `lodestar_tpu/state_transition/stf.py`, without its
-process-wide metrics hook (`set_metrics`, which only the JAX node sets).
+The port's copy of `lodestar_tpu/state_transition/stf.py`, with its
+process-wide metrics hook (`set_metrics`, which the node sets).
 Reference: `state-transition/src/stateTransition.ts:30,91` — same
 decomposition: per-slot root caching, epoch processing at boundaries,
 fork upgrades at their activation epochs (`slot/upgradeStateTo*`), block
@@ -13,6 +13,17 @@ from __future__ import annotations
 from ..params import ForkName
 from .block import BlockProcessingError, process_block
 from .epoch import process_epoch
+
+
+_METRICS = None
+
+
+def set_metrics(m) -> None:
+    """Install the process-wide metric sink for STF timings (epoch
+    transitions + incremental state hashing — reference lodestar.ts
+    stfn.* epochTransition/hashTreeRoot timers)."""
+    global _METRICS
+    _METRICS = m
 
 
 def fork_types(cached):
@@ -65,8 +76,17 @@ def _upgrade_at_epoch_boundary(cached) -> None:
 
 
 def process_slot(cached, types) -> None:
+    import time as _t
+
     state, p = cached.state, cached.preset
+    _t0 = _t.monotonic()
     prev_state_root = cached.hash_tree_root()  # incremental (hasher.py)
+    if _METRICS is not None:
+        _METRICS.state_hash_seconds.observe(_t.monotonic() - _t0)
+        vh = getattr(cached, "_hasher", None)
+        vh = getattr(vh, "_validators", None)
+        if vh is not None:
+            _METRICS.state_hash_dirty_validators.observe(vh.last_dirty)
     state.state_roots[state.slot % p.SLOTS_PER_HISTORICAL_ROOT] = prev_state_root
     if state.latest_block_header.state_root == b"\x00" * 32:
         state.latest_block_header.state_root = prev_state_root
@@ -84,7 +104,12 @@ def process_slots(cached, types, slot: int) -> None:
     while state.slot < slot:
         process_slot(cached, fork_types(cached))
         if (state.slot + 1) % p.SLOTS_PER_EPOCH == 0:
+            import time as _t
+
+            _t0 = _t.monotonic()
             _process_epoch_for_fork(cached, fork_types(cached))
+            if _METRICS is not None:
+                _METRICS.epoch_transition_seconds.observe(_t.monotonic() - _t0)
             cached.sync_flat()
             state.slot += 1
             cached.epoch_ctx.rotate_epoch(state, cached.flat)

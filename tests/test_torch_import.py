@@ -3,7 +3,7 @@ its modules loads neither JAX nor any module of the JAX package (nor does
 importing the serving seams alone: the facade and the epoch table, nor
 the observability modules alone, nor the serving stack alone, nor the
 lifecycle spans and the library store alone, nor a spawned mesh worker,
-nor block import's host layer alone: params, config, SSZ, types, the
+nor the beacon node and its CLI alone, nor block import's host layer alone: params, config, SSZ, types, the
 state transition and `profile_block`, nor the chain alone: `BeaconChain`,
 the gossip validators, fork choice and `profile_chain`, nor the
 post-merge layer alone: `execution`, `eth1`, Bellatrix and Capella,
@@ -57,7 +57,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "metrics.registry", "parallel.mesh",
                  "parallel.mesh_pool", "parallel.sharded", "parallel.fleet",
                  "parallel.fleet_host") + SERVING_MODULES + HOST_LAYER_MODULES \
-            + CHAIN_MODULES + EXECUTION_MODULES + NETWORK_MODULES:
+            + CHAIN_MODULES + EXECUTION_MODULES + NETWORK_MODULES + NODE_MODULES:
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
 
 
@@ -226,6 +226,49 @@ def test_network_loads_no_jax_no_cryptography_and_reads_no_environment():
             text = f.read()
         assert not re.search(r"\b(environ|getenv|putenv|env_str|env_float)\b", text), path
         assert not re.search(r"^\s*(from|import) cryptography", text, re.M), path
+
+
+# the beacon node: sync, the native KV store, the beacon metrics, the
+# Beacon API, the node and the CLI; none reads any environment variable
+NODE_MODULES = (
+    "sync", "sync.peer", "sync.range_sync", "sync.unknown_block", "sync.backfill",
+    "metrics", "metrics.beacon", "metrics.gc_stats", "metrics.validator_monitor", "api",
+    "api.routes", "api.impl", "api.server", "api.client", "node", "node.init_state",
+    "node.notifier", "node.node", "cli", "cli.beacon", "cli.__main__")
+
+NODE_PROBE = r"""
+import json, sys
+import lodestar_tpu_torch.cli
+import lodestar_tpu_torch.cli.beacon, lodestar_tpu_torch.node, lodestar_tpu_torch.sync
+import lodestar_tpu_torch.api, lodestar_tpu_torch.metrics.beacon
+from lodestar_tpu_torch.db.controller import NativeKvDb
+from lodestar_tpu_torch.node import NodeOptions
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu."))
+print(json.dumps({"bad": bad, "device": NodeOptions().device}))
+"""
+
+
+def test_node_and_cli_load_no_jax_and_read_no_environment():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["LODESTAR_TPU_FLEET_INGEST"] = "1"  # the JAX node's knobs: the port ignores them
+    env["LODESTAR_TPU_FLEET"] = "127.0.0.1:1"
+    out = subprocess.run(
+        [sys.executable, "-c", NODE_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"bad": [], "device": None}
+    for name in NODE_MODULES + ("db.controller", "state_transition.stf",
+                                "state_transition.cache"):
+        path = os.path.join(REPO, "lodestar_tpu_torch", *name.split("."))
+        path = path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"\b(environ|getenv|putenv|env_str|env_float|env_bool)\b",
+                             text), path
+    with open(os.path.join(REPO, "lodestar_tpu_torch", "csrc", "host", "kvstore.c")) as f:
+        assert "getenv" not in f.read()  # the engine's knobs are arguments
 
 
 # the serving stack's modules: none reads any environment variable at all

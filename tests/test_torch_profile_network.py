@@ -1,8 +1,11 @@
 """`profile_network`, the port's network scenario, end to end on the CPU
 at the minimal preset with 64 validators and 8 peers: through the host
 tier's `CpuBlsVerifier`, through the port's `BlsLaneDispatcher` over it
-flushed at the peers' cohort, and through a verifier that answers True to
-everything, whose verdicts the run's checks catch."""
+flushed at the peers' cohort, through R's node's own lanes over a
+supervisor of the host tier, and through a verifier that answers True to
+everything, whose verdicts the run's checks catch. R is a `BeaconNode`
+anchored by checkpoint sync from P's REST, range-synced by `RangeSync`;
+its /metrics and REST answers are checked and its datadir resumes."""
 
 import pytest
 import torch
@@ -31,39 +34,42 @@ def scenario():
                                        log=lambda *a: None)
 
 
-@pytest.mark.parametrize("verifier", ["host", "lanes", "yes"])
-def test_profile_network_on_the_host_tier(scenario, verifier):
-    """`profile_network.run` end to end at the minimal preset, 8 peers:
-    every check holds through the host tier, alone and behind a lane
-    dispatcher flushed at the peers' cohort (restored after), and a
-    verifier that says yes to everything fails the checks (the bad
-    signatures are ACCEPTed)."""
+@pytest.mark.parametrize("verifier", ["host", "lanes", "yes", "node_lanes"])
+def test_profile_network_on_the_host_tier(scenario, verifier, monkeypatch):
+    """`profile_network.run` end to end at the minimal preset, 8 peers, R's
+    node composing its lanes over a supervisor: every check holds through
+    the host tier; the lanes flush at the peers' cohort during each flood
+    (restored after); they are the node's own, over the supervisor given,
+    with the JAX node's defaults; and a verifier that says yes to everything
+    fails the checks (the bad signatures are ACCEPTed)."""
     from lodestar_tpu_torch import profile_chain, profile_network
-    from lodestar_tpu_torch.chain.dispatcher import BlsLaneDispatcher
+    from lodestar_tpu_torch.bls.api import SignatureSet, interop_secret_key
+    from lodestar_tpu_torch.chain import dispatcher
+    from lodestar_tpu_torch.chain.supervisor import SupervisedBlsVerifier
 
-    class Lanes(BlsLaneDispatcher):
-        """Records the flush each batch saw."""
+    seen = []  # (lanes, flush sets, flush wait) of every coalesced batch
+    real = dispatcher.BlsLaneDispatcher._dispatch_batch
 
-        flushes: list = []
+    def recorded(self, *args):
+        seen.append((self, self.max_sigs, self.max_wait))
+        return real(self, *args)
 
-        def _dispatch_batch(self, *args):
-            self.flushes.append((self.max_sigs, self.max_wait))
-            return super()._dispatch_batch(*args)
-
-    v = {"host": CpuBlsVerifier, "yes": _YesVerifier,
-         "lanes": lambda: Lanes(CpuBlsVerifier(), workers=1, max_sigs=64)}[verifier]()
+    monkeypatch.setattr(dispatcher.BlsLaneDispatcher, "_dispatch_batch", recorded)
+    device = _YesVerifier() if verifier == "yes" else CpuBlsVerifier()
+    sup = SupervisedBlsVerifier(device, CpuBlsVerifier())
+    sk, msg = interop_secret_key(0), b"\x01" * 32
+    # one verdict first: the supervisor's dispatch thread predates the run
+    assert sup.verify_signature_sets(
+        [SignatureSet(sk.to_public_key(), msg, sk.sign(msg).to_bytes())])
     chain_out = profile_chain.run(CpuBlsVerifier(), scenario=scenario, gossip_threads=8,
                                   aggregate_threads=4, flood_committees=1, keep=True,
                                   log=lambda *a: None)
     assert not chain_out["failures"] and "gossip" in chain_out
-    seen = v.flushes if verifier == "lanes" else []
     try:
-        out = profile_network.run(v, scenario=scenario, chain_out=chain_out, peers=8,
+        out = profile_network.run(sup, scenario=scenario, chain_out=chain_out, peers=8,
                                   threads=16, log=lambda *a: None)
     finally:
-        if verifier == "lanes":
-            assert (v.max_sigs, v.max_wait) == (64, 0.1)  # restored
-            v.close()
+        sup.close()
     lines = []
     profile_network.log_steps(out, lines.append)
     if verifier == "yes":
@@ -77,10 +83,23 @@ def test_profile_network_on_the_host_tier(scenario, verifier):
     assert st["attestations"]["replay"] == {"published_to": 1, "duplicates": 1}
     assert st["aggregates"]["actions"].get("REJECT") == 1
     assert st["block"]["gossip"] == "ACCEPT" and st["block"]["weight"][0] == st["block"]["weight"][1]
-    assert out["duplicates"] == 1 and len(lines) == 5
+    assert out["duplicates"] == 1 and len(lines) == 6
+    assert st["anchor"]["origin"] == "checkpoint" and st["close"]["origin"] == "db"
+    assert st["range_sync"]["batch_states"] == {"Processed": 1}
+    assert st["close"]["slot"] == st["block"]["slot"]
+    moved = st["node"]["moved"]
+    assert all(moved[k] > 0 for k in profile_network.NODE_MOVED + profile_network.NODE_BLS_MOVED)
+    lanes = {id(lane): lane for lane, _, _ in seen}
+    assert len(lanes) == 1  # R's node's lanes, and no other, coalesced the floods
     if verifier == "lanes":
-        assert {(8, 1.0), (24, 1.0)} <= set(seen)  # 8 peers; an aggregate is three sets
+        assert {(8, 1.0), (24, 1.0)} <= {(n, w) for _, n, w in seen}  # an aggregate is 3 sets
+        (lane,) = lanes.values()
+        assert (lane.max_sigs, lane.max_wait) == (32, 0.1)  # restored
         # the 12 validated less the wrong subnet and the second vote,
         # refused before their signatures
         assert sum(st["attestations"]["batch_sets"]) == 10
         assert st["attestations"]["failed_batch_sets"]  # the bad signatures' batches
+    if verifier == "node_lanes":
+        (lane,) = lanes.values()
+        assert lane.verifier is sup and lane.workers == 2 and lane.max_coalesce == 512
+        assert lane.pipeline is not sup.observer  # R's registry, not the supervisor's

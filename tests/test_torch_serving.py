@@ -59,9 +59,17 @@ def served():
                             metrics_port=0, dispatcher_args={"max_wait_ms": 20})
     out = {"stack": stack, "sets": sets, "host": host}
     try:
-        out["started"] = stack.populate_epoch_async(0, [s.pubkey.to_bytes() for s in sets])
-        out["second_refused"] = not stack.populate_epoch_async(0, [])
+        # the first population waits until the second call is made, so that
+        # call always finds it in flight, however the threads are scheduled
+        gate, populate = threading.Event(), stack.supervisor.epoch_table_populate
+        stack.supervisor.epoch_table_populate = lambda *a: gate.wait(60.0) and populate(*a)
+        try:
+            out["started"] = stack.populate_epoch_async(0, [s.pubkey.to_bytes() for s in sets])
+            out["second_refused"] = not stack.populate_epoch_async(0, [])
+        finally:
+            gate.set()
         assert stack.wait_populated(60.0)
+        del stack.supervisor.epoch_table_populate
         out["populate"] = dict(stack.last_populate)
         decompressions = []
         real = native.g1_decompress
