@@ -41,7 +41,10 @@ it runs the single-device path it names on a host of any card count):
           identity to one; ptxas's registers, shared memory, stack and
           spills of `final_exp_warp_kernel`, the device memory its first
           launch takes (no stack limit is raised for it), its device time
-          (CUDA-graph replay) and call time, the plain version's time, the
+          (CUDA-graph replay) and call time, the plain version's time (in
+          this phase and k2p, k3 and k2: its comparison call, timed, where
+          a second call timed it before the cli phase gained its
+          validator), the
           bound (the fewest Fp multiplies the function needs per lane,
           from the host build; the schedule's own count is reported
           beside it) and the time per dependent round (the host build's
@@ -119,8 +122,9 @@ it runs the single-device path it names on a host of any card count):
           epoch-table hits; K2p and K3-fe launch once per batch verdict.
 12a. observe  the port's observability: serve's valid 128-set job through
           `DeviceBlsVerifier(device="cuda")` with a `PipelineMetrics` (A)
-          and with `NullObserver` (B), in the order A B B A B A A B
-          (4 jobs a side, each counted), the two medians and their
+          and with `NullObserver` (B), in the order A B B A (2 jobs a
+          side, each counted; 4 a side, A B B A B A A B, until this slice
+          cut them to pay for the cli phase's validator), the two medians and their
           difference; the host cost of observing one job, replayed (its
           observer calls on a fresh `PipelineMetrics`, 7 named scopes and
           one ledger-wrapped call, each timed over 2,000 repetitions);
@@ -135,8 +139,10 @@ it runs the single-device path it names on a host of any card count):
           hold one event (hit or miss) per library built or found.
 12b. node  the port's serving stack (`node/bls_stack.py`: lanes over the
           supervisor over the facade, with the host tier) on cuda:0.
-          (a) boot: `python3 -m lodestar_tpu_torch.warmup` in a subprocess
-          (the extensions already built): its rungs, serving_ready against
+          (a) boot: `python3 -m lodestar_tpu_torch.warmup --rungs
+          bucket_4` in a subprocess (the extensions already built; one
+          rung of the ladder since the cli phase gained its validator, the
+          whole ladder before): its rung, serving_ready against
           the 10 s SLO, peak device memory (measured, not asserted); its
           preload from the ahead-of-time store must find every serving
           library a `hit` and launch all six kernels once (their
@@ -146,10 +152,11 @@ it runs the single-device path it names on a host of any card count):
           32,768 keys (the slice phase's 4096, 28,672 from sk_to_pk, the
           block job's 128) while the calls arrive; the slice's 4096 sets as
           one-set attestation calls, uniform over 4 s, from 1024 caller
-          threads, of which the first 1 s runs (1024 calls: cut from the
+          threads, of which the first 0.25 s runs (256 calls: cut from the
           whole slot to its first 2 s, 2048 calls, to make room for the
           capella phase, then to its first 1 s for the network phase's
-          node steps and the cli phase), the set arriving 500th carrying
+          node steps and the cli phase, then to 0.25 s for the cli phase's
+          validator), the set arriving 250th carrying
           another key's signature; serve-128's
           job on the block lane at 0 s and 2 s, each run as block import
           runs a block (a root `chain/process_block` span, its context
@@ -182,8 +189,10 @@ it runs the single-device path it names on a host of any card count):
           host tier serves), flaky verdicts (the audit overturns them,
           verdict_mismatch ticks), serve-128's job with three bad
           signatures and its per-set verdicts, each job run as block import
-          runs one; the exact per-set route (K3); then the
-          mesh drill: the stack over two workers on cuda:0, worker 2
+          runs one; the exact per-set route (K3). (The mesh drill, here
+          before the cli phase gained its validator, now runs at the end
+          of the mesh phase, on its pool.)
+          Mesh drill: the stack over two workers on cuda:0, worker 2
           killed, `MeshWorkerError` naming chip 1 evicted by the supervisor
           within the pool's timeout (serving size 1, the pool stopped), the
           same call served single-device, the host tier called 0 times, the
@@ -225,8 +234,10 @@ it runs the single-device path it names on a host of any card count):
           after through the pool; the controller launches nothing but
           bisection's probes). Each cell's walls are printed beside the
           same batch's single-device walls; no worker process may be left.
-          (Its eviction drill moved into the node phase's mesh drill, which
-          makes every one of its checks through the port's supervisor.)
+          Then the eviction drill through the port's supervisor, the node
+          phase's mesh drill (12b (c), "Mesh drill"), on this phase's
+          dispatcher and its running pool: one pool start fewer than when
+          the node phase started a pool of its own for it.
 12d. fleet  the two-level fleet (hosts x GPUs per host) on cuda:0: a
           `BlsMeshDispatcher` of hosts [[0, 1], [2, 3]], host 0's two
           workers spawned by this process, host 1's two started by a
@@ -430,7 +441,7 @@ it runs the single-device path it names on a host of any card count):
 12i. cli  the port's normal entry point, last: `python -m
           lodestar_tpu_torch.cli beacon --network minimal-dev
           --genesis-validators 64 --genesis-time <now - 12> --datadir <tmp>
-          --rest --metrics --run-seconds 40` (free loopback ports) as a
+          --rest --metrics --run-seconds 60` (free loopback ports) as a
           subprocess on its default device, the card; once it answers
           `/eth/v1/node/health`, the same interop genesis built here and
           its slot-1 block made by `profile_block.BlockFactory` are POSTed
@@ -438,14 +449,39 @@ it runs the single-device path it names on a host of any card count):
           `getBlockHeader("head")` must name the block; the subprocess's
           /metrics must show its planner decisions and device stages moved,
           no supervisor fallback to the host tier and no native-KV
-          fallback, and a build-info gauge naming `cuda` and the card;
-          SIGINT must end it with 0, its last log line (the launches
+          fallback, and a build-info gauge naming `cuda` and the card.
+          Then the validator: `python -m lodestar_tpu_torch.cli validator
+          --network minimal-dev --beacon-url http://127.0.0.1:<rest>
+          --interop-keys 0:64 --datadir <tmp>/vc.db --keymanager
+          --keymanager-port <free> --run-seconds 24` as a second
+          subprocess. It holds all 64 keys, so it proposes at every slot
+          (6 s slots, two committees of 4 a slot, each member an
+          aggregator). Its keymanager, with the token from
+          `<tmp>/vc.db.api-token.txt`, must list 64 keys, refuse a request
+          without the token, import a keystore encrypted here by the
+          port's `encrypt_keystore` (PBKDF2 and the host tier's C
+          AES-128-CTR) for interop key 64, and then list 65. The node must
+          import its proposals at wall-clock slots S and S + 1: the head
+          is block S + 1, its parent block S, whose parent is the slot-1
+          block; block S + 1, read back over REST, carries slot S's
+          votes, one attestation per committee with all 4 bits set (the
+          node's verdict on that block is the first check of those
+          signatures: the REST pool routes take them unchecked); the
+          node's /metrics shows `beacon_processed_blocks_total` 3, the
+          planner's decisions up by at least 2 since the slot-1 block,
+          and no supervisor or native-KV fallback. SIGINT must end the
+          validator with 0, and `SlashingProtection(FileDb(<tmp>/vc.db))`
+          must export both proposals and a target in S's epoch for each
+          key of slot S's committees.
+          SIGINT must end the node with 0, its last log line (the launches
           since the node was ready: it sets the counts to 0 past its
-          preload) must count K1 or K4, K2p and K3-fe launched at least
-          once each, and its `<tmp>/kv` must open here with
-          `NativeKvDb` and resume at slot 1 with the block's state root.
-          Prints the seconds to health, the block's import and the
-          process's total, and the phase's against its 45 s bound.
+          preload) must count K1 or K4 launched and K2p and K3-fe at least
+          three times each (the three blocks' verdicts), and its `<tmp>/kv`
+          must open here with `NativeKvDb` and resume at block S + 1's slot
+          and state root.
+          Prints the seconds to health, the block's import, the validator
+          step's (keymanager, the two proposals, SIGINT) and the process's
+          total, and the phase's against its 65 s bound.
 
 The main-path verdicts of phases 6-12h run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
@@ -878,17 +914,20 @@ def _bound(fp_muls_per_lane: int, bytes_per_lane: int, lanes: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def _event_ms(torch, fn, iters: int = 1) -> float:
-    """CUDA-event milliseconds per call of `fn`, already warm."""
+def _plain_timed(torch, fn):
+    """(fn(), its CUDA-event milliseconds): a tower kernel's comparison
+    call to its plain version, timed as it runs: the plain time the
+    phases report, so that no second call (seconds each) times it; at a
+    phase's first size it also carries the plain version's first-use
+    costs."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return out, start.elapsed_time(end)
 
 
 def _device_bytes_taken(torch, fn):
@@ -995,8 +1034,7 @@ def phase_k2(torch, np, muls: dict, ptxas: dict, stack_at_start: int):
         if first_bytes is None:
             first_bytes = taken
             log(f"[k2] first launch took {taken} B of device memory ({taken / 2**20:.1f} MiB)")
-        want = cuda_tower.miller_loop_plain(*args)
-        torch.cuda.synchronize()
+        want, plain_ms = _plain_timed(torch, lambda: cuda_tower.miller_loop_plain(*args))
         err = _canonical_err(torch, got, want)
         max_err = max(max_err, err)
         if err != 0:
@@ -1005,7 +1043,6 @@ def phase_k2(torch, np, muls: dict, ptxas: dict, stack_at_start: int):
             raise AssertionError("K2's all-zero lane did not give 0")
         ms = _device_ms(torch, lambda: cuda_tower.miller_loop_cuda(*args), 20)
         call_ms = _time_ms(torch, lambda: cuda_tower.miller_loop_cuda(*args), 20)
-        plain_ms = _event_ms(torch, lambda: cuda_tower.miller_loop_plain(*args))
         bound_ms, bound_by = _bound(muls["miller_loop_fewest"], K2_BYTES_PER_LANE, n)
         rows[n] = dict(lanes=n, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, rounds=rounds, us_per_round=ms * 1e3 / rounds,
@@ -1091,8 +1128,7 @@ def phase_k3(torch, np, muls: dict, ptxas: dict, bad, host_bad):
             first_bytes = taken
             log(f"[k3] first launch took {taken} B of device memory "
                 f"({taken / 2**20:.1f} MiB)")
-        want = cuda_tower.pairing_fused_plain(*args)
-        torch.cuda.synchronize()
+        want, plain_ms = _plain_timed(torch, lambda: cuda_tower.pairing_fused_plain(*args))
         err = _canonical_err(torch, got, want)
         max_err = max(max_err, err)
         if err != 0:
@@ -1102,7 +1138,6 @@ def phase_k3(torch, np, muls: dict, ptxas: dict, bad, host_bad):
             raise AssertionError(f"K3's verdicts differ from the host tier's at {n} sets")
         ms = _device_ms(torch, lambda: cuda_tower.pairing_fused_cuda(*args), 20)
         call_ms = _time_ms(torch, lambda: cuda_tower.pairing_fused_cuda(*args), 20)
-        plain_ms = _event_ms(torch, lambda: cuda_tower.pairing_fused_plain(*args))
         bound_ms, bound_by = _bound(muls["pairing_fewest"], K3_BYTES_PER_SET, n)
         rows[n] = dict(sets=n, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, rounds=rounds, us_per_round=ms * 1e3 / rounds,
@@ -1189,8 +1224,7 @@ def phase_k2p(torch, np, muls: dict, ptxas: dict):
             first_bytes = taken
             log(f"[k2p] first launch took {taken} B of device memory "
                 f"({taken / 2**20:.1f} MiB)")
-        want = cuda_tower.miller_loop_proj_plain(*args)
-        torch.cuda.synchronize()
+        want, plain_ms = _plain_timed(torch, lambda: cuda_tower.miller_loop_proj_plain(*args))
         if not bool((got[:2] >= 0).all() & (got[:2] < 4096).all()):
             raise AssertionError("K2p's Zp = 0 / Zq = 0 lanes returned no limbs")
         err = _canonical_err(torch, got[2:], want[2:])
@@ -1199,7 +1233,6 @@ def phase_k2p(torch, np, muls: dict, ptxas: dict):
             raise AssertionError(f"K2p differs from its plain version at {n} lanes")
         ms = _device_ms(torch, lambda: cuda_tower.miller_loop_proj_cuda(*args), 20)
         call_ms = _time_ms(torch, lambda: cuda_tower.miller_loop_proj_cuda(*args), 20)
-        plain_ms = _event_ms(torch, lambda: cuda_tower.miller_loop_proj_plain(*args))
         bound_ms, bound_by = _bound(muls["miller_loop_proj_fewest"], K2P_BYTES_PER_LANE, n)
         rows[n] = dict(lanes=n, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, rounds=rounds, us_per_round=ms * 1e3 / rounds,
@@ -1249,8 +1282,7 @@ def phase_fe(torch, np, muls: dict, ptxas: dict):
             first_bytes = taken
             log(f"[fe] first launch took {taken} B of device memory "
                 f"({taken / 2**20:.1f} MiB), before any other tower kernel ran")
-        want = cuda_tower.final_exp_plain(fs)
-        torch.cuda.synchronize()
+        want, plain_ms = _plain_timed(torch, lambda: cuda_tower.final_exp_plain(fs))
         err = _canonical_err(torch, got, want)
         max_err = max(max_err, err)
         if err != 0:
@@ -1259,7 +1291,6 @@ def phase_fe(torch, np, muls: dict, ptxas: dict):
             raise AssertionError("K3-fe: the zero lane or the identity lane went astray")
         ms = _device_ms(torch, lambda: cuda_tower.final_exp_cuda(fs), 20)
         call_ms = _time_ms(torch, lambda: cuda_tower.final_exp_cuda(fs), 20)
-        plain_ms = _event_ms(torch, lambda: cuda_tower.final_exp_plain(fs))
         bound_ms, bound_by = _bound(muls["final_exp_fewest"], FE_BYTES_PER_LANE, n)
         rows[n] = dict(lanes=n, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, rounds=rounds, us_per_round=ms * 1e3 / rounds,
@@ -1628,7 +1659,7 @@ def phase_serve(torch, np):
     return out
 
 
-OBSERVE_ORDER = "ABBABAAB"  # A: PipelineMetrics, B: NullObserver; 4 jobs a side
+OBSERVE_ORDER = "ABBA"  # A: PipelineMetrics, B: NullObserver; 2 jobs a side (4 before the validator step)
 OBSERVE_SCOPES = ("bls/g2_decompress", "bls/msm_planes", "bls/miller_loop",
                   "bls/product_tree", "bls/final_exp_batch")
 # kernel -> (its name in the trace, the scope its launch must lie in)
@@ -1732,8 +1763,9 @@ def _trace_check(path: str) -> dict:
 def phase_observe(torch, np):
     """The port's observability on the card: serve-128's valid 128-set job
     (grouped 16 × 8) through `DeviceBlsVerifier(device="cuda")` with a
-    `PipelineMetrics` and with `NullObserver`, alternating (A B B A B A A
-    B: 4 jobs a side, each counted), then one job under
+    `PipelineMetrics` (behind a call log: its first job's calls are
+    replayed for the host cost) and with `NullObserver`, alternating
+    (`OBSERVE_ORDER`, A B B A: 2 jobs a side, each counted), then one job under
     `start_profiling` / `stop_profiling`; the device and compile ledgers
     after. Fails unless every verdict is the host tier's, the stage
     histogram counts marshal, rand, dispatch and device_wait, the trace
@@ -1757,23 +1789,34 @@ def phase_observe(torch, np):
         raise AssertionError(f"{tag} the host tier rejects the valid job")
     pm = PipelineMetrics()
     pm.set_build_info(runtime_info())
-    arms = {"A": DeviceBlsVerifier(device="cuda", mesh=None, observer=pm,
+    # arm A's observer is `pm` behind a call log: its first timed job's
+    # calls are the host-cost replay's, with no third verifier to run a
+    # logged job (the log adds a lock and an append to each of a job's
+    # ≈ 24 calls)
+    log_obs = _CallLog(pm)
+    arms = {"A": DeviceBlsVerifier(device="cuda", mesh=None, observer=log_obs,
                                    rng=np.random.default_rng(SEED)),
             "B": DeviceBlsVerifier(device="cuda", mesh=None, observer=NULL_OBSERVER,
                                    rng=np.random.default_rng(SEED))}
-    log_obs = _CallLog(PipelineMetrics())
-    arms["log"] = DeviceBlsVerifier(device="cuda", mesh=None, observer=log_obs,
-                                    rng=np.random.default_rng(SEED))
     for v in arms.values():  # as serve: the table, the roots, one warm job
         v.epoch_table_populate(0, [s.pubkey.to_bytes() for s in sets])
         v.warm_h2c({s.message for s in sets})
         if v.verify_signature_sets(sets) is not True:
             raise AssertionError(f"{tag} the warm-up job was rejected")
     pm_warm = {k: v["count"] for k, v in pm.stage_snapshot().items()}
-    log_obs.calls.clear()  # one warm job's observer calls, for the replay
-    if arms.pop("log").verify_signature_sets(sets) is not True:
-        raise AssertionError(f"{tag} the logged job was rejected")
-    cost = _host_cost_us(torch, log_obs.calls)
+    log_obs.calls.clear()
+    secs = {"A": [], "B": []}
+    replay = None
+    for arm in OBSERVE_ORDER:
+        v = arms[arm]
+        got, t, counts = _run_counted(torch, lambda: v.verify_signature_sets(sets), v._inner)
+        if got is not True:
+            raise AssertionError(f"{tag} arm {arm}: the port says {got}, the host tier True")
+        _need_main(counts, f"{tag} arm {arm}")
+        secs[arm].append(t)
+        if arm == "A" and replay is None:
+            replay = list(log_obs.calls)  # one warm job's observer calls
+    cost = _host_cost_us(torch, replay)
     # a grouped job enters 7 named scopes (g2_decompress, msm_g1, msm_g2,
     # miller_loop, product_tree, final_exp, plane_subgroup) and makes one
     # ledger-wrapped call (grouped_raw)
@@ -1782,14 +1825,6 @@ def phase_observe(torch, np):
         f"{cost['observer_us']:.1f} us replayed on PipelineMetrics; a named scope "
         f"{cost['scope_us']:.2f} us; a ledger-wrapped call {cost['ledger_call_us']:.2f} us over "
         f"the unwrapped one; {cost['job_us']:.1f} us per job in all")
-    secs = {"A": [], "B": []}
-    for arm in OBSERVE_ORDER:
-        v = arms[arm]
-        got, t, counts = _run_counted(torch, lambda: v.verify_signature_sets(sets), v._inner)
-        if got is not True:
-            raise AssertionError(f"{tag} arm {arm}: the port says {got}, the host tier True")
-        _need_main(counts, f"{tag} arm {arm}")
-        secs[arm].append(t)
     med = {arm: _median(ts) for arm, ts in secs.items()}
     log(f"{tag} 128-set job, PipelineMetrics: median {med['A']:.6f} s of "
         f"{json.dumps([round(t, 6) for t in secs['A']])}")
@@ -1860,11 +1895,12 @@ NODE_WINDOW_S = 4.0  # attestations arrive over the first third of the 12 s slot
 NODE_SLOT_S = 12.0
 NODE_CALLERS = 1024  # gossip validation threads, each blocked in its call
 NODE_TAMPERED = (1000, 3000)  # carry the next set's signature (same root, another key)
-NODE_MAIN_CALLS = 1024  # the coalesce-512 slot: its first 1 s, to make room for the capella,
-# network-node and cli work
-NODE_MAIN_TAMPERED_AT = 500  # the arrival whose set is tampered among those 1024 calls
+NODE_MAIN_CALLS = 256  # the coalesce-512 slot: its first 0.25 s, to make room for the capella,
+# network-node and cli work (1 s until the cli phase gained its validator)
+NODE_MAIN_TAMPERED_AT = 250  # the arrival whose set is tampered among those 256 calls
 NODE_BLOCK_AT = (0.0, 2.0)  # the 128-set block job's arrivals
 NODE_BOOT_SLO_S = 10.0  # dashboards/slo_rules.json `serving_ready`
+NODE_BOOT_RUNG = "bucket_4"  # the one rung the boot runs (the whole ladder before the validator step)
 NODE_SIZE_BINS = (1, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 NODE_KERNELS = ("K1", "K4", "K2", "K2p", "K3", "K3-fe")  # the preload launches each once
 
@@ -2047,11 +2083,15 @@ def _node_keys(np, slice_sets, block_sets):
 
 
 def _node_boot(torch):
-    """(a) `python3 -m lodestar_tpu_torch.warmup` in a subprocess, the
-    extensions already built: its rungs, serving_ready and peak memory."""
+    """(a) `python3 -m lodestar_tpu_torch.warmup --rungs bucket_4` in a
+    subprocess, the extensions already built: its rung, serving_ready and
+    peak memory. One rung of the ladder since the cli phase gained its
+    validator: the preload still opens every serving library and launches
+    all six kernels once, which is what this step checks."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "lodestar_tpu_torch.warmup"], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-m", "lodestar_tpu_torch.warmup", "--rungs",
+                           NODE_BOOT_RUNG], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"[node] the warm-boot ladder failed:\n{proc.stderr[-4000:]}")
@@ -2075,6 +2115,11 @@ def _node_boot(torch):
     if pre["outcomes"] != {name: "hit" for name in SERVING["cuda"]} or \
             sorted(pre["launch_seconds"]) != sorted(NODE_KERNELS) or "aot_load" not in doc["marks"]:
         raise AssertionError(f"[node] (a) the warm boot's preload: {json.dumps(pre)}")
+    if sorted(doc["rung_seconds"]) != [NODE_BOOT_RUNG] or ready is None:
+        raise AssertionError(f"[node] (a) rungs {doc['rung_seconds']}, serving_ready {ready}")
+    log(f"[node] (a) cut check: one rung ({NODE_BOOT_RUNG}) ran and serving_ready was "
+        f"declared; the preload found {len(pre['outcomes'])} libraries, all hits, and "
+        f"launched {len(pre['launch_seconds'])} kernels once each, as with the whole ladder")
     return doc
 
 
@@ -2605,24 +2650,19 @@ def _check_pool_preload(tag: str, pool) -> list:
     return pool.preload
 
 
-def _node_mesh_drill(torch, np, serve_sets):
-    """(c) the mesh drill through the port's supervisor: the stack over a
-    two-worker pool on cuda:0 serves serve-128's job sharded; worker 2
+def _node_mesh_drill(torch, np, serve_sets, d, pm):
+    """The mesh drill through the port's supervisor, on the mesh phase's
+    dispatcher `d` (observer `pm`) and its running pool of two workers on
+    cuda:0 (the node phase once started a pool of its own for it): the stack over that pool serves serve-128's job sharded; worker 2
     killed, the same call raises `MeshWorkerError` naming chip 1 inside
     the supervisor, which evicts it and serves the call single-device:
     the host tier is called 0 times and the breaker stays closed; the
     canary re-admits the chip and a new pool serves sharded again; no
     worker process is left. (The checks of the mesh phase's eviction
     drill.)"""
-    import multiprocessing
-
-    from lodestar_tpu_torch.observability.stages import PipelineMetrics
-    from lodestar_tpu_torch.parallel.mesh import BlsMeshDispatcher
     from lodestar_tpu_torch.node.bls_stack import build_bls_stack
 
-    tag = "[node] (c) mesh"
-    pm = PipelineMetrics()
-    d = BlsMeshDispatcher(list(MESH_DEVICES), observer=pm)
+    tag = "[mesh] node drill"
     stack = build_bls_stack(device="cuda:0", mesh=d, observer=pm,
                             supervisor_args={"cooldown_s": 2.0, "deadline_s": 120.0})
     sup, dev = stack.supervisor, stack.device
@@ -2648,9 +2688,14 @@ def _node_mesh_drill(torch, np, serve_sets):
 
     dev.mesh_evict, dev.mesh_readmit = evict, readmit
     out = {}
-    pool = d.start_pool()
+    pool = d.pool
+    if pool is None or not all(pool.alive()):
+        raise AssertionError(f"{tag} the mesh phase's pool is not running")
     out["start_s"] = pool.start_seconds
     out["preload"] = _check_pool_preload(tag, pool)
+    base = d.snapshot()["dispatches"]
+    log(f"{tag}: on the mesh phase's pool (pids {pool.pids}, started in "
+        f"{pool.start_seconds:.3f} s, {base} dispatches so far): no pool of its own")
 
     def call(name):
         got, secs, counts = _run_counted(
@@ -2660,7 +2705,7 @@ def _node_mesh_drill(torch, np, serve_sets):
         return secs, counts
 
     out["sharded_s"], _ = call("sharded")
-    if single or d.snapshot()["dispatches"] != 1:
+    if single or d.snapshot()["dispatches"] != base + 1:
         raise AssertionError(f"{tag} the first verdict was not sharded: {d.snapshot()}")
     pool.kill(1)
     t_kill = time.perf_counter()
@@ -2698,17 +2743,14 @@ def _node_mesh_drill(torch, np, serve_sets):
         f"{out['served_again_s'] - out['restart_s']:.3f} s of {out['served_again_s']:.3f} s; "
         f"snapshot {json.dumps(d.snapshot())}")
     stack.close()
-    left = multiprocessing.active_children()
-    if left:
-        raise AssertionError(f"{tag} worker processes left: {left}")
     return out
 
 
 def phase_node(torch, np, grouped, serve_batch, per_set_sets):
     """12b. the port's serving stack: (a) the warm-boot ladder in a
     subprocess, (b) the first 1 s of one slot of gossip at the JAX
-    defaults, (c) the supervisor's drills and the mesh drill,
-    (d) the scrape, (e) the ahead-of-time store's drill, and the host cost
+    defaults, (c) the supervisor's drills (the mesh drill runs in the mesh
+    phase, on its pool), (d) the scrape, (e) the ahead-of-time store's drill, and the host cost
     of a lifecycle span."""
     tag = "[node]"
     slice_sets, slice_host = grouped
@@ -2717,15 +2759,14 @@ def phase_node(torch, np, grouped, serve_batch, per_set_sets):
         raise AssertionError(f"{tag} the host tier rejects the block job")
     out = {"boot": timed("node (a) boot", _node_boot, torch)}
     keys = _node_keys(np, slice_sets, block_sets)
-    # the slot's first 1 s (1024 calls, one tampered), cut to keep the
+    # the slot's first 0.25 s (256 calls, one tampered), cut to keep the
     # script's time
     order, _ = _node_order(np, len(slice_sets))
     out["slot"] = timed("node (b) slot 512", _node_slot, torch, np,
-                        f"{tag} (b) slot's first 1 s (cut), max_coalesce 512:", slice_sets,
+                        f"{tag} (b) slot's first 0.25 s (cut), max_coalesce 512:", slice_sets,
                         slice_host, block_sets, keys, NODE_MAIN_CALLS,
                         (int(order[NODE_MAIN_TAMPERED_AT]),))
     out["drills"] = timed("node (c) drills", _node_drills, torch, np, block_sets, per_set_sets)
-    out["mesh_drill"] = timed("node (c) mesh drill", _node_mesh_drill, torch, np, block_sets)
     out["aot_drill"] = timed("node (e) aot drill", _node_aot_drill, torch, np, block_sets)
     out["span_cost"] = _span_cost_us()
     log(f"{tag} host cost of one lifecycle span: {out['span_cost']['span_us']:.3f} us "
@@ -3001,7 +3042,7 @@ MESH_DEVICES = ("cuda:0", "cuda:0")  # two workers on the one card, even where m
 
 
 def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, per_set_bad,
-               per_set_host_bad):
+               per_set_host_bad, serve_batch):
     """The sharded verdicts over a `BlsMeshDispatcher` of two worker
     processes on cuda:0, behind `TorchBlsVerifier(mesh=...)`: grouped
     64 x 64 (valid, one bad signature in the second worker's rows, one
@@ -3012,7 +3053,8 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
     single-device verdict is never called) and launches K2p once on each
     worker and K3-fe once on the first (counts zeroed just before, read
     just after, in the workers through the pool); no worker process is
-    left. The eviction drill is the node phase's mesh drill."""
+    left. Then the eviction drill through the port's supervisor
+    (`_node_mesh_drill`) on the same dispatcher and its running pool."""
     import multiprocessing
 
     from lodestar_tpu_torch.observability.stages import PipelineMetrics
@@ -3114,12 +3156,17 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
             f"{c['order']}), ratio of the sums {c['ratio']:.3f}; per-worker launches "
             f"{json.dumps(c['workers'])}")
 
+    log(f"{tag} snapshot {json.dumps(d.snapshot())}")
+    serve_sets, serve_host = serve_batch
+    if not all(serve_host):
+        raise AssertionError(f"{tag} the host tier rejects the block job")
+    out["drill"] = timed("mesh node drill", _node_mesh_drill, torch, np, serve_sets, d, obs)
     v.close()
     single.close()
     left = multiprocessing.active_children()
     if left:
         raise AssertionError(f"{tag} worker processes left: {left}")
-    log(f"{tag} snapshot {json.dumps(d.snapshot())}; no worker process left")
+    log(f"{tag} no worker process left")
     return out
 
 
@@ -3588,8 +3635,11 @@ CAPELLA_STEPS = (("slot1", 0), ("slot2", 0), ("tampered", 2), ("invalid_payload"
 
 
 CLI_VALIDATORS = 64
-CLI_RUN_S = 40  # the subprocess's own limit (--run-seconds); SIGINT ends it first
-CLI_BOUND_S = 45.0
+CLI_RUN_S = 60  # the node's own limit (--run-seconds; 40 before the validator step); SIGINT ends it first
+CLI_BOUND_S = 65.0  # 45 before the validator step, which took 15.0-18.3 s
+CLI_VC_RUN_S = 24  # the validator's own limit: four 6 s slots; SIGINT ends it first
+CLI_VC_SLOT_WAIT_S = 20.0  # a proposal's slot boundary (<= 6 s) and its import on the card
+CLI_COMMITTEE = 4  # 64 validators / 8 slots / 2 committees: TARGET_COMMITTEE_SIZE
 
 
 def _free_port() -> int:
@@ -3600,10 +3650,174 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def _cli_validator(tag, client, vc, vc_db, km_port, metrics_port, config, genesis, slot1_root,
+                   planner_before):
+    """The validator step of 12i: `vc` is the `validator` subprocess,
+    started against the node behind `client`; returns its figures."""
+    import signal
+
+    from lodestar_tpu_torch.bls import api as bls
+    from lodestar_tpu_torch.db.controller import FileDb
+    from lodestar_tpu_torch.params import MINIMAL
+    from lodestar_tpu_torch.profile_block import BlockFactory
+    from lodestar_tpu_torch.profile_network import prom_total, prom_values, scrape
+    from lodestar_tpu_torch.state_transition import CachedBeaconState
+    from lodestar_tpu_torch.types import get_types
+    from lodestar_tpu_torch.validator import SlashingProtection
+    from lodestar_tpu_torch.validator.keystore import encrypt_keystore
+
+    t0 = time.perf_counter()
+    out = {}
+    auth = {}
+
+    def running():
+        if vc.poll() is not None:
+            raise AssertionError(f"{tag} the validator exited with {vc.returncode}")
+
+    def km(method, path, body=None, token=True):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", km_port, timeout=30)
+        try:
+            payload = json.dumps(body).encode() if body is not None else None
+            headers = {"Authorization": f"Bearer {auth.get('token')}"} if token else {}
+            if payload:
+                headers["Content-Type"] = "application/json"
+            conn.request(method, path, body=payload, headers=headers)
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read() or b"{}")
+        finally:
+            conn.close()
+
+    # the keymanager, while the validator proposes: its token from the
+    # file beside the datadir, 64 keys, one keystore made here (PBKDF2,
+    # the host tier's C AES) imported, 65 keys
+    token_file = vc_db + ".api-token.txt"
+
+    def keymanager_up():
+        running()
+        if not os.path.exists(token_file):
+            return False
+        with open(token_file) as f:
+            auth["token"] = f.read().strip()
+        try:
+            return km("GET", "/eth/v1/keystores")[0] == 200
+        except OSError:
+            return False
+
+    if _wait_for(keymanager_up, 30.0, 0.1) is None:
+        raise AssertionError(f"{tag} no keymanager on :{km_port} within 30 s")
+    out["keymanager_up_s"] = time.perf_counter() - t0
+    status, listed = km("GET", "/eth/v1/keystores")
+    before = [k["validating_pubkey"] for k in listed["data"]]
+    t1 = time.perf_counter()
+    sk = bls.interop_secret_key(CLI_VALIDATORS)
+    keystore = encrypt_keystore(sk.to_bytes(), "pw", kdf="pbkdf2")
+    out["encrypt_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    status, imported = km("POST", "/eth/v1/keystores",
+                          {"keystores": [json.dumps(keystore)], "passwords": ["pw"]})
+    out["import_s"] = time.perf_counter() - t1
+    _, listed = km("GET", "/eth/v1/keystores")
+    after = [k["validating_pubkey"] for k in listed["data"]]
+    new = "0x" + sk.to_public_key().to_bytes().hex()
+    out["keys"] = [len(before), len(after)]
+    if len(before) != CLI_VALIDATORS or status != 200 \
+            or imported["data"] != [{"status": "imported", "message": ""}] \
+            or len(after) != CLI_VALIDATORS + 1 or new not in after or new in before:
+        raise AssertionError(f"{tag} keymanager: {len(before)} keys, import {status} "
+                             f"{imported}, then {len(after)} keys")
+    if km("GET", "/eth/v1/keystores", token=False)[0] != 401:
+        raise AssertionError(f"{tag} the keymanager answered without its token")
+
+    # two proposals at wall-clock slots S and S + 1 on the slot-1 block
+    def head():
+        running()
+        h = client.getBlockHeader("head")
+        return int(h["header"]["message"]["slot"]), h["root"], h["header"]["message"]
+
+    first = {}
+
+    def proposed(n):
+        slot, root, msg = head()
+        if slot > 1 and "slot" not in first:
+            first.update(slot=slot, root=root, parent=msg["parent_root"],
+                         at=time.perf_counter() - t0)
+        return "slot" in first and slot >= first["slot"] + n
+
+    if _wait_for(lambda: proposed(0), CLI_VC_SLOT_WAIT_S + 10.0, 0.1) is None:
+        raise AssertionError(f"{tag} the validator proposed nothing: head {head()}")
+    s_slot = first["slot"]
+    if _wait_for(lambda: proposed(1), CLI_VC_SLOT_WAIT_S, 0.1) is None:
+        raise AssertionError(f"{tag} no proposal after slot {s_slot}: head {head()}")
+    out["first_block_s"] = first["at"]
+    out["second_block_s"] = time.perf_counter() - t0
+    slot, root, msg = head()
+    out["slots"] = [s_slot, slot]
+    if slot != s_slot + 1 or msg["parent_root"] != first["root"] \
+            or first["parent"] != "0x" + slot1_root.hex():
+        raise AssertionError(f"{tag} head slot {slot} on {msg['parent_root']}; slot {s_slot} "
+                             f"{first['root']} on {first['parent']}; slot 1 {slot1_root.hex()}")
+    # block S + 1 carries slot S's votes: each of its two committees once,
+    # every bit set; the node's verdict on it is their first check
+    types = get_types(MINIMAL).phase0
+    block = types.SignedBeaconBlock.from_obj(client.getBlockV2("head")["data"]).message
+    votes = {int(a.data.index): list(a.aggregation_bits) for a in block.body.attestations
+             if int(a.data.slot) == s_slot}
+    out["votes"] = {str(k): sum(v) for k, v in votes.items()}
+    if votes != {c: [True] * CLI_COMMITTEE for c in range(2)}:
+        raise AssertionError(f"{tag} block {slot}'s votes of slot {s_slot}: {votes}")
+    out["state_root"] = bytes(block.state_root)
+
+    values = prom_values(scrape(metrics_port))
+    moved = {k: prom_total(values, k) for k in (
+        "beacon_processed_blocks_total", "lodestar_bls_verifier_planner_decisions_total",
+        "lodestar_bls_supervisor_fallbacks_total", "lodestar_db_native_kv_fallbacks_total")}
+    out["metrics"] = moved
+    if moved["beacon_processed_blocks_total"] != 3 \
+            or moved["lodestar_bls_verifier_planner_decisions_total"] < planner_before + 2 \
+            or moved["lodestar_bls_supervisor_fallbacks_total"] \
+            or moved["lodestar_db_native_kv_fallbacks_total"]:
+        raise AssertionError(f"{tag} the node after the validator's blocks: {moved}, planner "
+                             f"decisions {planner_before} after slot 1")
+
+    t1 = time.perf_counter()
+    vc.send_signal(signal.SIGINT)
+    rc = vc.wait(timeout=30)
+    out["stop_s"] = time.perf_counter() - t1
+    if rc != 0:
+        raise AssertionError(f"{tag} the validator's exit code {rc}")
+    # its slashing protection holds both proposals and a target for each
+    # key of slot S's committees
+    cached = BlockFactory.advance(CachedBeaconState(config, genesis.copy(), MINIMAL), s_slot)
+    attesters = [int(i) for c in range(2) for i in cached.epoch_ctx.get_beacon_committee(s_slot, c)]
+    proposers = [int(cached.epoch_ctx.get_beacon_proposer(s_slot)), int(block.proposer_index)]
+    pubkeys = [bytes(v.pubkey) for v in genesis.validators]
+    interchange = SlashingProtection(FileDb(vc_db)).export_interchange(
+        bytes(genesis.genesis_validators_root), pubkeys)
+    signed_blocks = {int(b["slot"]) for i in proposers
+                     for b in interchange["data"][i]["signed_blocks"]}
+    targets = {i: {int(a["target_epoch"]) for a in interchange["data"][i]["signed_attestations"]}
+               for i in attesters}
+    out["export"] = {"blocks": sorted(int(b["slot"]) for e in interchange["data"]
+                                      for b in e["signed_blocks"]),
+                     "keys_attested": sum(1 for e in interchange["data"]
+                                          if e["signed_attestations"])}
+    epoch = s_slot // MINIMAL.SLOTS_PER_EPOCH
+    if not {s_slot, s_slot + 1} <= signed_blocks or len(attesters) != 2 * CLI_COMMITTEE \
+            or any(epoch not in t for t in targets.values()):
+        raise AssertionError(f"{tag} slashing protection: blocks {out['export']}, slot "
+                             f"{s_slot}'s attesters' targets {targets}")
+    out["step_s"] = time.perf_counter() - t0
+    return out
+
+
 def phase_cli(torch, np):
     """12i. the port's CLI (`python -m lodestar_tpu_torch.cli beacon`) as a
-    subprocess on the card, one REST-posted block, SIGINT and a resume from
-    its `kv/`, every check of the module docstring's 12i."""
+    subprocess on the card, one REST-posted block, then a `validator`
+    subprocess whose two proposals the node imports, the keymanager,
+    SIGINT to both and a resume from the node's `kv/` at the validator's
+    second block, every check of the module docstring's 12i."""
     import signal
     import tempfile
 
@@ -3699,6 +3913,30 @@ def phase_cli(torch, np):
             if len(build) != 1 or 'backend="cuda"' not in build[0] \
                     or f'device_kind="{card}"' not in build[0]:
                 raise AssertionError(f"{tag} build info {build}, the card {card}")
+            # the validator: a second subprocess holding every key, so it
+            # proposes at every slot; the node verifies its blocks on the card
+            vc_db, km_port = os.path.join(tmp, "vc.db"), _free_port()
+            vc_log_path = os.path.join(tmp, "validator.log")
+            with open(vc_log_path, "w") as vc_f:
+                vc = subprocess.Popen(
+                    [sys.executable, "-m", "lodestar_tpu_torch.cli", "validator",
+                     "--network", "minimal-dev", "--beacon-url", f"http://127.0.0.1:{rest_port}",
+                     "--interop-keys", f"0:{CLI_VALIDATORS}", "--datadir", vc_db,
+                     "--keymanager", "--keymanager-port", str(km_port),
+                     "--run-seconds", str(CLI_VC_RUN_S)],
+                    cwd=ROOT, stdout=vc_f, stderr=subprocess.STDOUT)
+            try:
+                out["validator"] = _cli_validator(
+                    tag, client, vc, vc_db, km_port, metrics_port, config, state, root,
+                    moved["lodestar_bls_verifier_planner_decisions_total"])
+            except BaseException:
+                with open(vc_log_path) as f:
+                    log(f"{tag} the validator's log:\n" + "".join(f.readlines()[-40:]))
+                raise
+            finally:
+                if vc.poll() is None:
+                    vc.kill()
+                    vc.wait()
             t0 = time.perf_counter()
             proc.send_signal(signal.SIGINT)
             rc = proc.wait(timeout=30)
@@ -3710,11 +3948,12 @@ def phase_cli(torch, np):
                 last = [ln for ln in f if "kernel launches" in ln]
             out["launches"] = json.loads(last[-1].split("kernel launches", 1)[1]) if last else {}
             # the counts start at 0 once the node is ready (past its
-            # preload): the block's verdict launches its products' K1 or K4
-            # and at least one K2p and one K3-fe
+            # preload): each of the three blocks' verdicts (the posted one,
+            # the validator's two) launches its products' K1 or K4 and at
+            # least one K2p and one K3-fe
             n = out["launches"]
             if not (n.get("K1", 0) + n.get("K4", 0) >= 1
-                    and all(n.get(k, 0) >= 1 for k in ("K2p", "K3-fe"))):
+                    and all(n.get(k, 0) >= 3 for k in ("K2p", "K3-fe"))):
                 raise AssertionError(f"{tag} the node's kernel launches {out['launches']}")
         except BaseException:
             with open(log_path) as f:
@@ -3732,12 +3971,23 @@ def phase_cli(torch, np):
                                                 BeaconDb(types_all.phase0, kv))
             out["resume"] = {"origin": origin, "slot": int(resumed.slot),
                              "entries": kv.stats()["entries"]}
-            if origin != "db" or resumed.slot != 1 \
-                    or resumed.hash_tree_root() != bytes(signed.message.state_root):
-                raise AssertionError(f"{tag} resumed {out['resume']}, not the block's state")
+            head_slot = out["validator"]["slots"][1]
+            if origin != "db" or resumed.slot != head_slot \
+                    or resumed.hash_tree_root() != out["validator"]["state_root"]:
+                raise AssertionError(f"{tag} resumed {out['resume']}, not block {head_slot}'s "
+                                     f"state")
         finally:
             kv.close()
     out["phase_s"] = time.perf_counter() - t_start
+    vc = out["validator"]
+    log(f"{tag} validator: keymanager up {vc['keymanager_up_s']:.3f} s after its start, keys "
+        f"{vc['keys'][0]} then {vc['keys'][1]} after a keystore made here (PBKDF2 + the C AES "
+        f"{vc['encrypt_s']:.3f} s) was imported in {vc['import_s']:.3f} s; blocks at slots "
+        f"{vc['slots']} imported {vc['first_block_s']:.3f} and {vc['second_block_s']:.3f} s after "
+        f"its start; block {vc['slots'][1]} carries slot {vc['slots'][0]}'s votes "
+        f"{json.dumps(vc['votes'])} (bits set per committee); /metrics {json.dumps(vc['metrics'])}; "
+        f"SIGINT to exit {vc['stop_s']:.3f} s; slashing protection {json.dumps(vc['export'])}; "
+        f"the step {vc['step_s']:.3f} s")
     log(f"{tag} health {out['health_s']:.3f} s after the start, block made here "
         f"{out['block_make_s']:.3f} s, posted block imported in {out['import_s']:.3f} s, "
         f"SIGINT to exit {out['stop_s']:.3f} s, process {out['process_s']:.3f} s; the node's "
@@ -3837,7 +4087,8 @@ def main() -> int:
     serve = timed("serve", phase_serve, torch, np)
     observe = timed("observe", phase_observe, torch, np)
     node = timed("node", phase_node, torch, np, grouped, serve["batch"], sets)
-    mesh = timed("mesh", phase_mesh, torch, np, grouped, pk["batch"], sets, host_ok, bad, host_bad)
+    mesh = timed("mesh", phase_mesh, torch, np, grouped, pk["batch"], sets, host_ok, bad, host_bad,
+                 serve["batch"])
     fleet = timed("fleet", phase_fleet, torch, np, mesh, sets, host_ok, bad, host_bad)
     blocks, chain_stack, scenario, chain_jobs = timed("block_import", phase_block_import, torch, np)
     chain = timed("chain", phase_chain, torch, np, chain_stack, scenario, chain_jobs)
@@ -3873,15 +4124,16 @@ def main() -> int:
         f"dispatch worker busy {s['worker_busy']:.4f}, queued {s['device_wait_s']:.3f} s"
         f"; drills: breaker re-closed {node['drills']['exception']['reclose_s']:.3f} s after "
         f"clearing, latency {node['drills']['latency_s']:.3f} s, flaky "
-        f"{node['drills']['flaky_s']:.3f} s; mesh drill raise {node['mesh_drill']['raise_s']:.6f} s, "
-        f"served single-device {node['mesh_drill']['evicted_served_s']:.3f} s, re-admitted "
-        f"{node['mesh_drill']['readmit_s']:.3f} s; card: {card_line()}")
+        f"{node['drills']['flaky_s']:.3f} s; mesh drill (in the mesh phase) raise "
+        f"{mesh['drill']['raise_s']:.6f} s, served single-device "
+        f"{mesh['drill']['evicted_served_s']:.3f} s, re-admitted "
+        f"{mesh['drill']['readmit_s']:.3f} s; card: {card_line()}")
     pre, aot, span = boot["preload"], node["aot_drill"], node["span_cost"]
     log(f"[summary] node store and spans: preload outcomes {json.dumps(pre['outcomes'])}, load "
         f"seconds {json.dumps(pre['load_seconds'])}, first launches "
         f"{json.dumps(pre['launch_seconds'])}, {pre['seconds']} s in all, aot_load at "
         f"{boot['marks'].get('aot_load')} s; workers' preload "
-        f"{[p['seconds'] for p in node['mesh_drill']['preload']]} s; store drill: corrupt "
+        f"{[p['seconds'] for p in mesh['drill']['preload']]} s; store drill: corrupt "
         f"mont_mul rebuilt in {aot['rebuild_s']:.3f} s, its verdict {aot['verdict_s']:.3f} s, "
         f"foreign host tier rebuilt in {aot['mismatch_rebuild_s']:.3f} s; a lifecycle span "
         f"{span['span_us']:.3f} us on the host; {node['drills']['traces']['jobs']} drill traces "
@@ -3967,8 +4219,12 @@ def main() -> int:
         f"{st['slot2']['sweep_s']:.4f} s, {len(st['slot2']['withdrawals'])} withdrawals; phase "
         f"{PHASE_SECONDS['capella']:.1f} s; script {time.perf_counter() - t_start:.1f} s; "
         f"card: {card_line()}")
+    vc = cli["validator"]
     log(f"[summary] cli (minimal-dev, {CLI_VALIDATORS} validators, a subprocess on the card): "
-        f"health {cli['health_s']:.3f} s, block import {cli['import_s']:.3f} s, process "
+        f"health {cli['health_s']:.3f} s, block import {cli['import_s']:.3f} s; validator "
+        f"blocks at slots {vc['slots']} imported {vc['first_block_s']:.3f} / "
+        f"{vc['second_block_s']:.3f} s after its start, keymanager keys {vc['keys']}, the step "
+        f"{vc['step_s']:.3f} s; the node's launches {json.dumps(cli['launches'])}; process "
         f"{cli['process_s']:.3f} s, phase {PHASE_SECONDS['cli']:.1f} s (bound {CLI_BOUND_S:.0f} "
         f"s); script {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
     log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}")

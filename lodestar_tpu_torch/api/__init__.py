@@ -6,8 +6,8 @@ consumed by both the REST client (validator) and the fastify server glue
 it over stdlib http.server, `client` speaks it over http.client — the same
 route table drives both sides (single source of truth, like the reference).
 
-The port's copy of the JAX package's `api/` (the keymanager API comes
-with the validator client), over the port's chain.
+The port's copy of the JAX package's `api/`, over the port's chain; the
+keymanager API (`keymanager.py`) serves a validator client's keys.
 """
 
 from .routes import API_ROUTES, Route  # noqa: F401

@@ -40,6 +40,13 @@ class SecretKey:
         if not 0 < self.value < CURVE_ORDER:
             raise BlsError("secret key out of range")
 
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "SecretKey":
+        """The big-endian 32-byte scalar (EIP-2335's keystore secret)."""
+        if len(data) != 32:
+            raise BlsError("secret key must be 32 bytes")
+        return cls(int.from_bytes(data, "big"))
+
     def to_bytes(self) -> bytes:
         return self.value.to_bytes(32, "big")
 

@@ -202,6 +202,7 @@ LIBRARIES = {lib.name: lib for lib in (
     Library("bls12_host", CC, ["-O2", "-shared", "-fPIC"], ["host/bls12.c", "host/sha256.c",
                                                         "host/snappy_codec.c", "host/xxhash64.c",
                                                         "host/chacha20poly1305.c",
+                                                        "host/aes128ctr.c",
                                                         "host/kvstore.c"],
             ["host/bls12_consts.h"]),
     Library("mont_mul_host", CXX, HOST_FLAGS, ["mont_mul_host.cpp"], MONT_MUL_HEADERS),

@@ -3,5 +3,7 @@
 Reference: `packages/cli` yargs commands. The port's copy of the JAX
 package's `cli/`, with the `beacon` command: a beacon node whose
 signature verdicts run on the GPU (`--device cuda`, the default) or on
-the kernels' plain versions (`--device cpu`).
+the kernels' plain versions (`--device cpu`); `validator`, a validator
+client over a beacon node's REST API; and `dev`, a single-process local
+testnet whose chain verifies on `--device` likewise.
 """

@@ -15,7 +15,6 @@ KV engine to `FileDb`, this one does too, and logs it and counts it in
 
 from __future__ import annotations
 
-import logging
 import os
 import signal
 import time
@@ -24,17 +23,13 @@ from ..config.beacon_config import BeaconConfig, ChainForkConfig
 from ..config.chain_config import MAINNET_CHAIN_CONFIG, MINIMAL_CHAIN_CONFIG
 from ..db import BeaconDb
 from ..db.controller import FileDb, MemoryDb
-from ..node import BeaconNode, NodeOptions, init_beacon_state
 from ..params.presets import MAINNET, MINIMAL
 from ..state_transition import interop_genesis_state
 from ..types import get_types
+from ..utils.logger import get_logger
 
 KV_FALLBACK = ("lodestar_db_native_kv_fallbacks_total",
                "datadirs opened with FileDb because the native KV engine failed")
-
-
-def get_logger(name: str) -> logging.Logger:
-    return logging.getLogger(f"lodestar_tpu_torch.{name}")
 
 
 def _read_token_file(path: str | None) -> str | None:
@@ -96,6 +91,10 @@ def open_datadir(datadir: str | None, log=None):
 
 
 def run_beacon(args) -> int:
+    # the node (and with it PyTorch) only for this command: `validator`
+    # shares the dispatcher and does no device work
+    from ..node import BeaconNode, NodeOptions, init_beacon_state
+
     log = get_logger("beacon")
     if args.network == "minimal-dev":
         preset, chain_config = MINIMAL, MINIMAL_CHAIN_CONFIG

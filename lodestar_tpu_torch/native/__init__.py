@@ -2,7 +2,8 @@
 
 The sources are the port's own copy under `csrc/host/` (bls12.c,
 bls12_consts.h, sha256.c, for the network snappy_codec.c,
-xxhash64.c and chacha20poly1305.c, and for the database kvstore.c), built by `build.host_tier()` with
+xxhash64.c and chacha20poly1305.c, for the validator's keystores
+aes128ctr.c, and for the database kvstore.c), built by `build.host_tier()` with
 `cc` at first use (there is no Python fallback: without a C compiler
 these calls raise). Limb outputs are (..., 32) int32 Montgomery limbs, the layout
 of `ops/limbs.py`. ctypes releases the GIL for each call, so the batch
@@ -58,6 +59,8 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [_VP, _VP, _VP, _SZ, _VP, _SZ, _VP]
             fn.restype = _INT
+        lib.lodestar_aes128ctr.argtypes = [_VP, _VP, _VP, _SZ, _VP]
+        lib.lodestar_aes128ctr.restype = None
         _U64 = ctypes.c_uint64
         for name, argtypes, restype in (
                 ("lodestar_kv_open_with", [ctypes.c_char_p, _U64, _INT], _VP),
@@ -209,6 +212,17 @@ def aead_open(key: bytes, nonce: bytes, ciphertext: bytes, aad: bytes = b"") -> 
     rc = _lib().lodestar_aead_open(bytes(key), bytes(nonce), bytes(aad), len(aad),
                                    bytes(ciphertext), len(ciphertext), out)
     return None if rc else out.raw[:len(ciphertext) - 16]
+
+
+def aes128ctr(key: bytes, iv: bytes, data: bytes) -> bytes:
+    """AES-128 in counter mode (EIP-2335's cipher): `data` XOR the key
+    stream from the 16-byte counter block `iv`, stepped as a 128-bit
+    big-endian integer. Encrypts and decrypts alike."""
+    if len(key) != 16 or len(iv) != 16:
+        raise ValueError("AES-128-CTR takes a 16-byte key and a 16-byte counter block")
+    out = ctypes.create_string_buffer(max(len(data), 1))
+    _lib().lodestar_aes128ctr(bytes(key), bytes(iv), bytes(data), len(data), out)
+    return out.raw[:len(data)]
 
 
 def install_ssz_backend() -> None:

@@ -121,3 +121,83 @@ def test_identity_of_a_datadir(tmp_path):
     assert oct(os.stat(path).st_mode & 0o777) == "0o600"
     assert _load_identity(str(tmp_path)).peer_id == a.peer_id
     assert _load_identity(None) is None
+
+
+def test_validator_proposes_and_attests(tmp_path):
+    """`validator` as a subprocess against an in-process port node (REST
+    on loopback, the host tier's verifier, its clock following the wall
+    clock): it proposes the block of the slot it starts in and attests,
+    then exits 0 at `--run-seconds`; its slashing-protection `FileDb`
+    holds both."""
+    import threading
+
+    from lodestar_tpu_torch.chain.bls_verifier import CpuBlsVerifier
+    from lodestar_tpu_torch.config.beacon_config import BeaconConfig, ChainForkConfig
+    from lodestar_tpu_torch.config.chain_config import MINIMAL_CHAIN_CONFIG
+    from lodestar_tpu_torch.db.controller import FileDb
+    from lodestar_tpu_torch.node import BeaconNode, NodeOptions
+    from lodestar_tpu_torch.params.presets import MINIMAL
+    from lodestar_tpu_torch.state_transition import interop_genesis_state
+    from lodestar_tpu_torch.types import get_types
+    from lodestar_tpu_torch.validator import SlashingProtection
+
+    n, spt = 16, MINIMAL_CHAIN_CONFIG.SECONDS_PER_SLOT
+    genesis_time = int(time.time()) - spt  # slot 1 for the next 6 s
+    types = get_types(MINIMAL).phase0
+    state = interop_genesis_state(ChainForkConfig(MINIMAL_CHAIN_CONFIG, MINIMAL), types, n,
+                                  genesis_time=genesis_time)
+    config = BeaconConfig(MINIMAL_CHAIN_CONFIG, bytes(state.genesis_validators_root), MINIMAL)
+    node = BeaconNode.init(config, types, state,
+                           NodeOptions(rest=True, rest_port=0, verifier=CpuBlsVerifier()))
+    stop = threading.Event()
+
+    def follow_wall_clock():
+        while not stop.is_set():
+            node.on_clock_slot(max(0, int(time.time() - genesis_time) // spt))
+            stop.wait(0.1)
+
+    clock = threading.Thread(target=follow_wall_clock, daemon=True)
+    clock.start()
+    vc_db = str(tmp_path / "vc.db")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "lodestar_tpu_torch.cli", "validator", "--network",
+             "minimal-dev", "--beacon-url", f"http://127.0.0.1:{node.api_server.port}",
+             "--interop-keys", f"0:{n}", "--datadir", vc_db, "--run-seconds", "3"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+        head_slot = int(node.chain.head_state.state.slot)
+        head_block = node.chain.blocks[node.chain.head_root].message
+    finally:
+        stop.set()
+        clock.join()
+        node.close()
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 0, out
+    assert "16 validator keys loaded" in out
+    assert f"proposed block at slot {head_slot}" in out, out
+    assert head_slot >= 1
+    pks = [bytes(state.validators[i].pubkey) for i in range(n)]
+    interchange = SlashingProtection(FileDb(vc_db)).export_interchange(
+        bytes(state.genesis_validators_root), pks)
+    proposer = interchange["data"][int(head_block.proposer_index)]["signed_blocks"]
+    assert head_slot in [int(b["slot"]) for b in proposer]
+    attesters = [e for e in interchange["data"] if e["signed_attestations"]]
+    assert len(attesters) >= 2  # a slot's committee: 16 validators / 8 slots
+    assert all(a["target_epoch"] == "0" for e in attesters for a in e["signed_attestations"])
+
+
+@pytest.mark.slow
+def test_dev_on_the_cpu_stack():
+    """`dev --device cpu`: one slot's block through the serving stack on
+    the kernels' plain versions (minutes on a CPU, past the supervisor's
+    120 s deadline, so the host tier answers), then exit 0."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "lodestar_tpu_torch.cli", "dev", "--device", "cpu",
+         "--validators", "16", "--slots", "1"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 0, out
+    assert "done: head slot 1" in out

@@ -3,7 +3,9 @@ its modules loads neither JAX nor any module of the JAX package (nor does
 importing the serving seams alone: the facade and the epoch table, nor
 the observability modules alone, nor the serving stack alone, nor the
 lifecycle spans and the library store alone, nor a spawned mesh worker,
-nor the beacon node and its CLI alone, nor block import's host layer alone: params, config, SSZ, types, the
+nor the beacon node and its CLI alone, nor the validator client, the
+keymanager API and the `dev` and `validator` commands alone (nor
+`cryptography` or `yaml` there), nor block import's host layer alone: params, config, SSZ, types, the
 state transition and `profile_block`, nor the chain alone: `BeaconChain`,
 the gossip validators, fork choice and `profile_chain`, nor the
 post-merge layer alone: `execution`, `eth1`, Bellatrix and Capella,
@@ -57,7 +59,8 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "metrics.registry", "parallel.mesh",
                  "parallel.mesh_pool", "parallel.sharded", "parallel.fleet",
                  "parallel.fleet_host") + SERVING_MODULES + HOST_LAYER_MODULES \
-            + CHAIN_MODULES + EXECUTION_MODULES + NETWORK_MODULES + NODE_MODULES:
+            + CHAIN_MODULES + EXECUTION_MODULES + NETWORK_MODULES + NODE_MODULES \
+            + VALIDATOR_MODULES:
         assert f"lodestar_tpu_torch.{name}" in result["modules"]
 
 
@@ -269,6 +272,59 @@ def test_node_and_cli_load_no_jax_and_read_no_environment():
                              text), path
     with open(os.path.join(REPO, "lodestar_tpu_torch", "csrc", "host", "kvstore.c")) as f:
         assert "getenv" not in f.read()  # the engine's knobs are arguments
+
+
+# the validator client, the keymanager API and their commands
+VALIDATOR_MODULES = (
+    "utils", "utils.bytes", "utils.promise", "utils.logger", "validator", "validator.keystore",
+    "validator.slashing_protection", "validator.store", "validator.doppelganger",
+    "validator.external_signer", "validator.service", "validator.rest_service",
+    "api.keymanager", "cli.validator", "cli.dev")
+
+VALIDATOR_PROBE = r"""
+import json, sys
+import lodestar_tpu_torch.validator, lodestar_tpu_torch.api.keymanager
+import lodestar_tpu_torch.utils.promise, lodestar_tpu_torch.utils.bytes
+from lodestar_tpu_torch.cli.__main__ import main
+from lodestar_tpu_torch.validator.keystore import decrypt_keystore, encrypt_keystore
+ks = encrypt_keystore(b"\x01" * 32, "pw")
+assert decrypt_keystore(ks, "pw") == b"\x01" * 32
+try:
+    main(["--help"])
+except SystemExit:
+    pass
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu.")
+             or m == "cryptography" or m.startswith("cryptography.")
+             or m == "yaml" or m.startswith("yaml."))
+print(json.dumps(bad))
+"""
+
+
+def test_validator_client_loads_no_jax_no_wheel_and_reads_no_environment():
+    """The validator client, the keymanager API and the CLI with `dev` and
+    `validator` registered load no JAX, no JAX package, no `cryptography`
+    (its AES is the host tier's) and no `yaml`, and read no variable."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", VALIDATOR_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    for cmd in ("beacon", "dev", "validator"):
+        assert cmd in out.stdout
+    for name in VALIDATOR_MODULES + ("cli.__main__", "native", "bls.api"):
+        path = os.path.join(REPO, "lodestar_tpu_torch", *name.split("."))
+        path = path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"\b(environ|getenv|putenv|env_str|env_float|env_bool)\b",
+                             text), path
+        assert "LODESTAR_TPU_" not in text, path
+        assert not re.search(r"^\s*(import|from)\s+(cryptography|yaml)\b", text, re.M), path
+    with open(os.path.join(REPO, "lodestar_tpu_torch", "csrc", "host", "aes128ctr.c")) as f:
+        assert "getenv" not in f.read()
 
 
 # the serving stack's modules: none reads any environment variable at all

@@ -5,8 +5,9 @@
 Always runs env, build and block_import (their stack and scenario feed
 the rest), then the phases named, in the script's order (network needs
 chain; with no name, all four), every check as `chip_smoke.py` makes it.
-`cli` (the port's CLI as a subprocess on the card) runs last, after the
-stack is closed.
+`cli` (the port's CLI as a subprocess on the card: a `beacon` node, a
+posted block, then a `validator` subprocess whose two proposals the node
+imports, and its keymanager) runs last, after the stack is closed.
 Prints the phases' `[time]` lines and one `[phases]` line with the
 seconds of each and the card; writes the records to
 `build/lodestar_tpu_torch/chip_phases.json`. Exits non-zero when a check
