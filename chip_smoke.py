@@ -152,11 +152,12 @@ it runs the single-device path it names on a host of any card count):
           32,768 keys (the slice phase's 4096, 28,672 from sk_to_pk, the
           block job's 128) while the calls arrive; the slice's 4096 sets as
           one-set attestation calls, uniform over 4 s, from 1024 caller
-          threads, of which the first 0.25 s runs (256 calls: cut from the
+          threads, of which the first 0.125 s runs (128 calls: cut from the
           whole slot to its first 2 s, 2048 calls, to make room for the
           capella phase, then to its first 1 s for the network phase's
           node steps and the cli phase, then to 0.25 s for the cli phase's
-          validator), the set arriving 250th carrying
+          validator, then to 0.125 s for the rest phase), the set arriving
+          125th carrying
           another key's signature; serve-128's
           job on the block lane at 0 s and 2 s, each run as block import
           runs a block (a root `chain/process_block` span, its context
@@ -233,7 +234,9 @@ it runs the single-device path it names on a host of any card count):
           once (the workers' counts zeroed just before and read just
           after through the pool; the controller launches nothing but
           bisection's probes). Each cell's walls are printed beside the
-          same batch's single-device walls; no worker process may be left.
+          earlier phases' single-device walls of the same batches (a cut
+          made for the rest phase: the phase re-ran them); no worker process may be
+          left.
           Then the eviction drill through the port's supervisor, the node
           phase's mesh drill (12b (c), "Mesh drill"), on this phase's
           dispatcher and its running pool: one pool start fewer than when
@@ -263,10 +266,9 @@ it runs the single-device path it names on a host of any card count):
           of each step are printed, and no worker or agent process may be
           left. To stay in its time, the mesh phase reuses the slice and
           pk-grouped phases' batches, its pk-grouped cell is the valid
-          batch alone, each of its cells times one verdict a side (mesh,
-          then single-device) and no cell repeats a warm single-device
-          first call; each fleet cell times one warm verdict after its
-          first call.
+          batch alone, and each cell of the two phases times its first
+          call alone (cut for the rest phase: each timed a warm verdict after
+          it), the mesh's against the earlier phases' single-device wall.
 12e. block_import  block import's producer side (`profile_block.run`) on
           the mainnet preset, `MAINNET_CHAIN_CONFIG` with Altair at epoch
           1: an interop genesis of 16,384 validators (4 committees of 128
@@ -369,7 +371,7 @@ it runs the single-device path it names on a host of any card count):
           one batch (blocks 1-3 and 33
           as ssz_snappy chunks) imported with `process_block_segment`: one
           verdict of 149 sets; R's head is P's block 33, the batch states
-          RangeSync exported are printed. (c) slot 33's 512 attestations spread round-robin
+          RangeSync exported are printed. (c) slot 33's attestations spread round-robin
           over Q1-Q32 on their subnets' topics, with the chain phase's two
           bad signatures and wrong subnet (REJECT), a second vote of one
           attester on block 3 (IGNORE), and after the flood a
@@ -379,8 +381,12 @@ it runs the single-device path it names on a host of any card count):
           the deliveries and REJECTs it sent; the makespan,
           validations/s, publish-to-result p50, p99 and max, the coalesced
           batches and their flush reasons, planner paths and epoch-table
-          hits printed. (d) every aggregator's aggregate of the slot the
-          same way, one with another's selection proof (REJECT). (e)
+          hits printed; cut for the rest phase to committee 0 of the slot, as
+          the chain phase's floods (128 attestations and the four special
+          messages, every one of which lies in committee 0: the cut's
+          check is printed). (d) every aggregator's aggregate of that
+          committee the same way, one with another's selection proof
+          (REJECT). (e)
           block 34 published by Q1: ACCEPT, imported; R's head and its
           weight are P's. (node) R's slot 34 through `node.on_clock_slot`;
           R's /metrics shows head slot 34 and the finalized epoch,
@@ -479,9 +485,52 @@ it runs the single-device path it names on a host of any card count):
           three times each (the three blocks' verdicts), and its `<tmp>/kv`
           must open here with `NativeKvDb` and resume at block S + 1's slot
           and state root.
+          Then flare, before the node's SIGINT: `python -m
+          lodestar_tpu_torch.cli flare self-slash-proposer --validators 0
+          --slot 1` and `flare self-slash-attester --validators 2,3,4
+          --batch-size 2` as subprocesses (they load no PyTorch) against
+          the node; `getPoolProposerSlashings` must serve one slashing
+          (validator 0) and `getPoolAttesterSlashings` two, each slashable,
+          covering {2, 3, 4}; a proposer slashing of validator 5 whose
+          second header key 12 signed is POSTed and must be refused with
+          400 and stay out of the pool; the node's planner decisions rise
+          by at least 4 (one device verdict per slashing) and its launch
+          line then counts K2p and K3-fe at least 7 times each.
           Prints the seconds to health, the block's import, the validator
-          step's (keymanager, the two proposals, SIGINT) and the process's
-          total, and the phase's against its 65 s bound.
+          step's (keymanager, the two proposals, SIGINT), the flare step's
+          and the process's total, and the phase's against its 90 s bound.
+12j. rest  the last modules, after cli: (sim-2x8-device) the JAX
+          package's device simulation, `SimulationEnvironment(n_nodes=2,
+          n_validators=8, verifier="device", device="cuda")`: two nodes
+          over the port's TCP/UDP networking on loopback, blocks by gossip
+          only, each node's `DeviceBlsVerifier` behind a recorder; slots
+          from 1 until each node holds a block proposed on the other (at
+          most 8, one minimal epoch: a cut of the JAX run, printed as
+          such), `_settle` waiting for the nodes' gossip work; no missed
+          block, then (the nodes' gossip drained within 60 s) both hold
+          every block and one head; every recorded verdict equals the host
+          tier's; K1 or K4, K2p and K3-fe launched. Then one node's next
+          proposal, signed by a key of the other node and published by the
+          first: the other's gossip verdict must be REJECT, its verifier's
+          False and the host tier's, its head unchanged. (light-client-
+          minimal-16) the JAX light-client fixture's chain
+          (`profile_block.light_client_chain`: minimal preset, 16
+          validators, Altair from genesis, 24 blocks with the previous
+          slot's aggregates and full sync aggregates) imported as one
+          segment into a `BeaconChain(..., device="cuda")` that builds its
+          own stack (closed after): every call True and the host tier's,
+          K2p and K3-fe at least once a job; served by `BeaconApiServer`
+          on loopback, `python -m lodestar_tpu_torch.cli lightclient
+          --trusted-block-root <block 1> --run-seconds 1` must log the
+          optimistic slot a `RestLightclientFollower` reaches by its
+          catch-up, with finalized slot 1; the follower then applies one
+          optimistic update over SSE (finalized 1, optimistic 23); an
+          update whose sync signature is another key's raises
+          `LightClientError`. (spec-minimal-16) `generate_suite_tree` of 16
+          validators into a temporary directory and the five runners: each
+          suite ok, the expected-invalid voluntary exit and block refused,
+          a tampered `post` vector caught; PyYAML must not have been
+          loaded by them (whether it is installed is printed).
 
 The main-path verdicts of phases 6-12h run with the launch counts of K1-K4,
 K2p and K3-fe reset just before and read just after, and fail if a kernel
@@ -1895,9 +1944,10 @@ NODE_WINDOW_S = 4.0  # attestations arrive over the first third of the 12 s slot
 NODE_SLOT_S = 12.0
 NODE_CALLERS = 1024  # gossip validation threads, each blocked in its call
 NODE_TAMPERED = (1000, 3000)  # carry the next set's signature (same root, another key)
-NODE_MAIN_CALLS = 256  # the coalesce-512 slot: its first 0.25 s, to make room for the capella,
-# network-node and cli work (1 s until the cli phase gained its validator)
-NODE_MAIN_TAMPERED_AT = 250  # the arrival whose set is tampered among those 256 calls
+NODE_MAIN_CALLS = 128  # the coalesce-512 slot: its first 0.125 s, to make room for the capella,
+# network-node, cli and rest work (1 s until the cli phase gained its validator, 0.25 s until
+# the rest phase)
+NODE_MAIN_TAMPERED_AT = 125  # the arrival whose set is tampered among those 128 calls
 NODE_BLOCK_AT = (0.0, 2.0)  # the 128-set block job's arrivals
 NODE_BOOT_SLO_S = 10.0  # dashboards/slo_rules.json `serving_ready`
 NODE_BOOT_RUNG = "bucket_4"  # the one rung the boot runs (the whole ladder before the validator step)
@@ -2759,11 +2809,11 @@ def phase_node(torch, np, grouped, serve_batch, per_set_sets):
         raise AssertionError(f"{tag} the host tier rejects the block job")
     out = {"boot": timed("node (a) boot", _node_boot, torch)}
     keys = _node_keys(np, slice_sets, block_sets)
-    # the slot's first 0.25 s (256 calls, one tampered), cut to keep the
+    # the slot's first 0.125 s (128 calls, one tampered), cut to keep the
     # script's time
     order, _ = _node_order(np, len(slice_sets))
     out["slot"] = timed("node (b) slot 512", _node_slot, torch, np,
-                        f"{tag} (b) slot's first 0.25 s (cut), max_coalesce 512:", slice_sets,
+                        f"{tag} (b) slot's first 0.125 s (cut), max_coalesce 512:", slice_sets,
                         slice_host, block_sets, keys, NODE_MAIN_CALLS,
                         (int(order[NODE_MAIN_TAMPERED_AT]),))
     out["drills"] = timed("node (c) drills", _node_drills, torch, np, block_sets, per_set_sets)
@@ -3042,7 +3092,7 @@ MESH_DEVICES = ("cuda:0", "cuda:0")  # two workers on the one card, even where m
 
 
 def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, per_set_bad,
-               per_set_host_bad, serve_batch):
+               per_set_host_bad, serve_batch, single_walls):
     """The sharded verdicts over a `BlsMeshDispatcher` of two worker
     processes on cuda:0, behind `TorchBlsVerifier(mesh=...)`: grouped
     64 x 64 (valid, one bad signature in the second worker's rows, one
@@ -3053,7 +3103,9 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
     single-device verdict is never called) and launches K2p once on each
     worker and K3-fe once on the first (counts zeroed just before, read
     just after, in the workers through the pool); no worker process is
-    left. Then the eviction drill through the port's supervisor
+    left. Each cell's single-device wall is `single_walls[cell]`, the
+    earlier phase's wall of the same batch (a cut: the phase re-ran them).
+    Then the eviction drill through the port's supervisor
     (`_node_mesh_drill`) on the same dispatcher and its running pool."""
     import multiprocessing
 
@@ -3069,7 +3121,6 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
     obs = PipelineMetrics()
     d = BlsMeshDispatcher(list(MESH_DEVICES), observer=obs)
     v = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED), mesh=d)
-    single = TorchBlsVerifier(device="cuda", rng=np.random.default_rng(SEED), mesh=None)
     sharded_off = []  # single-device verdicts called on the mesh verifier
     for kind in ("grouped_raw", "pk_grouped_raw", "bisect_tree"):
         inner = v._kernels[kind]
@@ -3086,37 +3137,20 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
             v._h2c_cache.clear()
         return _sharded_verdict(tag, d, obs, sharded_off, name, fn, want, controller_idle)
 
-    def single_wall(name, fn, want, clear_h2c=False):
-        if clear_h2c:
-            single._h2c_cache.clear()
-        got, wall, counts = _run_counted(torch, fn, single)
-        log(f"{tag} {name} single-device: {_verdict_text(got)}, {wall:.3f} s; launches "
-            f"{json.dumps(counts)}")
-        if got != want:
-            raise AssertionError(f"{tag} {name} single-device: {got}, host tier {want}")
-        return wall
-
-    def cell_walls(cell, name, method, sets, want, order=("mesh", "single"), **kw):
-        """A first (cold) sharded call, then the sharded and the
-        single-device verdict of the same batch in `order`; the cell keeps
-        the walls of each side (the single-device verdicts are warm from
-        the earlier phases)."""
-        mesh_fn = lambda: getattr(v, method)(sets)  # noqa: E731
-        mesh_verdict(f"{name}, first call", mesh_fn, want, **kw)
-        cell.update(mesh_s=[], single_s=[], order=" ".join(order))
-        for side in order:
-            if side == "mesh":
-                wall, cell["workers"] = mesh_verdict(name, mesh_fn, want, **kw)
-                cell["mesh_s"].append(wall)
-            else:
-                cell["single_s"].append(single_wall(name, lambda: getattr(single, method)(sets),
-                                                    want, kw.get("clear_h2c", False)))
+    def cell_walls(cell, name, method, sets, want, **kw):
+        """The first sharded call of the batch (its warm repeat was cut for
+        the rest phase); the cell keeps its wall beside the earlier phase's
+        single-device wall of that batch."""
+        wall, cell["workers"] = mesh_verdict(f"{name}, first call",
+                                             lambda: getattr(v, method)(sets), want, **kw)
+        key = name.rsplit(" ", 1)[0]
+        cell.update(mesh_s=[wall], single_s=[single_walls[key]],
+                    order="mesh first call; single-device warm, from its earlier phase")
 
     # grouped-64x64: rows are roots, sets [64j, 64j + 64) in row j; the
     # second worker owns rows 32..63
     cell = out["cells"]["grouped-64x64"] = {}
-    cell_walls(cell, "grouped-64x64 valid", "verify_signature_sets", grouped, True,
-               order=("mesh", "single"))
+    cell_walls(cell, "grouped-64x64 valid", "verify_signature_sets", grouped, True)
     k = 40 * 64 + 3
     bad_sig = _tamper_one(grouped, k, "signature", 10)
     cell["bad_signature_s"], _ = mesh_verdict(
@@ -3149,6 +3183,10 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
         "per-set-128 three invalid (5; 64, 127)",
         lambda: v.verify_signature_sets_individual(per_set_bad), per_set_host_bad,
         controller_idle=False)
+    log(f"{tag} (cut) single-device walls from the slice, pk-grouped and per-set phases, the "
+        f"same batches in this process: {json.dumps({k: round(w, 3) for k, w in single_walls.items()})}"
+        f" s; each cell's mesh wall its first call's, no warm repeat; the mesh verdicts above "
+        f"each equal the host tier's, one dispatch a chip")
     for name, c in out["cells"].items():
         c["ratio"] = sum(c["mesh_s"]) / sum(c["single_s"])
         log(f"{tag} {name}: mesh {' / '.join(f'{w:.3f}' for w in c['mesh_s'])} s, "
@@ -3162,7 +3200,6 @@ def phase_mesh(torch, np, grouped_batch, pk_batch, per_set_sets, per_set_host, p
         raise AssertionError(f"{tag} the host tier rejects the block job")
     out["drill"] = timed("mesh node drill", _node_mesh_drill, torch, np, serve_sets, d, obs)
     v.close()
-    single.close()
     left = multiprocessing.active_children()
     if left:
         raise AssertionError(f"{tag} worker processes left: {left}")
@@ -3276,11 +3313,13 @@ def phase_fleet(torch, np, mesh, per_set_sets, per_set_host, per_set_bad, per_se
             return _sharded_verdict(tag, d, obs, spied, name, fn, want, controller_idle)
 
         def cell(name, method, sets, want, bad_name, bad_sets, bad_want, **kw):
-            """A first call, one more of the valid batch and the tampered one."""
+            """A first call of the valid batch and the tampered one (the
+            warm call of the valid batch after the first was cut for the
+            rest phase: the cell's wall is its first call's)."""
             c = out["cells"][name] = {}
             fn = lambda: getattr(v, method)(sets)  # noqa: E731
             c["first_s"], _ = verdict(f"{name} valid, first call", fn, want, **kw)
-            c["fleet_s"] = [verdict(f"{name} valid", fn, want, **kw)[0]]
+            c["fleet_s"] = [c["first_s"]]
             c["bad_s"], c["workers"] = verdict(f"{name} {bad_name}",
                                                lambda: getattr(v, method)(bad_sets), bad_want,
                                                **kw)
@@ -3308,8 +3347,9 @@ def phase_fleet(torch, np, mesh, per_set_sets, per_set_host, per_set_bad, per_se
         for name, c in out["cells"].items():
             m = mesh["cells"][name]
             c["single_level_s"], c["single_device_s"] = min(m["mesh_s"]), min(m["single_s"])
-            log(f"{tag} {name}: fleet (2 hosts x 2 workers) {c['fleet_s'][0]:.3f} s, "
-                f"first call {c['first_s']:.3f} s; single-level "
+            log(f"{tag} {name}: fleet (2 hosts x 2 workers) first call {c['first_s']:.3f} s "
+                f"((cut) no warm call: the first call's verdict is the valid batch's check); "
+                f"single-level "
                 f"(2 workers) {c['single_level_s']:.3f} s, single-device "
                 f"{c['single_device_s']:.3f} s (the mesh phase's, same batch); "
                 f"per-worker launches {json.dumps(c['workers'])}; card: {card_line()}")
@@ -3576,6 +3616,7 @@ def _chain_phase(torch, stack, scenario, jobs, out):
 NETWORK_STEPS = (("range_sync", 0), ("attestations", "some"), ("aggregates", "some"),
                  ("block", 0))  # the steps with verdicts and their negative audits
 NETWORK_BOUND_S = 150.0
+NETWORK_FLOOD_COMMITTEES = 1  # the floods: committee 0 of the slot, as the chain phase's (all four before the rest phase)
 
 
 def _jobs_of(sets, per_job: int) -> int:
@@ -3593,7 +3634,8 @@ def phase_network(torch, np, stack, scenario, jobs, chain_out):
         out = profile_network.run(stack.supervisor, scenario=scenario, chain_out=chain_out,
                                   observer=stack.pipeline, sync=torch.cuda.synchronize,
                                   probe=lambda: {k: v for k, v in jobs.items()
-                                                 if not k.endswith("_s")}, log=log)
+                                                 if not k.endswith("_s")},
+                                  flood_committees=NETWORK_FLOOD_COMMITTEES, log=log)
         breaker = stack.supervisor.breaker_state
         profile_network.log_steps(out, log)
         if out["failures"]:
@@ -3601,6 +3643,17 @@ def phase_network(torch, np, stack, scenario, jobs, chain_out):
         if breaker != "closed":
             raise AssertionError(f"network: the supervisor's breaker is {breaker}")
         steps = out["steps"]
+        att, agg = steps["attestations"], steps["aggregates"]
+        log(f"[network] (cut) floods of the slot's first {NETWORK_FLOOD_COMMITTEES} committee(s): "
+            f"{att['calls']} attestations {json.dumps(att['actions'])} (the two bad signatures "
+            f"and the wrong subnet REJECT, the second vote IGNORE), the replay "
+            f"{json.dumps(att['replay'])}; {agg['calls']} aggregates {json.dumps(agg['actions'])} "
+            f"(the bad selection proof REJECT)")
+        if att["actions"].get("REJECT") != 3 or att["actions"].get("IGNORE") != 1 \
+                or att["replay"] != {"published_to": 1, "duplicates": 1} \
+                or agg["actions"].get("REJECT") != 1:
+            raise AssertionError(f"network: the cut floods lost a refused or replayed message: "
+                                 f"{att['actions']}, {att['replay']}, {agg['actions']}")
         for name, audits in NETWORK_STEPS:
             rec = steps[name]
             _chain_jobs(rec, f"network {name}", audits)
@@ -3635,8 +3688,11 @@ CAPELLA_STEPS = (("slot1", 0), ("slot2", 0), ("tampered", 2), ("invalid_payload"
 
 
 CLI_VALIDATORS = 64
-CLI_RUN_S = 60  # the node's own limit (--run-seconds; 40 before the validator step); SIGINT ends it first
-CLI_BOUND_S = 65.0  # 45 before the validator step, which took 15.0-18.3 s
+CLI_RUN_S = 90  # the node's own limit (--run-seconds; 40, then 60 before the flare step); SIGINT ends it first
+CLI_BOUND_S = 90.0  # 45 before the validator step (15.0-18.3 s), 65 before the flare step
+CLI_FLARE = (("proposer", ["self-slash-proposer", "--validators", "0", "--slot", "1"]),
+             ("attester", ["self-slash-attester", "--validators", "2,3,4", "--batch-size", "2"]))
+CLI_FLARE_VERDICTS = 4  # one per slashing: a proposer's, two attesters', the tampered one
 CLI_VC_RUN_S = 24  # the validator's own limit: four 6 s slots; SIGINT ends it first
 CLI_VC_SLOT_WAIT_S = 20.0  # a proposal's slot boundary (<= 6 s) and its import on the card
 CLI_COMMITTEE = 4  # 64 validators / 8 slots / 2 committees: TARGET_COMMITTEE_SIZE
@@ -3812,6 +3868,71 @@ def _cli_validator(tag, client, vc, vc_db, km_port, metrics_port, config, genesi
     return out
 
 
+def _cli_flare(tag, client, rest_port, metrics_port, config):
+    """The flare step of 12i: `python -m lodestar_tpu_torch.cli flare` as
+    subprocesses against the node behind `client` (they load no PyTorch),
+    then a proposer slashing whose second header another key signed;
+    returns its figures."""
+    from lodestar_tpu_torch.api.client import ApiClientError
+    from lodestar_tpu_torch.bls import api as bls
+    from lodestar_tpu_torch.config.beacon_config import compute_signing_root
+    from lodestar_tpu_torch.params import DOMAIN_BEACON_PROPOSER, MINIMAL
+    from lodestar_tpu_torch.profile_network import prom_total, prom_values, scrape
+    from lodestar_tpu_torch.state_transition.block import is_slashable_attestation_data
+    from lodestar_tpu_torch.types import get_types
+
+    t0 = time.perf_counter()
+    types = get_types(MINIMAL).phase0
+    planner = "lodestar_bls_verifier_planner_decisions_total"
+    before = prom_total(prom_values(scrape(metrics_port)), planner)
+    out = {"commands_s": {}}
+    for name, argv in CLI_FLARE:
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "lodestar_tpu_torch.cli", "flare", *argv,
+                               "--server", f"127.0.0.1:{rest_port}"], cwd=ROOT,
+                              capture_output=True, text=True, timeout=120)
+        out["commands_s"][name] = time.perf_counter() - t1
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag} flare {name}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    props = [types.ProposerSlashing.from_obj(o) for o in client.getPoolProposerSlashings()]
+    atts = [types.AttesterSlashing.from_obj(o) for o in client.getPoolAttesterSlashings()]
+    covered = sorted(int(i) for a in atts for i in a.attestation_1.attesting_indices)
+    out["pool"] = {"proposers": [int(p.signed_header_1.message.proposer_index) for p in props],
+                   "attesters": covered}
+    if out["pool"]["proposers"] != [0] or covered != [2, 3, 4] or len(atts) != 2 \
+            or not all(is_slashable_attestation_data(a.attestation_1.data, a.attestation_2.data)
+                       for a in atts):
+        raise AssertionError(f"{tag} flare: the pools hold {out['pool']}")
+    # a proposer slashing of validator 5 whose second header key 12 signed
+    domain = config.get_domain(DOMAIN_BEACON_PROPOSER, 1)
+    headers = []
+    for variant, signer in ((b"\x01", 5), (b"\x02", 12)):
+        header = types.BeaconBlockHeader(slot=1, proposer_index=5, parent_root=b"\x00" * 32,
+                                         state_root=b"\x00" * 32, body_root=variant * 32)
+        sig = bls.interop_secret_key(signer).sign(
+            compute_signing_root(header.hash_tree_root(), domain))
+        headers.append(types.SignedBeaconBlockHeader(message=header, signature=sig.to_bytes()))
+    t1 = time.perf_counter()
+    try:
+        client.submitPoolProposerSlashings(body=types.ProposerSlashing(
+            signed_header_1=headers[0], signed_header_2=headers[1]).to_obj())
+        status = 200
+    except ApiClientError as e:
+        status = e.status
+    out["tampered"] = {"status": status, "seconds": time.perf_counter() - t1}
+    pooled = [int(types.ProposerSlashing.from_obj(o).signed_header_1.message.proposer_index)
+              for o in client.getPoolProposerSlashings()]
+    if status != 400 or pooled != [0]:
+        raise AssertionError(f"{tag} flare: the tampered slashing got {status}, pool {pooled}")
+    out["planner_decisions"] = prom_total(prom_values(scrape(metrics_port)), planner) - before
+    if out["planner_decisions"] < CLI_FLARE_VERDICTS:
+        raise AssertionError(f"{tag} flare: {out['planner_decisions']} planner decisions for "
+                             f"{CLI_FLARE_VERDICTS} slashing verdicts")
+    out["step_s"] = time.perf_counter() - t0
+    return out
+
+
 def phase_cli(torch, np):
     """12i. the port's CLI (`python -m lodestar_tpu_torch.cli beacon`) as a
     subprocess on the card, one REST-posted block, then a `validator`
@@ -3937,6 +4058,7 @@ def phase_cli(torch, np):
                 if vc.poll() is None:
                     vc.kill()
                     vc.wait()
+            out["flare"] = _cli_flare(tag, client, rest_port, metrics_port, config)
             t0 = time.perf_counter()
             proc.send_signal(signal.SIGINT)
             rc = proc.wait(timeout=30)
@@ -3949,11 +4071,11 @@ def phase_cli(torch, np):
             out["launches"] = json.loads(last[-1].split("kernel launches", 1)[1]) if last else {}
             # the counts start at 0 once the node is ready (past its
             # preload): each of the three blocks' verdicts (the posted one,
-            # the validator's two) launches its products' K1 or K4 and at
-            # least one K2p and one K3-fe
+            # the validator's two) and of the four slashings' launches its
+            # products' K1 or K4 and at least one K2p and one K3-fe
             n = out["launches"]
             if not (n.get("K1", 0) + n.get("K4", 0) >= 1
-                    and all(n.get(k, 0) >= 3 for k in ("K2p", "K3-fe"))):
+                    and all(n.get(k, 0) >= 3 + CLI_FLARE_VERDICTS for k in ("K2p", "K3-fe"))):
                 raise AssertionError(f"{tag} the node's kernel launches {out['launches']}")
         except BaseException:
             with open(log_path) as f:
@@ -3988,6 +4110,13 @@ def phase_cli(torch, np):
         f"{json.dumps(vc['votes'])} (bits set per committee); /metrics {json.dumps(vc['metrics'])}; "
         f"SIGINT to exit {vc['stop_s']:.3f} s; slashing protection {json.dumps(vc['export'])}; "
         f"the step {vc['step_s']:.3f} s")
+    fl = out["flare"]
+    log(f"{tag} flare: commands {json.dumps({k: round(v, 3) for k, v in fl['commands_s'].items()})} "
+        f"s, pools {json.dumps(fl['pool'])}, tampered slashing {fl['tampered']['status']} in "
+        f"{fl['tampered']['seconds']:.3f} s, planner decisions +{fl['planner_decisions']:.0f} "
+        f"for {CLI_FLARE_VERDICTS} verdicts; the node's launches since ready "
+        f"{json.dumps(out['launches'])} (K2p and K3-fe >= {3 + CLI_FLARE_VERDICTS}: the three "
+        f"blocks' verdicts and the four slashings'); the step {fl['step_s']:.3f} s")
     log(f"{tag} health {out['health_s']:.3f} s after the start, block made here "
         f"{out['block_make_s']:.3f} s, posted block imported in {out['import_s']:.3f} s, "
         f"SIGINT to exit {out['stop_s']:.3f} s, process {out['process_s']:.3f} s; the node's "
@@ -3995,6 +4124,351 @@ def phase_cli(torch, np):
         f"{json.dumps(out['metrics'])}; resumed {json.dumps(out['resume'])}; phase "
         f"{out['phase_s']:.1f} s (bound {CLI_BOUND_S:.0f} s"
         f"{'' if out['phase_s'] <= CLI_BOUND_S else ', OVER'}); card: {card_line()}")
+    return out
+
+
+# -- 12j. rest: the simulation, the light client and the spec tests ------------
+
+MINIMAL_SLOTS = 8  # SLOTS_PER_EPOCH of the minimal preset
+SIM_NODES, SIM_VALIDATORS = 2, 8  # the JAX package's device simulation (tests/test_simulation.py)
+SIM_MAX_SLOTS = 8  # one minimal epoch: the JAX test's run, cut to the slots until a foreign block
+SIM_DRAIN_S = 60.0  # the bound on the nodes' gossip work after the last slot
+LC_VALIDATORS, LC_SLOTS = 16, 24  # the JAX light-client fixture: 3 minimal epochs
+LC_RUN_S = 1  # the `lightclient` command's --run-seconds
+SPEC_VALIDATORS = 16
+
+
+def _rest_sim(torch, tag):
+    """sim-2x8-device: `SimulationEnvironment(2, 8, "device")` on the card
+    over loopback TCP/UDP, each node's verifier behind a recorder; slots
+    from 1 until each node holds a block proposed on the other (at most
+    `SIM_MAX_SLOTS`); then one node's next proposal signed by a key of the
+    other node, which the other must REJECT. Returns the figures."""
+    import asyncio
+
+    from lodestar_tpu_torch import profile_chain
+    from lodestar_tpu_torch.bls import api as bls
+    from lodestar_tpu_torch.config.beacon_config import compute_signing_root
+    from lodestar_tpu_torch.network.gossip.topic import GossipType
+    from lodestar_tpu_torch.params import DOMAIN_BEACON_PROPOSER, DOMAIN_RANDAO
+    from lodestar_tpu_torch.sim import SimulationEnvironment
+    from lodestar_tpu_torch.state_transition import process_slots
+    from lodestar_tpu_torch.state_transition.block import _epoch_signing_root
+
+    out = {"slot_s": [], "verdicts": []}
+
+    def foreign(node):
+        return [s for s in node.chain.blocks.values() if s is not None
+                and int(s.message.proposer_index) not in node.key_range]
+
+    async def main():
+        t0 = time.perf_counter()
+        env = SimulationEnvironment(n_nodes=SIM_NODES, n_validators=SIM_VALIDATORS,
+                                    verifier="device", device="cuda")
+        inner = []
+        try:
+            await env.start()
+            for node in env.nodes:
+                inner.append(node.chain.bls)
+                node.chain.bls = profile_chain.RecordingVerifier(node.chain.bls)
+            out["start_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            _reset_counts()
+            slot = 0
+            while slot < SIM_MAX_SLOTS and not all(foreign(n) for n in env.nodes):
+                slot += 1
+                t1 = time.perf_counter()
+                await env.run_slot(slot)
+                out["slot_s"].append(time.perf_counter() - t1)
+            out["slots"], out["blocks"] = slot, env.blocks_produced
+            out["drain_s"] = await env.drain(SIM_DRAIN_S)
+            torch.cuda.synchronize()
+            out["launches"] = _counts()
+            out["heads"] = [n.chain.head_root.hex() for n in env.nodes]
+            out["held"] = [sum(1 for b in n.chain.blocks.values() if b is not None)
+                           for n in env.nodes]
+            out["foreign"] = [len(foreign(n)) for n in env.nodes]
+            calls = [n.chain.bls.take() for n in env.nodes]
+            out["verdicts"] = [len(c) for c in calls]
+            out["sets"] = [sum(len(x["sets"]) for x in c) for c in calls]
+            out["host_mismatches"] = [profile_chain.host_mismatches(c) for c in calls]
+
+            # the next slot's proposal, signed by a key of the other node
+            slot += 1
+            for n in env.nodes:
+                n.chain.clock.set_slot(slot)
+                n.chain.fork_choice.update_time(slot)
+            trial = env.nodes[0].chain.head_state.copy()
+            process_slots(trial, env.types, slot)
+            proposer = int(trial.epoch_ctx.get_beacon_proposer(slot))
+            a = next(n for n in env.nodes if proposer in n.key_range)
+            b = next(n for n in env.nodes if n is not a)
+            config, epoch = env.config, slot // env.config.preset.SLOTS_PER_EPOCH
+            reveal = bls.interop_secret_key(proposer).sign(_epoch_signing_root(
+                epoch, config.get_domain(DOMAIN_RANDAO, slot))).to_bytes()
+            block = a.chain.produce_block(slot, randao_reveal=reveal)
+            wrong = b.key_range[0]
+            sig = bls.interop_secret_key(wrong).sign(compute_signing_root(
+                block.hash_tree_root(), config.get_domain(DOMAIN_BEACON_PROPOSER, slot)))
+            signed = env.types.SignedBeaconBlock(message=block, signature=sig.to_bytes())
+            results, handle = [], b.network.gossip_handlers._handle
+
+            def recorded(topic, ssz):
+                result = handle(topic, ssz)
+                if topic.type is GossipType.beacon_block:
+                    results.append(result.value)
+                return result
+
+            b.network.gossip_handlers._handle = recorded
+            head = b.chain.head_root
+            _reset_counts()
+            t1 = time.perf_counter()
+            await a.network.publish_block(signed)
+            await asyncio.sleep(0.05)
+            out["tampered_drain_s"] = await env.drain(SIM_DRAIN_S)
+            out["tampered"] = {"slot": slot, "proposer": proposer, "signed_by": wrong,
+                               "verdicts": results, "seconds": time.perf_counter() - t1,
+                               "head_kept": b.chain.head_root == head,
+                               "launches": _counts()}
+            tcalls = b.chain.bls.take()
+            out["tampered"]["host_mismatches"] = profile_chain.host_mismatches(tcalls)
+            out["tampered"]["recorded"] = [x["verdicts"] for x in tcalls]
+        finally:
+            for node, verifier in zip(env.nodes, inner):
+                node.chain.bls = verifier  # `stop` closes each node's facade
+            await env.stop()
+
+    asyncio.run(asyncio.wait_for(main(), 600))
+    if out["blocks"] != out["slots"] or not all(out["foreign"]):
+        raise AssertionError(f"{tag} sim: {out['blocks']} blocks in {out['slots']} slots, "
+                             f"foreign blocks per node {out['foreign']}")
+    if out["drain_s"] is None or len(set(out["heads"])) != 1 \
+            or out["held"] != [out["blocks"]] * SIM_NODES:
+        raise AssertionError(f"{tag} sim: drained {out['drain_s']}, heads {out['heads']}, "
+                             f"blocks held {out['held']} of {out['blocks']}")
+    if any(out["host_mismatches"]) or not all(out["verdicts"]):
+        raise AssertionError(f"{tag} sim: verdicts {out['verdicts']}, against the host tier "
+                             f"{out['host_mismatches']}")
+    n, t = out["launches"], out["tampered"]
+    if n.get("K1", 0) + n.get("K4", 0) < 1 or n.get("K2p", 0) < 1 or n.get("K3-fe", 0) < 1:
+        raise AssertionError(f"{tag} sim: launches {n}")
+    if t["verdicts"] != ["REJECT"] or not t["head_kept"] or t["host_mismatches"] \
+            or out["tampered_drain_s"] is None or [False] not in t["recorded"]:
+        raise AssertionError(f"{tag} sim: the tampered block {t}")
+    return out
+
+
+def _rest_light_client(torch, tag):
+    """light-client-minimal-16: the JAX light-client fixture's chain made by
+    `profile_block.light_client_chain`, imported as one segment into a
+    `BeaconChain` on the card (its own stack), served by `BeaconApiServer`;
+    the `lightclient` command and a `RestLightclientFollower` follow it,
+    and an update signed by another key is refused."""
+    import threading
+
+    from lodestar_tpu_torch import profile_block, profile_chain
+    from lodestar_tpu_torch.api import BeaconApiServer
+    from lodestar_tpu_torch.api.client import BeaconApiClient
+    from lodestar_tpu_torch.api.impl import BeaconApiImpl
+    from lodestar_tpu_torch.bls import api as bls
+    from lodestar_tpu_torch.chain import BeaconChain
+    from lodestar_tpu_torch.chain.emitter import ChainEvent
+    from lodestar_tpu_torch.light_client import Lightclient, LightClientError
+    from lodestar_tpu_torch.light_client.rest_follow import RestLightclientFollower
+    from lodestar_tpu_torch.params import MINIMAL
+    from lodestar_tpu_torch.types import get_types
+
+    out = {}
+    t0 = time.perf_counter()
+    config, genesis, blocks = profile_block.light_client_chain(LC_VALIDATORS, LC_SLOTS)
+    out["blocks_make_s"] = time.perf_counter() - t0
+    types = get_types(MINIMAL).altair
+    t0 = time.perf_counter()
+    chain = BeaconChain(config, types, genesis.copy(), device="cuda")
+    out["chain_init_s"] = time.perf_counter() - t0
+    rest = None
+    try:
+        per_job = chain.bls_stack.device.max_sets_per_job
+        chain.bls = recorder = profile_chain.RecordingVerifier(chain.bls)
+        chain.clock.set_slot(LC_SLOTS)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        chain.process_block_segment(blocks)
+        torch.cuda.synchronize()
+        out["segment_s"] = time.perf_counter() - t0
+        out["launches"] = _counts()
+        calls = recorder.take()
+        out["calls"] = [(len(c["sets"]), c["verdicts"]) for c in calls]
+        out["jobs"] = sum(-(-len(c["sets"]) // per_job) for c in calls)
+        out["host_mismatches"] = profile_chain.host_mismatches(calls)
+        roots = [b.message.hash_tree_root() for b in blocks]
+        if chain.head_root != roots[-1] or not calls or out["host_mismatches"] \
+                or not all(v == [True] for _, v in out["calls"]):
+            raise AssertionError(f"{tag} light client: segment verdicts {out['calls']}, "
+                                 f"against the host tier {out['host_mismatches']}, head "
+                                 f"{chain.head_root == roots[-1]}")
+        n = out["launches"]
+        if n.get("K1", 0) + n.get("K4", 0) < 1 or n.get("K2p", 0) < out["jobs"] \
+                or n.get("K3-fe", 0) < out["jobs"]:
+            raise AssertionError(f"{tag} light client: launches {n} for {out['jobs']} jobs")
+        rest = BeaconApiServer(BeaconApiImpl(config, types, chain), port=0)
+        rest.start()
+        trusted = "0x" + roots[0].hex()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lodestar_tpu_torch.cli", "lightclient", "--beacon-url",
+             f"127.0.0.1:{rest.port}", "--trusted-block-root", trusted, "--run-seconds",
+             str(LC_RUN_S), "--poll-seconds", "0.5"],
+            cwd=ROOT, capture_output=True, text=True, timeout=60)
+        out["command_s"] = time.perf_counter() - t0
+        said = [ln for ln in proc.stderr.splitlines() if "optimistic slot" in ln]
+        out["command_last"] = said[-1].split("] ", 1)[-1] if said else None
+        follower = RestLightclientFollower(config, types, MINIMAL,
+                                           BeaconApiClient("127.0.0.1", rest.port),
+                                           "127.0.0.1", rest.port)
+        t0 = time.perf_counter()
+        follower.start(roots[0])
+        out["catch_up_s"] = time.perf_counter() - t0
+        caught_up = int(follower.lc.optimistic_header.slot)
+        done = {}
+        thread = threading.Thread(target=lambda: done.update(
+            applied=follower.follow(max_events=1, timeout=10)), daemon=True)
+        thread.start()
+        time.sleep(0.3)
+        chain.emitter.emit(ChainEvent.lightclient_optimistic_update,
+                           chain.light_client_server.latest_optimistic_update.to_obj())
+        thread.join(timeout=15)
+        out["follower"] = {"caught_up": caught_up, "applied": done.get("applied"),
+                           "finalized": int(follower.lc.finalized_header.slot),
+                           "optimistic": int(follower.lc.optimistic_header.slot)}
+        want = f"optimistic slot {caught_up}  finalized slot 1"
+        if proc.returncode != 0 or not out["command_last"] \
+                or not out["command_last"].startswith(want):
+            raise AssertionError(f"{tag} lightclient command: exit {proc.returncode}, last "
+                                 f"{out['command_last']!r}, want {want!r}\n"
+                                 f"{proc.stderr[-2000:]}")
+        if out["follower"] != {"caught_up": caught_up, "applied": 1, "finalized": 1,
+                               "optimistic": 3 * MINIMAL.SLOTS_PER_EPOCH - 1}:
+            raise AssertionError(f"{tag} follower: {out['follower']}")
+        # an update whose sync signature is another key's
+        server = chain.light_client_server
+        lc = Lightclient(config, types, MINIMAL)
+        lc.bootstrap(roots[0], server.get_bootstrap(roots[0]))
+        bad = types.LightClientUpdate.deserialize(
+            server.best_update_by_period[min(server.best_update_by_period)].serialize())
+        bad.sync_aggregate.sync_committee_signature = bls.interop_secret_key(7).sign(
+            b"x").to_bytes()
+        try:
+            lc.process_update(bad)
+            out["tampered"] = "accepted"
+        except LightClientError as e:
+            out["tampered"] = str(e)
+        if out["tampered"] != "bad sync signature":
+            raise AssertionError(f"{tag} light client: the tampered update {out['tampered']}")
+    finally:
+        if rest is not None:
+            rest.close()
+        chain.close()
+    return out
+
+
+def _rest_spec(tag):
+    """spec-minimal-16: `generate_suite_tree` into a temporary directory,
+    the five runners, a tampered `post` vector; no PyYAML loaded."""
+    import importlib.util
+    import tempfile
+
+    from lodestar_tpu_torch import native
+    from lodestar_tpu_torch import spec_test as spec
+    from lodestar_tpu_torch.config.beacon_config import BeaconConfig, ChainForkConfig
+    from lodestar_tpu_torch.config.chain_config import MINIMAL_CHAIN_CONFIG
+    from lodestar_tpu_torch.params import MINIMAL
+    from lodestar_tpu_torch.spec_test.fixtures import generate_suite_tree
+    from lodestar_tpu_torch.state_transition import interop_genesis_state
+    from lodestar_tpu_torch.types import get_types
+
+    yaml_before = "yaml" in sys.modules
+    out = {"pyyaml_installed": importlib.util.find_spec("yaml") is not None}
+    types = get_types(MINIMAL).phase0
+    fork_config = ChainForkConfig(MINIMAL_CHAIN_CONFIG, MINIMAL)
+    state = interop_genesis_state(fork_config, types, SPEC_VALIDATORS, genesis_time=1_600_000_000)
+    config = BeaconConfig(MINIMAL_CHAIN_CONFIG, bytes(state.genesis_validators_root), MINIMAL)
+    with tempfile.TemporaryDirectory(prefix="spec-") as root:
+        t0 = time.perf_counter()
+        paths = generate_suite_tree(root, fork_config, types, n_validators=SPEC_VALIDATORS)
+        out["generate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = {
+            "sanity/blocks": spec.run_sanity_blocks_suite(paths["sanity/blocks"], config, types,
+                                                          verify_signatures=False),
+            "sanity/slots": spec.run_sanity_slots_suite(paths["sanity/slots"], config, types),
+            "operations/voluntary_exit": spec.run_operations_suite(
+                paths["operations/voluntary_exit"], config, types, "voluntary_exit"),
+            "epoch_processing/justification_and_finalization": spec.run_epoch_processing_suite(
+                paths["epoch_processing/justification_and_finalization"], config, types,
+                "justification_and_finalization"),
+            "shuffling": spec.run_shuffling_suite(paths["shuffling"], config),
+        }
+        out["run_s"] = time.perf_counter() - t0
+        out["suites"] = {k: [r.passed, r.total] for k, r in results.items()}
+        bad = {k: r.failures for k, r in results.items() if not r.ok()}
+        if bad or out["suites"]["sanity/blocks"] != [2, 2] \
+                or out["suites"]["operations/voluntary_exit"] != [1, 1]:
+            raise AssertionError(f"{tag} spec: {out['suites']}, failures {bad}")
+        post = os.path.join(paths["sanity/slots"], "slots_1", "post.ssz_snappy")
+        with open(post, "rb") as f:
+            raw = bytearray(native.snappy_uncompress(f.read()))
+        raw[100] ^= 0xFF
+        with open(post, "wb") as f:
+            f.write(native.snappy_compress(bytes(raw)))
+        tampered = spec.run_sanity_slots_suite(paths["sanity/slots"], config, types)
+        out["tampered"] = [name for name, _ in tampered.failures]
+        if tampered.ok() or out["tampered"] != ["slots_1"]:
+            raise AssertionError(f"{tag} spec: the tampered post vector gave {out['tampered']}")
+    out["yaml_loaded"] = "yaml" in sys.modules and not yaml_before
+    if out["yaml_loaded"]:
+        raise AssertionError(f"{tag} spec: the harness loaded PyYAML")
+    return out
+
+
+def phase_rest(torch, np):
+    """12j. the last modules on the card: the simulation with the device
+    verifier, the light client over a chain verified on the card, and the
+    spec-test harness, every check of the module docstring's 12j."""
+    tag = "[rest]"
+    out = {}
+    t0 = time.perf_counter()
+    out["sim"] = sim = _rest_sim(torch, tag)
+    out["sim_s"] = time.perf_counter() - t0
+    log(f"{tag} sim-2x8-device: start {sim['start_s']:.3f} s; {sim['slots']} slots (a cut of "
+        f"the JAX run's one epoch of {MINIMAL_SLOTS} slots: until each node holds a block "
+        f"proposed on the other), {sim['blocks']} blocks, per-slot seconds "
+        f"{json.dumps([round(x, 3) for x in sim['slot_s']])}, drained {sim['drain_s']:.3f} s "
+        f"after; heads {sim['heads'][0][:16]} / {sim['heads'][1][:16]}, blocks held "
+        f"{sim['held']}, foreign {sim['foreign']}; verdicts per node {sim['verdicts']} "
+        f"({sim['sets']} sets), equal to the host tier's; launches {json.dumps(sim['launches'])}"
+        f"; the tampered block at slot {sim['tampered']['slot']} (proposer "
+        f"{sim['tampered']['proposer']}, signed by {sim['tampered']['signed_by']}): "
+        f"{sim['tampered']['verdicts']} in {sim['tampered']['seconds']:.3f} s, head kept, "
+        f"launches {json.dumps(sim['tampered']['launches'])}; step {out['sim_s']:.1f} s")
+    t0 = time.perf_counter()
+    out["light_client"] = lc = _rest_light_client(torch, tag)
+    out["light_client_s"] = time.perf_counter() - t0
+    log(f"{tag} light-client-minimal-16: blocks made {lc['blocks_make_s']:.3f} s, chain (its "
+        f"own stack) {lc['chain_init_s']:.3f} s, segment of {LC_SLOTS} blocks "
+        f"{lc['segment_s']:.3f} s (calls {json.dumps(lc['calls'])}, {lc['jobs']} jobs of <= 128 "
+        f"sets, equal to the host tier's), launches {json.dumps(lc['launches'])}; lightclient "
+        f"command {lc['command_s']:.3f} s: {lc['command_last']!r}; follower "
+        f"{json.dumps(lc['follower'])}, catch-up {lc['catch_up_s']:.3f} s; an update signed by "
+        f"another key: {lc['tampered']!r}; step {out['light_client_s']:.1f} s")
+    t0 = time.perf_counter()
+    out["spec"] = sp = _rest_spec(tag)
+    out["spec_s"] = time.perf_counter() - t0
+    log(f"{tag} spec-minimal-16: generated {sp['generate_s']:.3f} s, five runners "
+        f"{sp['run_s']:.3f} s, suites (passed, total) {json.dumps(sp['suites'])}, tampered post "
+        f"fails {sp['tampered']}; PyYAML installed here: {sp['pyyaml_installed']}, loaded by "
+        f"the harness: {sp['yaml_loaded']}; step {out['spec_s']:.1f} s; card: {card_line()}")
     return out
 
 
@@ -4088,7 +4562,8 @@ def main() -> int:
     observe = timed("observe", phase_observe, torch, np)
     node = timed("node", phase_node, torch, np, grouped, serve["batch"], sets)
     mesh = timed("mesh", phase_mesh, torch, np, grouped, pk["batch"], sets, host_ok, bad, host_bad,
-                 serve["batch"])
+                 serve["batch"], {"grouped-64x64": wall, "pk-grouped-128x32": pk["warm"]["seconds"],
+                                  "per-set-128": per_set["a"]["seconds"]})
     fleet = timed("fleet", phase_fleet, torch, np, mesh, sets, host_ok, bad, host_bad)
     blocks, chain_stack, scenario, chain_jobs = timed("block_import", phase_block_import, torch, np)
     chain = timed("chain", phase_chain, torch, np, chain_stack, scenario, chain_jobs)
@@ -4096,6 +4571,7 @@ def main() -> int:
                     chain)
     capella = timed("capella", phase_capella, torch, np, chain_stack, scenario, chain_jobs)
     cli = timed("cli", phase_cli, torch, np)
+    rest = timed("rest", phase_rest, torch, np)
     log(f"[summary] pk-grouped {PK_KEYS * PK_ROOTS} sets: {pk['warm']['seconds']:.3f} s warm, "
         f"its roots hashed anew ({PK_KEYS * PK_ROOTS / pk['warm']['seconds']:.1f} sets/s), first call "
         f"{pk['cold']['seconds']:.3f} s; flat 128 {flat['128']['seconds']:.3f} s, 200 "
@@ -4139,13 +4615,13 @@ def main() -> int:
         f"{span['span_us']:.3f} us on the host; {node['drills']['traces']['jobs']} drill traces "
         f"counted {node['drills']['traces']['counted']:.0f}; card: {card_line()}")
     log(f"[summary] mesh (two workers on cuda:0): pool start {mesh['start_s']:.3f} s; "
-        + "; ".join(f"{n} {min(c['mesh_s']):.3f} s against single-device "
-                    f"{min(c['single_s']):.3f} s (best of {len(c['mesh_s'])} each)"
+        + "; ".join(f"{n} first call {min(c['mesh_s']):.3f} s against single-device "
+                    f"{min(c['single_s']):.3f} s (warm, its earlier phase's)"
                     for n, c in mesh["cells"].items())
 )
     log(f"[summary] fleet (2 hosts x 2 workers on cuda:0, host 1 over TCP): agent join "
         f"{fleet['join_s']:.3f} s, pool start {fleet['start_s']:.3f} s; "
-        + "; ".join(f"{n} {min(c['fleet_s']):.3f} s against single-level "
+        + "; ".join(f"{n} first call {min(c['fleet_s']):.3f} s against single-level "
                     f"{c['single_level_s']:.3f} s and single-device {c['single_device_s']:.3f} s"
                     for n, c in fleet["cells"].items())
         + f"; drill raise {fleet['drill']['raise_s']:.6f} s, evict_host "
@@ -4227,6 +4703,16 @@ def main() -> int:
         f"{vc['step_s']:.3f} s; the node's launches {json.dumps(cli['launches'])}; process "
         f"{cli['process_s']:.3f} s, phase {PHASE_SECONDS['cli']:.1f} s (bound {CLI_BOUND_S:.0f} "
         f"s); script {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
+    fl, sm, lc, sp = cli["flare"], rest["sim"], rest["light_client"], rest["spec"]
+    log(f"[summary] cli flare: {json.dumps(fl['pool'])} pooled, tampered slashing "
+        f"{fl['tampered']['status']}, step {fl['step_s']:.3f} s; rest: sim-2x8-device "
+        f"{sm['slots']} slots ({json.dumps([round(x, 3) for x in sm['slot_s']])} s), verdicts "
+        f"{sm['verdicts']}, tampered block {sm['tampered']['verdicts']}, step "
+        f"{rest['sim_s']:.1f} s; light-client-minimal-16 segment {lc['segment_s']:.3f} s, "
+        f"follower {json.dumps(lc['follower'])}, step {rest['light_client_s']:.1f} s; "
+        f"spec-minimal-16 {json.dumps(sp['suites'])}, step {rest['spec_s']:.1f} s; phase "
+        f"{PHASE_SECONDS['rest']:.1f} s; script {time.perf_counter() - t_start:.1f} s; card: "
+        f"{card_line()}")
     log(f"[summary] phase seconds {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}")
     log(f"[summary] ptxas {json.dumps(ptxas)}")
     log(f"[summary] k1 by products (device and call ms): {json.dumps(k1_rows)}; "

@@ -5,7 +5,8 @@ BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_): the same names and the same
 bytes in and out, with every operation in `native/` (the C host tier)
 instead of the JAX package's Python oracle. Keys and signatures are held
 compressed (48 B G1, 96 B G2); a point is parsed only where an operation
-needs it.
+needs it. Every public name of the JAX module is here
+(`aggregate_verify` is one C entry, `lodestar_bls_aggregate_verify`).
 
 `TorchBlsVerifier` duck-types its sets as `s.pubkey.to_bytes()` (48 B
 compressed G1), `s.message` (32 B signing root) and `s.signature` (96 B
@@ -151,6 +152,35 @@ def fast_aggregate_verify(
     if not pubkeys:
         return False
     return verify(aggregate_pubkeys(pubkeys), message, signature, dst)
+
+
+def aggregate_verify(
+    pubkeys: list[PublicKey], messages: list[bytes], signature: Signature, dst: bytes = DST_G2
+) -> bool:
+    """AggregateVerify: key i signed message i, one signature for all:
+    Π e(pkᵢ, H(mᵢ)) · e(−g1, sig) == 1 in one C call (one Miller loop per
+    pair, one final exponentiation). False on an empty list, a length
+    mismatch, an infinity key or an infinity signature."""
+    if not pubkeys or len(pubkeys) != len(messages):
+        return False
+    return _native().aggregate_verify(b"".join(pk.to_bytes() for pk in pubkeys),
+                                      [bytes(m) for m in messages], signature.to_bytes(), dst)
+
+
+def verify_signature_sets(sets: list["SignatureSet"]) -> bool:
+    """True when every set verifies: all-or-nothing over the C tier's
+    per-set verdicts (`native.verify_sets`), the verdict of the JAX
+    module's random-linear-combination batch. False on an empty list or a
+    set whose key or signature is infinity, malformed or outside its
+    subgroup."""
+    if not sets:
+        return False
+    try:
+        return all(_native().verify_sets(
+            b"".join(s.pubkey.to_bytes() for s in sets), [bytes(s.message) for s in sets],
+            b"".join(bytes(s.signature) for s in sets), DST_G2))
+    except ValueError:
+        return False
 
 
 def interop_secret_key(index: int) -> SecretKey:

@@ -45,6 +45,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 import time
 
@@ -63,6 +64,33 @@ BUILD_LOG: dict[str, tuple[float, str]] = {}
 
 class BuildError(RuntimeError):
     pass
+
+
+# the compile-ledger calls of builds made before the process loaded
+# PyTorch (a process that only signs and hashes on the host tier, such as
+# a validator or a light client, never does): `compile_ledger.ledger()`
+# records them when it is first asked in a process that has PyTorch
+PENDING_LEDGER: list[tuple[str, tuple, dict]] = []
+
+
+class _PendingLedger:
+    """The compile ledger's two calls, kept in `PENDING_LEDGER`."""
+
+    def note_aot(self, *args, **kwargs) -> None:
+        PENDING_LEDGER.append(("note_aot", args, kwargs))
+
+    def record(self, *args, **kwargs) -> None:
+        PENDING_LEDGER.append(("record", args, kwargs))
+
+
+def _process_ledger():
+    """The process-wide compile ledger once PyTorch is loaded (its events
+    name the device set), else a `_PendingLedger`."""
+    if "torch" not in sys.modules:
+        return _PendingLedger()
+    from .observability import compile_ledger
+
+    return compile_ledger.ledger()
 
 
 def find_nvcc() -> str | None:
@@ -96,7 +124,7 @@ def _open(path: str) -> ctypes.CDLL:
 
 def build_shared(name: str, compiler: str | None, flags: list[str],
                  sources: list[str], headers: list[str] = (), build: bool = True,
-                 ledger=None) -> str | None:
+                 ledger=None, runtime: bool = True) -> str | None:
     """Compile `sources` (paths under csrc/) into lib<name>-<digest>.so in
     the ahead-of-time store (`ops/aot_store.py`, over the build directory)
     and return its verified path; raises BuildError when there is no
@@ -110,8 +138,10 @@ def build_shared(name: str, compiler: str | None, flags: list[str],
     compiled: a refusal returns None (the preload's lazy half). Each call
     is also one event of the compile ledger (`ledger`, default the
     process-wide one; kernel `build/<name>`, key the digest): `hit` when
-    the library was found, `miss` when it was compiled now."""
-    from .observability import compile_ledger, flight_recorder
+    the library was found, `miss` when it was compiled now. `runtime`:
+    the library depends on the torch and CUDA runtime and the card, which
+    its fingerprint then names (False for plain C that links none)."""
+    from .observability import flight_recorder
     from .ops import aot_store
 
     if compiler is None:
@@ -122,8 +152,8 @@ def build_shared(name: str, compiler: str | None, flags: list[str],
     deps = srcs + [os.path.join(CSRC, h) for h in headers]
     digest = _digest([os.path.basename(compiler)] + list(flags), deps)
     kernel = f"build/{name}"
-    led = ledger or compile_ledger.ledger()
-    fingerprint = store.current_fingerprint(compiler, flags)
+    led = ledger or _process_ledger()
+    fingerprint = store.current_fingerprint(compiler, flags, runtime=runtime)
 
     def found(path: str) -> str:
         seconds = time.monotonic() - t0
@@ -168,11 +198,12 @@ def build_shared(name: str, compiler: str | None, flags: list[str],
 class Library:
     """One library of the port: its compiler (the first of `compilers`
     found; "nvcc" is looked up by `find_nvcc`), flags, sources and the
-    headers its digest covers."""
+    headers its digest covers; `runtime` as in `build_shared`."""
 
-    def __init__(self, name, compilers, flags, sources, headers=()):
+    def __init__(self, name, compilers, flags, sources, headers=(), runtime=True):
         self.name, self.compilers = name, tuple(compilers)
         self.flags, self.sources, self.headers = list(flags), list(sources), list(headers)
+        self.runtime = runtime
 
     def compiler(self) -> str | None:
         if self.compilers == ("nvcc",):
@@ -188,7 +219,7 @@ class Library:
 
     def build(self, build: bool = True, ledger=None) -> str | None:
         return build_shared(self.name, self.compiler(), self.flags, self.sources,
-                            self.headers, build=build, ledger=ledger)
+                            self.headers, build=build, ledger=ledger, runtime=self.runtime)
 
 
 HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
@@ -204,7 +235,7 @@ LIBRARIES = {lib.name: lib for lib in (
                                                         "host/chacha20poly1305.c",
                                                         "host/aes128ctr.c",
                                                         "host/kvstore.c"],
-            ["host/bls12_consts.h"]),
+            ["host/bls12_consts.h"], runtime=False),  # plain C: no torch, no CUDA
     Library("mont_mul_host", CXX, HOST_FLAGS, ["mont_mul_host.cpp"], MONT_MUL_HEADERS),
     Library("mont_mul", ("nvcc",), NVCC_FLAGS, ["mont_mul.cu"], MONT_MUL_HEADERS),
     Library("tower_host", CXX, HOST_FLAGS, ["tower_host.cpp"], TOWER_HEADERS),

@@ -11,6 +11,8 @@ import sys
 from ..utils.logger import FORMAT, TraceContextFilter
 from .beacon import add_beacon_parser
 from .dev import add_dev_parser
+from .flare import add_flare_parser
+from .lightclient import add_lightclient_parser
 from .validator import add_validator_parser
 
 
@@ -22,6 +24,8 @@ def main(argv=None) -> int:
     add_dev_parser(sub)
     add_beacon_parser(sub)
     add_validator_parser(sub)
+    add_lightclient_parser(sub)
+    add_flare_parser(sub)
     args = parser.parse_args(argv)
     handler = logging.StreamHandler(sys.stderr)
     handler.setFormatter(logging.Formatter(FORMAT, datefmt="%H:%M:%S"))

@@ -1455,6 +1455,42 @@ int lodestar_bls_verify_sets(size_t n, const uint8_t *pks,
   return 0;
 }
 
+/* AggregateVerify: key i signed message i, and one signature covers all
+ * n of them: prod_i e(pk_i, H(m_i)) * e(-g1, sig) == 1, one Miller loop
+ * per pair and one final exponentiation.  Returns 1 valid / 0 not: no
+ * pair, an infinity, malformed or off-subgroup key or signature, or a
+ * message hash-to-curve refuses, is 0. */
+int lodestar_bls_aggregate_verify(size_t n, const uint8_t *pks,
+                                  const uint8_t *msgs, const size_t *msg_lens,
+                                  const uint8_t *sig, const uint8_t *dst,
+                                  size_t dst_len) {
+  if (n == 0) return 0;
+  fp2 sx, sy;
+  if (g2_parse_compressed_aff(sig, &sx, &sy, 1) != 0) return 0;
+  fp g1x, g1y_neg, gy;
+  memcpy(g1x, BLS_G1_GX, sizeof(fp));
+  memcpy(gy, BLS_G1_GY, sizeof(fp));
+  fp_neg(g1y_neg, gy);
+  fp12 acc, f;
+  miller_loop_c(&acc, g1x, g1y_neg, &sx, &sy);
+  size_t msg_off = 0;
+  for (size_t i = 0; i < n; i++) {
+    g1p pk;
+    if (g1_parse_compressed(pks + 48 * i, &pk) != 0) return 0;
+    if (!g1_in_subgroup(&pk)) return 0;
+    fp2 hx, hy;
+    if (hash_to_g2_aff(msgs + msg_off, msg_lens[i], dst, dst_len, &hx, &hy) != 0)
+      return 0;
+    msg_off += msg_lens[i];
+    fp pkx, pky;
+    g1_to_affine(pkx, pky, &pk);
+    miller_loop_c(&f, pkx, pky, &hx, &hy);
+    fp12_mul(&acc, &acc, &f);
+  }
+  final_exp_c(&acc, &acc);
+  return fp12_is_one(&acc);
+}
+
 /* ---------------- signing ----------------
  *
  * sign = [sk]·H(m): the host-tier signer, in place of the Python

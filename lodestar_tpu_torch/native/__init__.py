@@ -38,6 +38,7 @@ def _lib():
             "lodestar_bls_sign": [_VP, _VP, _SZ, _VP, _SZ, _VP],
             "lodestar_bls_sk_to_pk": [_VP, _VP],
             "lodestar_bls_verify_sets": [_SZ, _VP, _VP, _VP, _VP, _VP, _SZ, _VP, _VP, _VP],
+            "lodestar_bls_aggregate_verify": [_SZ, _VP, _VP, _VP, _VP, _VP, _SZ],
             "lodestar_bls_marshal_sets": [_SZ, _VP, _VP, _VP, _VP, _SZ, _INT, _INT, _INT,
                                           _INT] + [_VP] * 7,
         }
@@ -317,6 +318,19 @@ def verify_sets(pks: bytes, msgs: list[bytes], sigs: bytes, dst: bytes,
             sigs[96 * lo_hi[0]: 96 * lo_hi[1]], dst,
         ), zip(bounds[:-1], bounds[1:]))
         return [v for part in parts for v in part]
+
+
+def aggregate_verify(pks: bytes, msgs: list[bytes], sig: bytes, dst: bytes) -> bool:
+    """AggregateVerify of n keys (n×48 B) on their n messages under one
+    96 B signature: Π e(pkᵢ, H(mᵢ)) · e(−g1, sig) == 1 (keys and the
+    signature subgroup-checked; an infinity key or signature is False)."""
+    n = len(msgs)
+    if len(pks) != 48 * n or len(sig) != 96:
+        raise ValueError("need n*48 pubkey and 96 signature bytes")
+    lens = np.asarray([len(m) for m in msgs], np.uint64)
+    return _lib().lodestar_bls_aggregate_verify(
+        n, _buf(pks), _buf(b"".join(msgs) or b"\0"), _ptr(lens), _buf(sig),
+        _buf(dst), len(dst)) == 1
 
 
 # -- the KV engine (csrc/host/kvstore.c) -------------------------------------

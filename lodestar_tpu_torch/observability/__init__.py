@@ -20,37 +20,33 @@ the JAX package's `observability/`):
 - `spans`: node-wide lifecycle tracing: trace-id / parent-id spans with
   context-variable propagation, the ring served at `/debug/traces`, and
   slot-milestone delays.
+
+The names below load their module at first use (PEP 562), so a process
+that only records a library build or a span (a validator, a light
+client) does not import PyTorch with `stages` and `trace`.
 """
 
-from .stages import (  # noqa: F401
-    NULL_OBSERVER,
-    PLANNER_PATHS,
-    STAGES,
-    NullObserver,
-    PipelineMetrics,
-    create_pipeline_metrics,
-    default_pipeline,
-)
-from .trace import (  # noqa: F401
-    annotation,
-    named_scope,
-    profiling_active,
-    start_profiling,
-    stop_profiling,
-)
-from .compile_ledger import (  # noqa: F401
-    CompileLedger,
-    StartupTimeline,
-    ledger,
-    timeline,
-)
-from .flight_recorder import FlightRecorder, recorder  # noqa: F401
-from .device_ledger import DeviceLedger  # noqa: F401
-from .runtime import runtime_info  # noqa: F401
-from .spans import (  # noqa: F401
-    MILESTONES,
-    Tracer,
-    current_trace_id,
-    record_slot_milestone,
-    tracer,
-)
+import importlib
+
+_EXPORTS = {
+    "stages": ("NULL_OBSERVER", "PLANNER_PATHS", "STAGES", "NullObserver", "PipelineMetrics",
+               "create_pipeline_metrics", "default_pipeline"),
+    "trace": ("annotation", "named_scope", "profiling_active", "start_profiling",
+              "stop_profiling"),
+    "compile_ledger": ("CompileLedger", "StartupTimeline", "ledger", "timeline"),
+    "flight_recorder": ("FlightRecorder", "recorder"),
+    "device_ledger": ("DeviceLedger",),
+    "runtime": ("runtime_info",),
+    "spans": ("MILESTONES", "Tracer", "current_trace_id", "record_slot_milestone", "tracer"),
+}
+_HOME = {name: module for module, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_HOME)
+
+
+def __getattr__(name: str):
+    module = _HOME.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value

@@ -466,7 +466,18 @@ def ledger() -> CompileLedger:
     with _ledger_lock:
         if _ledger is None:
             _ledger = CompileLedger()
-        return _ledger
+        led = _ledger
+    from .. import build
+
+    # builds made before the process had PyTorch (`build.PENDING_LEDGER`);
+    # `pop` is atomic, so concurrent callers replay each call once
+    while build.PENDING_LEDGER and "torch" in sys.modules:
+        try:
+            method, args, kwargs = build.PENDING_LEDGER.pop(0)
+        except IndexError:
+            break
+        getattr(led, method)(*args, **kwargs)
+    return led
 
 
 # -- startup timeline -------------------------------------------------------

@@ -31,13 +31,21 @@ import contextlib
 import contextvars
 import logging
 import os
+import sys
 import threading
 import time
 from collections import deque
 
-from . import trace as _trace
-
 _log = logging.getLogger(__name__)
+
+
+def _profiling_trace():
+    """The `trace` module while a profiler trace runs, else None. A
+    process that never loaded it runs no trace, so spans (and the log
+    filter that reads their ids) leave PyTorch unloaded there."""
+    trace = sys.modules.get(f"{__package__}.trace")
+    return trace if trace is not None and trace.profiling_active() else None
+
 
 # milestones recorded against the start of a block's slot
 MILESTONES = (
@@ -145,9 +153,10 @@ class Span:
         if self._root is self:
             self.t0_wall = time.time()
         self._token = _current.set(self)
-        if _trace.profiling_active():
+        trace = _profiling_trace()
+        if trace is not None:
             # onto the profiler's timeline beside the verdicts' stage scopes
-            self._annotation = _trace.annotation(f"lifecycle/{self.name}")
+            self._annotation = trace.annotation(f"lifecycle/{self.name}")
             self._annotation.__enter__()
         return self
 

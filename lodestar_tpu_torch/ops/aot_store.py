@@ -15,7 +15,9 @@ module adds the rest of the contract:
 - the header records the build's fingerprint: the torch version, the
   CUDA runtime, the compiler's `--version`, the device name and compute
   capability and the flags. A library stamped with another fingerprint
-  (a new `nvcc`, torch or card) is `AotVersionMismatch`, not reused;
+  (a new `nvcc`, torch or card) is `AotVersionMismatch`, not reused. The
+  C host tier links neither torch nor CUDA: its fingerprint is the
+  compiler and the flags alone, so a process without PyTorch loads it;
 - the header carries the library's SHA-256 and length, verified before
   the library is opened: a truncated or bit-flipped library, or a
   garbled header, is `AotCorrupt` and never reaches `ctypes.CDLL`. The
@@ -165,10 +167,13 @@ class AotStore:
             root = BUILD_DIR
         self.root = os.path.abspath(root)
 
-    def current_fingerprint(self, compiler: str | None = None, flags=()) -> dict:
-        """The fingerprint a library built now would carry: the process's
-        part, and with `compiler` its version and the flags."""
-        fp = runtime_fingerprint()
+    def current_fingerprint(self, compiler: str | None = None, flags=(),
+                            runtime: bool = True) -> dict:
+        """The fingerprint a library built now would carry: with `runtime`
+        the process's part (a library of plain C, the host tier, links
+        neither torch nor CUDA and carries none), and with `compiler` its
+        version and the flags."""
+        fp = runtime_fingerprint() if runtime else {}
         if compiler is not None:
             fp["compiler"] = compiler_version(compiler)
             fp["flags"] = " ".join(flags)

@@ -382,6 +382,39 @@ def make_blocks(factory, genesis, phase0_blocks: int, swap=(5, 77)):
     return blocks, altair, tampered, (i, j), time.perf_counter() - t0
 
 
+def light_client_chain(n_validators: int = 16, slots: int = 24,
+                       genesis_time: int = GENESIS_TIME, threads: int | None = None):
+    """(config, Altair genesis state, signed blocks) of the light client's
+    chain, as the JAX package's light-client tests build it: the minimal
+    preset and `MINIMAL_CHAIN_CONFIG` (its Altair epoch far in the
+    future), an interop genesis of `n_validators` upgraded to Altair at
+    slot 0, and a block at each slot 1..`slots` carrying the previous
+    slot's aggregates and a full sync aggregate (`BlockFactory`)."""
+    from .config.beacon_config import BeaconConfig, ChainForkConfig
+    from .config.chain_config import MINIMAL_CHAIN_CONFIG
+    from .params import MINIMAL
+    from .state_transition import CachedBeaconState, interop_genesis_state
+    from .state_transition.altair import upgrade_state_to_altair
+    from .types import get_types
+
+    t = get_types(MINIMAL)
+    pre = interop_genesis_state(ChainForkConfig(MINIMAL_CHAIN_CONFIG, MINIMAL), t.phase0,
+                                n_validators, genesis_time=genesis_time)
+    config = BeaconConfig(MINIMAL_CHAIN_CONFIG, bytes(pre.genesis_validators_root), MINIMAL)
+    genesis = upgrade_state_to_altair(config, MINIMAL, pre, t.altair)
+    factory = BlockFactory(config, n_validators, threads)
+    try:
+        state, blocks = CachedBeaconState(config, genesis.copy(), MINIMAL), []
+        for slot in range(1, slots + 1):
+            pre_state = factory.advance(state, slot)
+            atts = factory.attestations(pre_state, [slot - 1]) if slot > 1 else []
+            signed, state = factory.block(pre_state, atts, sync=True)
+            blocks.append(signed)
+    finally:
+        factory.close()
+    return config, genesis, blocks
+
+
 def host_verdicts(sets, threads: int | None = None) -> list[bool]:
     """The C host tier's per-set verdicts."""
     from . import native

@@ -248,7 +248,8 @@ def primitive_us(reps: int = 20) -> dict:
 
 
 def run(supervisor, *, scenario, chain_out, observer=None, probe=None, sync=None,
-        peers: int = PEERS, threads: int = VALIDATION_THREADS, log=print) -> dict:
+        peers: int = PEERS, threads: int = VALIDATION_THREADS,
+        flood_committees: int | None = None, log=print) -> dict:
     """Steps (a)–(e) of the module's docstring, between the node steps, on
     `scenario` and `chain_out` (`profile_chain.run(..., keep=True)`'s
     result, whose chain this closes). R's node composes its own lane
@@ -256,14 +257,16 @@ def run(supervisor, *, scenario, chain_out, observer=None, probe=None, sync=None
     or one over any `IBlsVerifier`), recording into R's registry. Returns the records by step ("steps")
     with their seconds, what each moved in `observer`'s and `probe()`'s
     counts and the kernels' launches, the verifier's calls whose verdicts
-    differ from the host tier's, and every failed check ("failures")."""
+    differ from the host tier's, and every failed check ("failures").
+    `flood_committees` cuts (c) and (d) to the slot's first committees
+    (the chain phase's special messages all lie in committee 0)."""
     threads_before = {t.ident for t in threading.enumerate()}
     sockets_before = _sockets()
     out = {"peers": peers, "validators": scenario["validators"], "steps": {}, "failures": []}
     try:
         asyncio.run(asyncio.wait_for(
             _run(supervisor, scenario, chain_out, observer, probe, sync, peers, threads,
-                 out),
+                 flood_committees, out),
             5 * WAIT_S))
     except Exception as e:  # noqa: BLE001 — a failed phase is reported, not raised
         out["failures"].append(f"run: {type(e).__name__}: {e}")
@@ -347,7 +350,7 @@ NODE_BLS_MOVED = ("lodestar_bls_verifier_batches_total", "lodestar_bls_verifier_
 
 
 async def _run(supervisor, scenario, chain_out, observer, probe, sync, peers, threads,
-               out):
+               flood_committees, out):
     import tempfile
 
     from .api import BeaconApiServer
@@ -593,9 +596,12 @@ async def _run(supervisor, scenario, chain_out, observer, probe, sync, peers, th
             return sorted(set(round(v, 6) for v in got.values()))
 
         # (c) the attestations, with the second vote and, after, the replay
+        def flooded(i):
+            return flood_committees is None or i < flood_committees
+
         replay = None
         tasks = []
-        for _, task in gossip["attestations"]:
+        for _, task in (t for t in gossip["attestations"] if flooded(t[0])):
             if task[-1][1] == "IGNORE":
                 replay, task = task[-1], task[:-1]
             tasks.append(task)
@@ -651,7 +657,8 @@ async def _run(supervisor, scenario, chain_out, observer, probe, sync, peers, th
         def agg_topic_of(m, args):
             return stringify_topic(GossipTopic(GossipType.beacon_aggregate_and_proof, digest))
 
-        plan = spread([t for _, t in gossip["aggregates"]], agg_topic_of, SEED + 1)
+        plan = spread([t for i, t in gossip["aggregates"] if flooded(i)], agg_topic_of,
+                      SEED + 1)
         with step() as rec:
             with profile_chain._BatchSpy(lanes) as spy, \
                     _cohort_flush(lanes, cohort(GossipType.beacon_aggregate_and_proof, 3)):

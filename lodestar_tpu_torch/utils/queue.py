@@ -81,6 +81,11 @@ class JobItemQueue(Generic[T, R]):
     def __len__(self) -> int:
         return len(self._items)
 
+    @property
+    def pending(self) -> int:
+        """Jobs queued or running."""
+        return len(self._items) + self._running
+
     async def push(self, args: T) -> R:
         """Enqueue and await the processed result."""
         if self._closed:

@@ -90,9 +90,13 @@ def test_export_then_hit_with_a_checksummed_header(store):
     assert header["payload_len"] == len(payload)
     assert header["payload_sha256"] == hashlib.sha256(payload).hexdigest()
     assert header["fingerprint"] == st.current_fingerprint(build.LIBRARIES[NAME].compiler(),
-                                                            build.LIBRARIES[NAME].flags)
-    assert set(header["fingerprint"]) == {"torch", "cuda_runtime", "compiler", "device",
-                                          "capability", "flags"}
+                                                            build.LIBRARIES[NAME].flags,
+                                                            runtime=False)
+    # the host tier is plain C: its fingerprint names no torch, CUDA or card
+    assert set(header["fingerprint"]) == {"compiler", "flags"}
+    assert set(st.current_fingerprint(build.LIBRARIES["tower_host"].compiler(),
+                                      build.LIBRARIES["tower_host"].flags)) == {
+        "torch", "cuda_runtime", "compiler", "device", "capability", "flags"}
     assert header["created_unix"] > 0
     assert not [n for n in os.listdir(st.root) if n.endswith(".tmp")]
     (entry,) = st.entries()

@@ -25,6 +25,8 @@ import sys
 import pytest
 import torch
 
+from lodestar_tpu_torch import build
+
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 PROBE = r"""
@@ -325,6 +327,117 @@ def test_validator_client_loads_no_jax_no_wheel_and_reads_no_environment():
         assert not re.search(r"^\s*(import|from)\s+(cryptography|yaml)\b", text, re.M), path
     with open(os.path.join(REPO, "lodestar_tpu_torch", "csrc", "host", "aes128ctr.c")) as f:
         assert "getenv" not in f.read()
+
+
+# the last slice: the light client, flare, the simulation, the spec tests
+LAST_SLICE_MODULES = (
+    "light_client", "light_client.client", "light_client.rest_follow", "cli.lightclient",
+    "cli.flare", "sim", "sim.environment", "spec_test", "spec_test.runner",
+    "spec_test.presets", "spec_test.fixtures", "spec_test.yaml_subset")
+
+LAST_SLICE_PROBE = r"""
+import json, sys
+import lodestar_tpu_torch.light_client.rest_follow, lodestar_tpu_torch.cli.lightclient
+import lodestar_tpu_torch.cli.flare, lodestar_tpu_torch.sim, lodestar_tpu_torch.spec_test
+import lodestar_tpu_torch.spec_test.fixtures
+from lodestar_tpu_torch.cli.__main__ import main
+try:
+    main(["--help"])
+except SystemExit:
+    pass
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "lodestar_tpu" or m.startswith("lodestar_tpu.")
+             or m == "cryptography" or m.startswith("cryptography.")
+             or m == "yaml" or m.startswith("yaml."))
+print(json.dumps(bad))
+"""
+
+
+def test_last_slice_loads_no_jax_no_wheel_no_yaml_and_reads_no_environment():
+    """The light client, the `lightclient` and `flare` commands, the
+    simulation and the spec-test harness load no JAX, no JAX package, no
+    `cryptography` and no `yaml`, and read no variable."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", LAST_SLICE_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    for cmd in ("beacon", "dev", "validator", "lightclient", "flare"):
+        assert cmd in out.stdout
+    for name in LAST_SLICE_MODULES:
+        path = os.path.join(REPO, "lodestar_tpu_torch", *name.split("."))
+        path = path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r"\b(environ|getenv|putenv|env_str|env_float|env_bool)\b",
+                             text), path
+        assert "LODESTAR_TPU_" not in text, path
+        assert not re.search(r"^\s*(import|from)\s+(cryptography|yaml)\b", text, re.M), path
+
+
+HOST_ONLY_PROBE = r"""
+import json, runpy, sys
+sys.argv = ["lodestar_tpu_torch.cli"] + sys.argv[1:]
+if sys.argv[1:] == ["native"]:
+    from lodestar_tpu_torch import native
+    rc, sig = native.sign(b"\x01" * 32, b"m" * 32, b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_")
+    assert rc == 0 and len(sig) == 96 and native.snappy_uncompress(native.snappy_compress(b"x")) == b"x"
+else:
+    try:
+        runpy.run_module("lodestar_tpu_torch.cli", run_name="__main__")
+    except SystemExit:
+        pass
+print(json.dumps(sorted(m for m in sys.modules if m == "torch" or m.startswith("torch."))))
+"""
+
+
+@pytest.mark.parametrize("what", [["validator", "--help"], ["flare", "--help"],
+                                  ["lightclient", "--help"], ["native"]])
+def test_host_only_commands_and_the_host_tier_load_no_torch(what):
+    """`python -m lodestar_tpu_torch.cli validator|flare|lightclient --help`
+    and the host tier's first call (built or loaded from the library store,
+    its ledger records kept for later) leave PyTorch unloaded."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", HOST_ONLY_PROBE] + what, cwd=REPO, env=env,
+        capture_output=True, text=True, check=True, timeout=300,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    if what[0] != "native":
+        assert "usage:" in out.stdout
+
+
+LEDGER_PROBE = r"""
+import json, sys
+from lodestar_tpu_torch import build, native
+native.sha256_level(bytes(64))
+kept = [(method, args[0]) for method, args, _ in build.PENDING_LEDGER]
+import torch
+from lodestar_tpu_torch.observability import compile_ledger
+snap = compile_ledger.ledger().snapshot()
+print(json.dumps({"kept": kept, "left": len(build.PENDING_LEDGER),
+                  "aot": [(e["kernel"], e["outcome"]) for e in snap["aot"]["events"]],
+                  "events": [(e["kernel"], e["cache"], e["device_set"]) for e in snap["events"]]}))
+"""
+
+
+def test_a_host_tier_build_before_torch_is_recorded_by_the_ledger():
+    """The host tier's store outcome and build event, taken before the
+    process loaded PyTorch, reach the compile ledger when it is first
+    asked, as if it had recorded them then."""
+    build.host_tier()  # in the store, so the probe finds it
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", LEDGER_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, check=True, timeout=300,
+    )
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["kept"] == [["note_aot", "build/bls12_host"], ["record", "build/bls12_host"]]
+    assert got["left"] == 0
+    assert got["aot"] == [["build/bls12_host", "hit"]]
+    assert got["events"] == [["build/bls12_host", "hit", "cpux1"]]
 
 
 # the serving stack's modules: none reads any environment variable at all

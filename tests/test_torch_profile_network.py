@@ -34,14 +34,16 @@ def scenario():
                                        log=lambda *a: None)
 
 
-@pytest.mark.parametrize("verifier", ["host", "lanes", "yes", "node_lanes"])
+@pytest.mark.parametrize("verifier", ["host", "lanes", "yes", "node_lanes", "host_cut"])
 def test_profile_network_on_the_host_tier(scenario, verifier, monkeypatch):
     """`profile_network.run` end to end at the minimal preset, 8 peers, R's
     node composing its lanes over a supervisor: every check holds through
     the host tier; the lanes flush at the peers' cohort during each flood
     (restored after); they are the node's own, over the supervisor given,
     with the JAX node's defaults; and a verifier that says yes to everything
-    fails the checks (the bad signatures are ACCEPTed)."""
+    fails the checks (the bad signatures are ACCEPTed). `host_cut` floods
+    committee 0 alone (`flood_committees=1`), which still holds every
+    refused, ignored and replayed message."""
     from lodestar_tpu_torch import profile_chain, profile_network
     from lodestar_tpu_torch.bls.api import SignatureSet, interop_secret_key
     from lodestar_tpu_torch.chain import dispatcher
@@ -67,7 +69,8 @@ def test_profile_network_on_the_host_tier(scenario, verifier, monkeypatch):
     assert not chain_out["failures"] and "gossip" in chain_out
     try:
         out = profile_network.run(sup, scenario=scenario, chain_out=chain_out, peers=8,
-                                  threads=16, log=lambda *a: None)
+                                  threads=16, log=lambda *a: None,
+                                  flood_committees=1 if verifier == "host_cut" else None)
     finally:
         sup.close()
     lines = []
@@ -79,7 +82,8 @@ def test_profile_network_on_the_host_tier(scenario, verifier, monkeypatch):
     assert not out["threads_left"] and out["sockets"][1] <= out["sockets"][0]
     st = out["steps"]
     assert st["range_sync"]["blocks"] == [1, 2, 3, 9]
-    assert st["attestations"]["actions"] == {"ACCEPT": 8, "REJECT": 3, "IGNORE": 1}
+    accepted = 4 if verifier == "host_cut" else 8  # one committee of 4, or the slot's two
+    assert st["attestations"]["actions"] == {"ACCEPT": accepted, "REJECT": 3, "IGNORE": 1}
     assert st["attestations"]["replay"] == {"published_to": 1, "duplicates": 1}
     assert st["aggregates"]["actions"].get("REJECT") == 1
     assert st["block"]["gossip"] == "ACCEPT" and st["block"]["weight"][0] == st["block"]["weight"][1]

@@ -1,13 +1,15 @@
 """Run some of `chip_smoke.py`'s chain-family phases alone on one GPU.
 
-    python3 tools/chip_phases.py [chain] [network] [capella] [cli]
+    python3 tools/chip_phases.py [chain] [network] [capella] [cli] [rest]
 
 Always runs env, build and block_import (their stack and scenario feed
 the rest), then the phases named, in the script's order (network needs
-chain; with no name, all four), every check as `chip_smoke.py` makes it.
+chain; with no name, all five), every check as `chip_smoke.py` makes it.
 `cli` (the port's CLI as a subprocess on the card: a `beacon` node, a
 posted block, then a `validator` subprocess whose two proposals the node
-imports, and its keymanager) runs last, after the stack is closed.
+imports, its keymanager, and the `flare` commands' slashings) and `rest`
+(the two-node simulation on the card, the light client and the spec-test
+harness) run last, after the stack is closed.
 Prints the phases' `[time]` lines and one `[phases]` line with the
 seconds of each and the card; writes the records to
 `build/lodestar_tpu_torch/chip_phases.json`. Exits non-zero when a check
@@ -24,7 +26,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-ORDER = ("chain", "network", "capella", "cli")
+ORDER = ("chain", "network", "capella", "cli", "rest")
 
 
 def main(argv) -> int:
@@ -58,6 +60,8 @@ def main(argv) -> int:
         stack.close()
     if "cli" in want:
         out["cli"] = cs.timed("cli", cs.phase_cli, torch, np)
+    if "rest" in want:
+        out["rest"] = cs.timed("rest", cs.phase_rest, torch, np)
     cs.log(f"[phases] {json.dumps({k: round(v, 1) for k, v in cs.PHASE_SECONDS.items()})}; "
            f"{time.perf_counter() - t0:.1f} s; card: {cs.card_line()}")
     out_dir = os.path.join(ROOT, "build", "lodestar_tpu_torch")
