@@ -2237,28 +2237,13 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys,
             batches.append((n_sets, reason, overlapped, time.perf_counter() - t0, held))
 
     lanes._dispatch_batch = dispatch
-    device_calls = []  # (seconds queued for the dispatch worker, seconds run on it)
-    real_run = sup._dispatcher.run
-
-    def run(fn, deadline_s):
-        t_put = time.perf_counter()
-
-        def timed_fn():
-            t_run = time.perf_counter()
-            try:
-                return fn()
-            finally:
-                device_calls.append((t_run - t_put, time.perf_counter() - t_run))
-
-        return real_run(timed_fn, deadline_s)
-
-    sup._dispatcher.run = run
     per_set = _counting(sup, "verify_signature_sets_individual")
     cpu = _counting(stack.cpu, "verify_signature_sets", "verify_signature_sets_individual")
     jobs = _counting(stack.device._inner, "verify_signature_sets",
                      "verify_signature_sets_individual")
     h2c = _counting(stack.device, "warm_h2c")
     led0 = device_ledger.ledger().snapshot()
+    wait0 = pm.stage_snapshot().get("dispatch_wait", {"sum_s": 0.0, "count": 0})
     results = {}
     blocks = []
     torch.cuda.synchronize()
@@ -2301,6 +2286,7 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys,
     counts = _counts()
     stack.wait_populated()
     led1 = device_ledger.ledger().snapshot()
+    wait1 = pm.stage_snapshot().get("dispatch_wait", {"sum_s": 0.0, "count": 0})
     lane_snap = pm.lanes_snapshot()
     sup_snap = pm.supervisor_snapshot()
     breaker = sup.breaker_state
@@ -2357,8 +2343,11 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys,
     hist = Counter(next(f"<={b}" for b in NODE_SIZE_BINS if n <= b) for n in sizes)
     busy = led1["busy_wall_s"] - led0["busy_wall_s"]
     uptime = led1["uptime_s"] - led0["uptime_s"]
-    waits = [w for w, _ in device_calls]
-    ran = sum(r for _, r in device_calls)
+    # the supervisor's own stage `dispatch_wait`: one observation per device
+    # call; the facade's seconds are what the dispatch worker ran
+    n_device = wait1["count"] - wait0["count"]
+    waited = wait1["sum_s"] - wait0["sum_s"]
+    ran = jobs["verify_signature_sets_s"] + jobs["verify_signature_sets_individual_s"]
     out = dict(
         order="interleaved",
         makespan_s=max(ends), slot_s=NODE_SLOT_S, att_sets_per_s=len(order) / att_done,
@@ -2372,8 +2361,8 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys,
         audit_batch_calls=cpu["verify_signature_sets"], audit_batch_s=cpu["verify_signature_sets_s"],
         audit_set_calls=cpu["verify_signature_sets_individual"],
         audit_set_s=cpu["verify_signature_sets_individual_s"],
-        device_calls=len(device_calls), device_wait_s=sum(waits),
-        device_wait_max_s=max(waits, default=0.0), device_run_s=ran,
+        device_calls=n_device, device_wait_s=waited,
+        device_wait_mean_s=waited / max(1, n_device), device_run_s=ran,
         worker_busy=ran / max(ends), jobs=jobs["verify_signature_sets"],
         jobs_s=jobs["verify_signature_sets_s"],
         set_jobs=jobs["verify_signature_sets_individual"],
@@ -2390,9 +2379,10 @@ def _node_slot(torch, np, tag, slice_sets, slice_host, block_sets, keys,
         f"{json.dumps(out['batch_sizes'])}, largest {out['batch_max']}, reasons "
         f"{json.dumps(out['batch_reasons'])}; lane_overlap_fraction {out['overlap_fraction']}; "
         f"device-ledger utilisation {out['utilization']:.4f} ({busy:.3f} of {uptime:.3f} s)")
-    log(f"{tag} {len(device_calls)} supervised device calls ran {ran:.3f} s on the one dispatch "
-        f"worker ({out['worker_busy']:.4f} of the makespan) and waited for it {sum(waits):.3f} s "
-        f"in all (longest {out['device_wait_max_s']:.3f} s); inside them the facade ran "
+    log(f"{tag} {n_device} supervised device calls ran {ran:.3f} s on the one dispatch "
+        f"worker ({out['worker_busy']:.4f} of the makespan) and waited for it {waited:.3f} s "
+        f"in all (stage dispatch_wait, {out['device_wait_mean_s']:.3f} s each); inside them the "
+        f"facade ran "
         f"{out['jobs']} batch jobs in {out['jobs_s']:.3f} s ({out['jobs_s'] / max(1, out['jobs']):.3f}"
         f" s each) and {out['set_jobs']} per-set jobs in {out['set_jobs_s']:.3f} s; warm_h2c on "
         f"the lane threads {out['warm_h2c_calls']} calls {out['warm_h2c_s']:.3f} s")

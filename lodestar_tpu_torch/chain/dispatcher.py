@@ -15,6 +15,13 @@ package's `chain/dispatcher.py`).
   waiter gets a prompt typed `BlsShedError`. While the supervisor's
   breaker is open (the host tier serving), the lane caps halve.
 
+- **Waits.** Each call's seconds in its lane go to the pipeline's stage
+  `lane_wait` as its batch leaves. A caller inside a lifecycle trace gets
+  one `bls/lane_batch` event on its span after the batch: its lane wait,
+  the batch's sets and id (shared by the batch's calls), the batch's
+  dispatch-queue wait and, when one ran, its audit seconds (the
+  supervisor's `take_call_timings`).
+
 The JAX module reads its defaults from LODESTAR_TPU_* variables; here
 they are constructor arguments with the same values (`LANE_WORKERS`,
 `LANE_MAX_COALESCE`, `LANE_PENDING_CAP`, `LANE_CAPS`, h2c dedup on).
@@ -24,6 +31,7 @@ helpers; the Condition wraps the same `self._lock`.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
@@ -38,7 +46,7 @@ from .bls_verifier import (
     ThreadBufferedVerifier,
     _verify_merged,
 )
-from ..observability import device_ledger
+from ..observability import device_ledger, spans
 
 __all__ = ["BlsLaneDispatcher", "BlsShedError", "LANES", "DEFAULT_LANE"]
 
@@ -87,12 +95,14 @@ class BlsLaneDispatcher(ThreadBufferedVerifier):
         # the Condition shares self._lock (created by the base __init__),
         # so waiters/notifies and the guarded-by annotations agree
         self._cv = threading.Condition(self._lock)
-        # entry: (sets, event, holder, lane, t_enqueued)
+        # entry: (sets, event, holder, lane, t_enqueued, the caller's
+        # lifecycle span or None)
         self._lane_q: dict[str, deque] = {lane: deque() for lane in LANES}  # guarded-by: _lock
         self._lane_sets: dict[str, int] = {lane: 0 for lane in LANES}  # guarded-by: _lock
         self._pending_sets = 0  # guarded-by: _lock
         self._inflight = 0  # guarded-by: _lock
         self._closed = False  # guarded-by: _lock
+        self._batch_ids = itertools.count(1)
         self.pipeline.bind_lane_depths(self._lanes_state)
         self._threads = [
             threading.Thread(
@@ -155,11 +165,12 @@ class BlsLaneDispatcher(ThreadBufferedVerifier):
             return self.verifier.verify_signature_sets(sets)
         ev = threading.Event()
         holder: list = [None]
+        span = spans.tracer.context()
         with self._cv:
             if self._closed:
                 shed, direct = None, True
             else:
-                shed = self._admit_locked(sets, ev, holder, lane)
+                shed = self._admit_locked(sets, ev, holder, lane, span)
                 direct = False
         if direct:
             return self.verifier.verify_signature_sets(sets)
@@ -167,7 +178,7 @@ class BlsLaneDispatcher(ThreadBufferedVerifier):
             raise shed
         return self._await(ev, holder, len(sets), lane)
 
-    def _admit_locked(self, sets, ev, holder, lane):
+    def _admit_locked(self, sets, ev, holder, lane, span=None):
         """Admission control under the lock. Returns a `BlsShedError` to
         raise (request NOT queued) or None (queued, worker notified)."""
         n = len(sets)
@@ -187,7 +198,7 @@ class BlsLaneDispatcher(ThreadBufferedVerifier):
             if self._pending_sets + n > self.pending_cap and lane != "block":
                 self.pipeline.lane_shed(lane, n)
                 return BlsShedError(lane, n, "pending cap")
-        self._lane_q[lane].append((sets, ev, holder, lane, time.monotonic()))
+        self._lane_q[lane].append((sets, ev, holder, lane, time.monotonic(), span))
         self._lane_sets[lane] += n
         self._pending_sets += n
         if self.prom is not None:
@@ -208,7 +219,7 @@ class BlsLaneDispatcher(ThreadBufferedVerifier):
             q = self._lane_q[lane]
             evicted = 0
             while q and freed < need:
-                e_sets, e_ev, e_holder, e_lane, _ = q.popleft()
+                e_sets, e_ev, e_holder, e_lane, *_ = q.popleft()
                 k = len(e_sets)
                 self._lane_sets[lane] -= k
                 self._pending_sets -= k
@@ -309,9 +320,11 @@ class BlsLaneDispatcher(ThreadBufferedVerifier):
 
     def _dispatch_batch(self, entries, n_sets, reason, overlapped) -> None:
         now = time.monotonic()
-        if self.prom is not None:
-            for _, _, _, _, enq in entries:
-                self.prom.bls_buffer_wait_seconds.observe(now - enq)
+        waits = [now - enq for _, _, _, _, enq, _ in entries]
+        for wait in waits:
+            self.pipeline.observe_stage("lane_wait", wait)
+            if self.prom is not None:
+                self.prom.bls_buffer_wait_seconds.observe(wait)
         self.pipeline.lane_coalesce(n_sets)
         self.pipeline.lane_overlap(overlapped)
         self._dedup_h2c(entries)
@@ -331,9 +344,24 @@ class BlsLaneDispatcher(ThreadBufferedVerifier):
             _log.exception("lane batch verification failed; resolving %d requests as "
                            "invalid", len(entries))
         self.pipeline.flush(reason, latency_s=time.monotonic() - t0)
-        for (_, ev, holder, _, _), verdict in zip(entries, per_request):
+        # the supervisor's dispatch-queue wait and audit seconds of this
+        # batch's calls, taken on every batch so none carries over
+        take = getattr(self.verifier, "take_call_timings", None)
+        timings = take() if take is not None else {}
+        if any(span is not None for *_, span in entries):
+            self._trace_batch(entries, waits, n_sets, timings)
+        for (_, ev, holder, *_), verdict in zip(entries, per_request):
             holder[0] = verdict
             ev.set()
+
+    def _trace_batch(self, entries, waits, n_sets: int, timings: dict) -> None:
+        """One `bls/lane_batch` event on each traced caller's span (the
+        caller still waits on its event, so its span is open)."""
+        batch = next(self._batch_ids)
+        for (*_, span), wait in zip(entries, waits):
+            if span is not None:
+                span.event("bls/lane_batch", lane_wait_s=round(wait, 6), sets=n_sets,
+                           batch=batch, **timings)
 
     def _dedup_h2c(self, entries) -> None:
         """H(msg) dedup across the coalesced batch: committee
@@ -350,7 +378,7 @@ class BlsLaneDispatcher(ThreadBufferedVerifier):
             return
         seen: set = set()
         dupes = 0
-        for sets, _, _, _, _ in entries:
+        for sets, *_ in entries:
             for s in sets:
                 try:
                     m = bytes(s.message)
@@ -379,7 +407,7 @@ class BlsLaneDispatcher(ThreadBufferedVerifier):
             q = self._lane_q[lane]
             shed = 0
             while q:
-                e_sets, e_ev, e_holder, e_lane, _ = q.popleft()
+                e_sets, e_ev, e_holder, e_lane, *_ = q.popleft()
                 k = len(e_sets)
                 self._lane_sets[lane] -= k
                 self._pending_sets -= k

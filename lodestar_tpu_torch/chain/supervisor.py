@@ -42,6 +42,14 @@ events (`bls/breaker_transition`, the evictions) go to the process-wide
 caller's thread. Counters go to the observer (`PipelineMetrics`: breaker state,
 transitions, retries, fallbacks, deadlines, canary, mismatches) and
 `breaker_snapshot()` serves `/debug/breaker`.
+
+Two parts of a call's latency go to the observer's stage histogram: each
+device call's wait for the one dispatch thread, from its hand-over to the
+queue to the worker taking it (stage `dispatch_wait`; 0 on the inline
+path; nothing for a call that blew its deadline), and the host tier's
+seconds of a negative audit (stage `audit`, inside the profiler scope
+`bls/audit`). `take_call_timings()` gives the calling thread's sums of
+both since its last take: the lanes put them on their callers' traces.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import queue
+import sys
 import threading
 import time
 
@@ -152,6 +161,7 @@ class _DeadlineDispatcher:
                     if item is None:
                         return
                     fn, box, done = item
+                    box["t_taken"] = time.monotonic()
                     try:
                         box["result"] = fn()
                     except BaseException as e:  # delivered to the waiter
@@ -167,10 +177,14 @@ class _DeadlineDispatcher:
             self._queue, self._worker = q, worker
             return q
 
-    def run(self, fn, deadline_s: float | None):
+    def run(self, fn, deadline_s: float | None, on_wait):
         """Execute `fn()`; raise DeviceDeadlineExceeded after
-        `deadline_s` (None or ≤ 0: unbounded, executed inline)."""
+        `deadline_s` (None or ≤ 0: unbounded, executed inline). A call
+        that ran (returned or raised) within its deadline passes
+        `on_wait` the seconds it waited in the queue for the worker: 0
+        inline."""
         if deadline_s is None or deadline_s <= 0:
+            on_wait(0.0)
             return fn()
         with self._lock:
             self._abandoned = [t for t in self._abandoned if t.is_alive()]
@@ -181,6 +195,7 @@ class _DeadlineDispatcher:
         q = self._ensure_worker()
         done = threading.Event()
         box: dict = {}
+        t_put = time.monotonic()
         q.put((fn, box, done))
         if not done.wait(deadline_s):
             with self._lock:
@@ -191,6 +206,7 @@ class _DeadlineDispatcher:
                     self._worker = None
                     self._generation += 1
             raise DeviceDeadlineExceeded(f"device dispatch exceeded {deadline_s:.3f}s deadline")
+        on_wait(box["t_taken"] - t_put)
         if "error" in box:
             raise box["error"]
         return box["result"]
@@ -273,6 +289,9 @@ class SupervisedBlsVerifier:
         self._canary_sets = canary_sets
         self._closed = False  # guarded-by: _lock
         self._stop = threading.Event()  # wakes the canary's sleep at close()
+        # per calling thread: dispatch-queue wait and audit seconds since
+        # its last `take_call_timings()`
+        self._timings = threading.local()
         self._log = logging.getLogger("bls-supervisor")
         self._rl = RateLimitedLogger(self._log, interval_s=30.0)
         self.observer.breaker_state(BREAKER_STATE_VALUES[self._state])
@@ -474,6 +493,26 @@ class SupervisedBlsVerifier:
     def _maybe_span_event(self, name: str, **attrs) -> None:
         self.tracer.event(name, **attrs)
 
+    # -- waits and audits --------------------------------------------------------
+
+    def _add_timing(self, key: str, seconds: float) -> None:
+        sums = vars(self._timings)  # this thread's own
+        sums[key] = sums.get(key, 0.0) + seconds
+
+    def _observe_dispatch_wait(self, seconds: float) -> None:
+        self.observer.observe_stage("dispatch_wait", seconds)
+        self._add_timing("dispatch_wait_s", seconds)
+
+    def take_call_timings(self) -> dict:
+        """The calling thread's dispatch-queue wait seconds
+        (`dispatch_wait_s`) and, if an audit ran, audit seconds
+        (`audit_s`) since its last take; both start again from zero."""
+        sums = vars(self._timings)
+        out = {"dispatch_wait_s": round(sums.pop("dispatch_wait_s", 0.0), 6)}
+        if "audit_s" in sums:
+            out["audit_s"] = round(sums.pop("audit_s"), 6)
+        return out
+
     # -- dispatch --------------------------------------------------------------
 
     def _evict_sick_host(self, exc, n_sets: int, reason: str) -> bool:
@@ -532,7 +571,7 @@ class SupervisedBlsVerifier:
         attempt = 0
         while True:
             try:
-                return self._dispatcher.run(fn, self.deadline_s)
+                return self._dispatcher.run(fn, self.deadline_s, self._observe_dispatch_wait)
             except DeviceDeadlineExceeded:
                 self.observer.supervisor_deadline()
                 self._rl.error("deadline", "device dispatch (%d sets) blew the %.1fs deadline; "
@@ -564,12 +603,32 @@ class SupervisedBlsVerifier:
                              "sets from the host tier", reason, n_sets)
         try:
             with self._maybe_span("bls/cpu_fallback", reason=reason):
+                if reason == "negative_audit":
+                    return self._audit(fn)
                 return fn()
         except Exception:
             self.observer.both_tiers_failed()
             self._log.exception("both_tiers_failed: the host tier failed after a device "
                                 "failure (%s); resolving %d sets as invalid", reason, n_sets)
             return default
+
+    def _audit(self, fn):
+        """The host tier's audit of a device False: its seconds are stage
+        `audit`, inside the profiler scope `bls/audit` (where PyTorch is
+        loaded: a host-only process stays without it)."""
+        scope = contextlib.nullcontext()
+        if "torch" in sys.modules:
+            from ..observability import trace
+
+            scope = trace.annotation("bls/audit")
+        t0 = time.monotonic()
+        try:
+            with scope:
+                return fn()
+        finally:
+            seconds = time.monotonic() - t0
+            self.observer.observe_stage("audit", seconds)
+            self._add_timing("audit_s", seconds)
 
     # -- IBlsVerifier ----------------------------------------------------------
 

@@ -6,8 +6,30 @@ the JAX package's `observability/`):
   `metrics.registry` registry, named as the JAX package names them),
   `default_pipeline()`, the observer of the verifier, the facade and the
   epoch table when none is passed, and `NullObserver`.
-- `trace`: `record_function` / NVTX scopes and the `torch.profiler`
-  start/stop switch.
+- `trace`: `record_function` / NVTX scopes, the device-stage scopes that
+  also time their host seconds into the observer a verifier binds
+  (`device_stage`, `observing`), the rules for what gets a scope, and the
+  `torch.profiler` start/stop switch.
+
+Stage labels of `lodestar_bls_pipeline_stage_seconds` beyond the JAX
+package's taxonomy (`stages.STAGES`), all recorded through
+`observe_stage`:
+
+- `lane_wait`: a call's seconds in its lane before its batch left
+  (`chain/dispatcher.py`; counted, not scoped);
+- `dispatch_wait`: a device call's seconds waiting for the supervisor's
+  one dispatch thread, 0 on the inline path (`chain/supervisor.py`;
+  counted, not scoped);
+- `audit`: the host tier's seconds of one negative audit, under the
+  profiler scope `bls/audit`;
+- `bls/g2_decompress`, `bls/scalar_mul`, `bls/msm_planes`,
+  `bls/miller_loop`, `bls/product_tree`, `bls/final_exp_batch`,
+  `bls/plane_subgroup`: the host seconds to enqueue each device stage of a
+  verdict, named as its scope.
+
+The verifier's host stages (`marshal`, `hash_to_curve`, `rand`,
+`dispatch`, `device_wait`) also open the scopes `bls/<stage>`; `bisect`
+keeps the probe kernel's `bls/bisect`.
 - `stage_profile`: per-stage device time of the grouped verdict with CUDA
   events, into the same stage histogram.
 - `compile_ledger`: library builds and first launches as events, the
@@ -31,8 +53,8 @@ import importlib
 _EXPORTS = {
     "stages": ("NULL_OBSERVER", "PLANNER_PATHS", "STAGES", "NullObserver", "PipelineMetrics",
                "create_pipeline_metrics", "default_pipeline"),
-    "trace": ("annotation", "named_scope", "profiling_active", "start_profiling",
-              "stop_profiling"),
+    "trace": ("annotation", "device_stage", "named_scope", "observe_stage", "observing",
+              "profiling_active", "start_profiling", "stop_profiling"),
     "compile_ledger": ("CompileLedger", "StartupTimeline", "ledger", "timeline"),
     "flight_recorder": ("FlightRecorder", "recorder"),
     "device_ledger": ("DeviceLedger",),

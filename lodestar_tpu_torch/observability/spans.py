@@ -13,10 +13,11 @@ in the same trace.
 Finished traces go to a bounded ring (256 by default); the metrics
 server's `/debug/traces` serves them as JSON, filterable by slot and
 block root, and `on_finish` callbacks see each one (the serving stack
-counts them into `lodestar_lifecycle_traces_total`). While the
-`torch.profiler` switch of `observability/trace.py` is on, each span also
-opens a `record_function("lifecycle/<name>")` scope, so lifecycle spans
-share a timeline with the verdicts' stage scopes.
+counts them into `lodestar_lifecycle_traces_total`). While a
+`torch.profiler` runs (the switch of `observability/trace.py`, or one an
+operator started), each span also opens a
+`record_function("lifecycle/<name>")` scope, so lifecycle spans share a
+timeline with the verdicts' stage scopes.
 
 Zero cost when disabled: `span()` and `trace()` return one shared no-op
 singleton (no allocation, no clock read, no ring write). A tracer is
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import importlib
 import logging
 import os
 import sys
@@ -40,11 +42,14 @@ _log = logging.getLogger(__name__)
 
 
 def _profiling_trace():
-    """The `trace` module while a profiler trace runs, else None. A
-    process that never loaded it runs no trace, so spans (and the log
-    filter that reads their ids) leave PyTorch unloaded there."""
-    trace = sys.modules.get(f"{__package__}.trace")
-    return trace if trace is not None and trace.profiling_active() else None
+    """The `trace` module while a `torch.profiler` runs, else None: the
+    program's own switch (`trace.start_profiling`) or a profiler an
+    operator or a benchmark started. A process that has not loaded
+    PyTorch runs no profiler, so spans (and the log filter that reads
+    their ids) leave PyTorch unloaded there."""
+    # the process-wide flag every `torch.profiler` start sets
+    running = getattr(sys.modules.get("torch.autograd.profiler"), "_is_profiler_enabled", False)
+    return importlib.import_module(f"{__package__}.trace") if running else None
 
 
 # milestones recorded against the start of a block's slot

@@ -13,13 +13,19 @@ host stages (timed inline, monotonic clock):
     bisect         bisection probe dispatches on a failed verdict tree
                    (batched final exps; tag `bls/bisect`)
 
-device stages (attributable two ways: `trace.named_scope` tags around
+device stages (attributable two ways: `trace.device_stage` scopes around
 each stage of the verdict functions for `torch.profiler` and NVTX, and
 `stage_profile.profile_stages` timing each stage with CUDA events into
 the SAME histogram):
     g2_decompress, scalar_mul, msm_planes, miller_loop, product_tree,
     final_exp, final_exp_batch (`bls/final_exp_batch`); `miller_pallas`
     is the JAX package's Pallas Miller stage, kept in the taxonomy
+
+labels the port records beyond `STAGES` (`observability/__init__.py`
+lists them): `lane_wait` and `dispatch_wait` (the serving stack's two
+queues), `audit` (the supervisor's host-tier audit), and each device
+scope's host seconds under the scope's own name (`bls/plane_subgroup`,
+...), which no label above shares
 
 All families live in a `metrics.registry.MetricsRegistry` (the port's
 copy) with the JAX package's names, types, help texts, labels and

@@ -1,7 +1,7 @@
 """Profiler integration: named scopes and the profiler switch (the JAX
 package's `observability/trace.py` on `torch.profiler`).
 
-Two scope kinds, both host-side, so code can annotate unconditionally:
+Three scope kinds, all host-side, so code can annotate unconditionally:
 
 - `annotation(label)`: `torch.profiler.record_function(label)`, a span on
   the profiler's timeline around host work (one facade job, marshal,
@@ -11,11 +11,42 @@ Two scope kinds, both host-side, so code can annotate unconditionally:
   loop, the final exponentiation), so that the kernels launched inside
   it are attributable in a `torch.profiler` trace or an NVTX timeline.
   The JAX package tags HLO ops with `jax.named_scope` at the same places.
+- `device_stage(label)`: a `named_scope` whose host seconds also go to the
+  observer bound on the thread by `observing(observer)` (a verifier binds
+  its own around each verdict; a mesh worker binds a recorder whose sums
+  travel back with its reply), as stage `label` of
+  `lodestar_bls_pipeline_stage_seconds`: the seven `bls/<stage>` scopes
+  of the verdicts (`bls/g2_decompress`, `bls/scalar_mul`,
+  `bls/msm_planes`, `bls/miller_loop`, `bls/product_tree`,
+  `bls/final_exp_batch`, `bls/plane_subgroup`). One pair of clock reads
+  per scope, no synchronisation: the seconds are the host's, to enqueue the
+  stage. With nothing bound it is a `named_scope`.
 
-Neither synchronises nor reads a tensor, so both stay legal inside a CUDA
+None synchronises or reads a tensor, so all stay legal inside a CUDA
 graph capture, and outside a running profiler `record_function` costs
 about a microsecond; the scopes sit around stages, never around single
 operations.
+
+Which intervals get a scope, and which only a stage counter. A profile's
+idle gaps on the card are charged to the latest-started `bls*` scope open
+on any thread, so a scope names host WORK on one thread:
+
+- waits are counted, never scoped: a call's wait in its lane
+  (`lane_wait`) and a device call's wait for the supervisor's dispatch
+  thread (`dispatch_wait`). A waiting thread's scope would take the gap
+  from the thread that does the work. The resolver's wait for a verdict
+  (`bls/device_wait`) is scoped: the card computes through it, so it
+  holds no gap to take;
+- host work on one thread gets a `bls/` scope and a stage of the same
+  work: the verifier's host stages (`bls/marshal`, `bls/hash_to_curve`,
+  `bls/rand`, `bls/dispatch`, `bls/device_wait`; stage `bisect` keeps the
+  probe kernel's `bls/bisect`) and the supervisor's negative audit on the
+  host tier (`bls/audit`, stage `audit`);
+- the device stages are `device_stage` scopes, counter and scope under
+  one name;
+- no scope starts with `bls_verify_batch/` or `bls_verify_individual/`
+  but the facade's job scopes: a reader of the profile counts those as
+  verdicts.
 
 `start_profiling(trace_dir)` / `stop_profiling()` are the one
 process-wide switch over `torch.profiler.profile` (CPU activity, and CUDA
@@ -27,8 +58,10 @@ from LODESTAR_TPU_PROFILE; the port starts one only when asked.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 import threading
+import time
 
 import torch
 
@@ -64,6 +97,46 @@ def named_scope(label: str):
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
+
+
+# the observer that `device_stage` scopes report to on this thread
+_stage_observer: "contextvars.ContextVar" = contextvars.ContextVar(
+    "lodestar_tpu_torch_stage_observer", default=None)
+
+
+@contextlib.contextmanager
+def observing(observer):
+    """Bind `observer` (duck-typed: `observe_stage(name, seconds)`) for the
+    `device_stage` scopes this thread opens inside the block."""
+    token = _stage_observer.set(observer)
+    try:
+        yield observer
+    finally:
+        _stage_observer.reset(token)
+
+
+def observe_stage(label: str, seconds: float) -> None:
+    """Observe `seconds` of stage `label` into the bound observer, if any."""
+    observer = _stage_observer.get()
+    if observer is not None:
+        observer.observe_stage(label, seconds)
+
+
+@contextlib.contextmanager
+def device_stage(label: str):
+    """A device stage's `named_scope`, whose host seconds go to the bound
+    observer as stage `label`."""
+    observer = _stage_observer.get()
+    if observer is None:
+        with named_scope(label):
+            yield
+        return
+    t0 = time.monotonic()
+    try:
+        with named_scope(label):
+            yield
+    finally:
+        observer.observe_stage(label, time.monotonic() - t0)
 
 
 def default_trace_dir() -> str:

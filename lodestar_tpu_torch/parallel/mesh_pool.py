@@ -71,6 +71,7 @@ from datetime import timedelta
 
 import torch
 
+from ..observability import trace
 from .fleet import remote_device, split_device
 
 __all__ = ["TIMEOUT_S", "CollectiveError", "MeshPool", "MeshWorkerError", "PoolSlot",
@@ -429,14 +430,20 @@ class MeshPool:
 
     def run(self, kind: str, arrays) -> list:
         """Run the sharded verdict `kind` over the row slices of `arrays`;
-        returns every worker's reply (worker 0's is the verdict)."""
+        returns every worker's reply (worker 0's is the verdict). Worker
+        0's host seconds per device stage (it runs its slice and the
+        tail) go to the observer the calling thread has bound
+        (`trace.observing`: the verifier's)."""
         rows = arrays[0].shape[0]
         if rows % self.size:
             raise ValueError(f"{rows} rows do not split over {self.size} workers")
         per = rows // self.size
         msgs = [("run", kind, tuple(a[k * per:(k + 1) * per] for a in arrays))
                 for k in range(self.size)]
-        return self._request(msgs, REPLY_TIMEOUT_S)
+        replies = self._request(msgs, REPLY_TIMEOUT_S)
+        for label, seconds in replies[0][1].items():
+            trace.observe_stage(label, seconds)
+        return [reply for reply, _ in replies]
 
     def counts(self, reset: bool = False) -> list[dict]:
         """Each worker's launch counts (`launch_counts`), zeroed after the

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..observability.trace import named_scope
+from ..observability.trace import device_stage, observing
 from ..ops import fp, fp2, fp12, msm
 from ..ops.g2_decompress import decompress as _g2_decompress
 from ..ops.g2_decompress import planes_in_subgroup as _planes_in_subgroup
@@ -249,7 +249,7 @@ def _sharded_verify(shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits
         f_tail = miller_loop_proj_pq(p, tuple(c[None] for c in s))[0]
         f_tail = fp12.select(~s_inf, f_tail, fp12.one((), dev))
         f = fp12.mul(fp12.product_tree(f_all), f_tail)
-        with named_scope("bls/final_exp_batch"):
+        with device_stage("bls/final_exp_batch"):
             return fp12.is_one(final_exponentiation_one(f))
 
     return _tail_on_root(shard, tail)
@@ -307,7 +307,7 @@ def _grouped_local(shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits,
     pk = g1.select(valid, pk, g1.infinity((r_loc, lanes), dev))
     bits = torch.cat([a_bits, b_bits], dim=-1)
 
-    with named_scope("bls/msm_planes"):
+    with device_stage("bls/msm_planes"):
         t_planes = msm.masked_plane_sums(g1, pk, bits)  # (64, r_loc)
         tp = tuple(c.reshape((2, HALF_BITS) + tuple(c.shape[1:])) for c in t_planes)
         tp = tuple(torch.movedim(c, 1, 0) for c in tp)
@@ -317,7 +317,7 @@ def _grouped_local(shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits,
         u_planes = _signature_planes(shard, sig_x, sig_y, bits, valid)
     (cx, cy, cz), uq = _constant_lanes(shard, u_planes, dev)
 
-    with named_scope("bls/miller_loop"):
+    with device_stage("bls/miller_loop"):
         h = (msg_x, msg_y, fp2.one((r_loc,), dev))
         psi_h = g2_psi(h)
         px = torch.cat([a_pt[0], b_pt[0], cx], 0)
@@ -329,7 +329,7 @@ def _grouped_local(shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits,
         lane_ok = ~g1.is_infinity((px, py, pz)) & ~g2.is_infinity((qx, qy, qz))
         fs = miller_loop_proj_pq((px, py, pz), (qx, qy, qz))
         fs = fp12.select(lane_ok, fs, fp12.one((px.shape[0],), dev))
-    with named_scope("bls/product_tree"):
+    with device_stage("bls/product_tree"):
         return fp12.product_tree(fs), u_planes
 
 
@@ -338,11 +338,11 @@ def _final_exp_tail(f_all, u_planes=None):
     partials, one final exponentiation, and for the raw twins the plane
     subgroup check."""
     def tail():
-        with named_scope("bls/final_exp_batch"):
+        with device_stage("bls/final_exp_batch"):
             ok = fp12.is_one(final_exponentiation_one(fp12.product_tree(f_all)))
         if u_planes is None:
             return ok
-        with named_scope("bls/plane_subgroup"):
+        with device_stage("bls/plane_subgroup"):
             return ok & _planes_in_subgroup(u_planes)
 
     return tail
@@ -359,7 +359,7 @@ def _sharded_raw(local, shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_raw, a_bits,
     bytes; lanes that fail to decode are masked out of the pairing, a
     failed VALID lane on any worker forces the verdict False, and the
     combined plane sums get the subgroup check in the tail."""
-    with named_scope("bls/g2_decompress"):
+    with device_stage("bls/g2_decompress"):
         sig_x, sig_y, dec_ok = _g2_decompress(sig_raw)
         fail_loc = torch.any(valid & ~dec_ok)
     f_loc, u_planes = local(shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits,
@@ -389,7 +389,7 @@ def _pk_grouped_local(shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bi
     msgs = g2.select(valid, msgs, g2.infinity((r_loc, lanes), dev))
     bits = torch.cat([a_bits, b_bits], dim=-1)
 
-    with named_scope("bls/msm_planes"):
+    with device_stage("bls/msm_planes"):
         m_planes = msm.masked_plane_sums(g2, msgs, bits)  # (64, r_loc)
         tp = tuple(c.reshape((2, HALF_BITS) + tuple(c.shape[1:])) for c in m_planes)
         tp = tuple(torch.movedim(c, 1, 0) for c in tp)
@@ -398,7 +398,7 @@ def _pk_grouped_local(shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bi
         u_planes = _signature_planes(shard, sig_x, sig_y, bits, valid)
     (cx, cy, cz), uq = _constant_lanes(shard, u_planes, dev)
 
-    with named_scope("bls/miller_loop"):
+    with device_stage("bls/miller_loop"):
         px = torch.cat([pk_x, cx], 0)
         py = torch.cat([pk_y, cy], 0)
         pz = torch.cat([fp.one((r_loc,), dev), cz], 0)
@@ -408,7 +408,7 @@ def _pk_grouped_local(shard: Shard, pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bi
         lane_ok = ~g1.is_infinity((px, py, pz)) & ~g2.is_infinity((qx, qy, qz))
         fs = miller_loop_proj_pq((px, py, pz), (qx, qy, qz))
         fs = fp12.select(lane_ok, fs, fp12.one((px.shape[0],), dev))
-    with named_scope("bls/product_tree"):
+    with device_stage("bls/product_tree"):
         return fp12.product_tree(fs), u_planes
 
 
@@ -431,7 +431,7 @@ def _bisect_local(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid):
     ML(−g1, r_i·sig_i), identity for padding."""
     n_loc = pk_x.shape[0]
     dev = pk_x.device
-    with named_scope("bls/scalar_mul"):
+    with device_stage("bls/scalar_mul"):
         rpk = g1.scalar_mul_bits(r_bits, (pk_x, pk_y))
         rsig = g2.scalar_mul_bits(r_bits, (sig_x, sig_y))
     gx = fp.const(G1_GEN_X, dev).expand(n_loc, N_LIMBS)
@@ -442,7 +442,7 @@ def _bisect_local(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid):
     qx = torch.cat([msg_x, rsig[0]], 0)
     qy = torch.cat([msg_y, rsig[1]], 0)
     qz = torch.cat([fp2.one((n_loc,), dev), rsig[2]], 0)
-    with named_scope("bls/miller_loop"):
+    with device_stage("bls/miller_loop"):
         fs = miller_loop_proj_pq((px, py, pz), (qx, qy, qz))
     f = fp12.mul(fs[:n_loc], fs[n_loc:])
     return fp12.select(valid, f, fp12.one((n_loc,), dev))
@@ -457,15 +457,15 @@ def _sharded_bisect_verify(shard: Shard, *args):
     if leaves is None:
         return None
     leaves = leaves.reshape((-1,) + tuple(leaves.shape[2:]))
-    with named_scope("bls/product_tree"):
+    with device_stage("bls/product_tree"):
         levels = [leaves]
         g = leaves
         while g.shape[0] > 1:
             g = fp12.mul(g[0::2], g[1::2])
             levels.append(g)
-    with named_scope("bls/final_exp_batch"):
-        root_ok = bool(fp12.is_one(final_exponentiation_one(levels[-1][0])))
-    return root_ok, [lvl.cpu().numpy() for lvl in levels]
+    with device_stage("bls/final_exp_batch"):
+        root_ok = fp12.is_one(final_exponentiation_one(levels[-1][0]))
+    return bool(root_ok), [lvl.cpu().numpy() for lvl in levels]
 
 
 # --- the worker's entry -------------------------------------------------------
@@ -512,11 +512,25 @@ _RUNNERS = {
 }
 
 
+class _StageSeconds:
+    """A worker's observer for one request: host seconds per device stage."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+
+    def observe_stage(self, name: str, seconds: float) -> None:
+        self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+
+
 def run_shard(kind: str, shard: Shard, arrays):
     """A worker's part of the sharded verdict `kind` on its row slice of
-    host arrays (uploaded to the worker's device here)."""
+    host arrays (uploaded to the worker's device here): (its reply, the
+    host seconds of each device stage it opened, by scope name)."""
     tensors = [torch.as_tensor(a).to(shard.device) for a in arrays]
-    return _RUNNERS[kind](shard, *tensors)
+    stages = _StageSeconds()
+    with observing(stages):
+        reply = _RUNNERS[kind](shard, *tensors)
+    return reply, stages.seconds
 
 
 # --- host wrappers --------------------------------------------------------------

@@ -64,7 +64,7 @@ from ..bls.api import DST_G2
 from ..device import resolve_device
 from ..observability import compile_ledger
 from ..observability.stages import default_pipeline
-from ..observability.trace import named_scope
+from ..observability.trace import annotation, device_stage, named_scope, observing
 from ..ops import cuda_tower, fp, fp2, fp12, msm
 from ..ops.g2_decompress import decompress, planes_in_subgroup
 from ..ops.pairing import (
@@ -247,7 +247,8 @@ def _rand_pairs(shape: tuple[int, ...], rng=None):
 
 
 # the verdict functions' stage names -> the JAX package's named scopes at
-# the same places (`plane_subgroup` has no JAX scope)
+# the same places (`plane_subgroup` has no JAX scope); each scope's host
+# seconds are also a stage of that name
 _SCOPES = {
     "g2_decompress": "bls/g2_decompress",
     "scalar_mul": "bls/scalar_mul",
@@ -261,11 +262,18 @@ _SCOPES = {
 }
 
 
+# the verifier's host stages -> their profiler scopes (stage `bisect`
+# keeps the probe kernel's own `bls/bisect`)
+_HOST_SCOPES = {name: f"bls/{name}"
+                for name in ("marshal", "hash_to_curve", "rand", "dispatch", "device_wait")}
+
+
 def _scope(name: str):
     """The verdict functions' default `stage` hook: the stage's
-    `trace.named_scope` (a `record_function` span and an NVTX range,
-    host-side only)."""
-    return named_scope(_SCOPES[name])
+    `trace.device_stage` (a `record_function` span and an NVTX range,
+    host-side only, whose host seconds go to the observer the verifier
+    binds around the verdict)."""
+    return device_stage(_SCOPES[name])
 
 
 def grouped_verify_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, a_bits, b_bits, valid):
@@ -541,7 +549,7 @@ def bisect_tree_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid):
     contribute the identity; the caller reports them False."""
     n = pk_x.shape[0]
     dev = pk_x.device
-    with named_scope("bls/scalar_mul"):
+    with _scope("scalar_mul"):
         rpk = g1.scalar_mul_bits(r_bits, (pk_x, pk_y))
         rsig = g2.scalar_mul_bits(r_bits, (sig_x, sig_y))
     gx = fp.const(G1_GEN_X, dev).expand(n, N_LIMBS)
@@ -552,19 +560,19 @@ def bisect_tree_kernel(pk_x, pk_y, msg_x, msg_y, sig_x, sig_y, r_bits, valid):
     qx = torch.cat([msg_x, rsig[0]], 0)
     qy = torch.cat([msg_y, rsig[1]], 0)
     qz = torch.cat([fp2.one((n,), dev), rsig[2]], 0)
-    with named_scope("bls/miller_loop"):
+    with _scope("miller_loop"):
         fs = miller_loop_proj_pq((px, py, pz), (qx, qy, qz))
     f = fp12.mul(fs[:n], fs[n:])
     f = fp12.select(valid, f, fp12.one((n,), dev))
     m = 1 << max(0, (n - 1).bit_length())
     if m > n:
         f = torch.cat([f, fp12.one((m - n,), dev)], 0)
-    with named_scope("bls/product_tree"):
+    with _scope("product_tree"):
         levels = [f]
         while f.shape[0] > 1:
             f = fp12.mul(f[0::2], f[1::2])
             levels.append(f)
-    with named_scope("bls/final_exp_batch"):
+    with _scope("final_exp"):
         root_ok = fp12.is_one(final_exponentiation_one(levels[-1][0]))
     return root_ok, levels
 
@@ -581,7 +589,7 @@ def final_exp_batch_kernel(fs):
     """(N,) stacked Fp12 values → (N,) bool, is_one of each one's final
     exponentiation: the JAX package's standalone unit of the same
     function as the probe, under its own scope."""
-    with named_scope("bls/final_exp_batch"):
+    with _scope("final_exp"):
         return fp12.is_one(final_exponentiation_batch(fs))
 
 
@@ -714,9 +722,12 @@ class TorchBlsVerifier:
     @contextlib.contextmanager
     def _stage(self, name: str):
         """The observer's stage timer around the block, whose host seconds
-        also go to `stage_seconds`."""
+        also go to `stage_seconds`, inside the stage's profiler scope
+        (`_HOST_SCOPES`)."""
+        label = _HOST_SCOPES.get(name)
         t0 = time.perf_counter()
-        with self.observer.stage(name):
+        with (annotation(label) if label else contextlib.nullcontext()), \
+                self.observer.stage(name):
             yield
         self._add_stage(name, time.perf_counter() - t0)
 
@@ -1022,7 +1033,12 @@ class TorchBlsVerifier:
         """Marshal and dispatch now, block later: returns a zero-argument
         resolver for the verdict. The planner's order is the JAX package's:
         root-grouped, pk-grouped, split (shared roots grouped, the rest
-        pk-grouped or flat), flat."""
+        pk-grouped or flat), flat. The device stages' host seconds go to
+        this verifier's observer."""
+        with observing(self.observer):
+            return self._submit_planned(sets)
+
+    def _submit_planned(self, sets):
         self._on_device_dispatch(len(sets))
         if sets and self._native_eligible(sets):
             plan = self._plan_groups(sets)
@@ -1157,7 +1173,8 @@ class TorchBlsVerifier:
         and the busy sampler gets the whole span from submit to resolve
         (the device computes through the gap)."""
         t0 = time.perf_counter()
-        verdict = bool(result)
+        with annotation(_HOST_SCOPES["device_wait"]):
+            verdict = bool(result)
         now = time.perf_counter()
         self.observer.observe_stage("device_wait", now - t0)
         self.observer.device_busy_sample(now - t_submit)
@@ -1281,7 +1298,12 @@ class TorchBlsVerifier:
         exponentiations. Leaf probes are exact, so the verdicts are those of
         `individual_verify_kernel` and of the host C tier. A batch that
         does not marshal (a malformed set, or more sets than the largest
-        bucket) is verified one set at a time (`_verify_one`)."""
+        bucket) is verified one set at a time (`_verify_one`). The device
+        stages' host seconds go to this verifier's observer."""
+        with observing(self.observer):
+            return self._verify_individual(sets)
+
+    def _verify_individual(self, sets) -> list[bool]:
         self.observer.planner("individual", len(sets))
         self._on_device_dispatch(len(sets))
         with self._stage("marshal"):

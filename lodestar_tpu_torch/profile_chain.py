@@ -147,7 +147,7 @@ class _BatchSpy:
             def spy(entries, n_sets, reason, overlapped):
                 self.batches.append((int(n_sets), str(reason)))
                 out = real(entries, n_sets, reason, overlapped)
-                if not all(holder[0] for _, _, holder, _, _ in entries):
+                if not all(holder[0] for _, _, holder, *_ in entries):
                     self.failed.append(int(n_sets))
                 return out
 

@@ -263,6 +263,30 @@ def test_pipeline_metrics_fill(served):
     assert bis["decompress_fallbacks"] == 0
 
 
+# each device stage a verdict opens, counted once per scope: two
+# root-grouped verdicts (the valid batch, the tampered one) and one
+# bisection tree (the tampered sets one by one)
+DEVICE_STAGES = {"bls/g2_decompress": 2, "bls/msm_planes": 4, "bls/miller_loop": 3,
+                 "bls/product_tree": 3, "bls/final_exp_batch": 3, "bls/plane_subgroup": 2,
+                 "bls/scalar_mul": 1}
+
+
+@pytest.mark.parametrize("stack", ["served", "served_port"])
+def test_verdicts_time_every_device_stage_they_open(request, stack):
+    """The host seconds of each `bls/<stage>` scope go to the verifier's
+    observer under the scope's name, inside the dispatch stage; bisection
+    keeps its one stage (a probe round of at most 16 nodes is one), and
+    its probe scope `bls/bisect` is not timed again."""
+    served = request.getfixturevalue(stack)
+    stages = served["pm"].stage_snapshot()
+    assert {k: v["count"] for k, v in stages.items() if k.startswith("bls/")} == DEVICE_STAGES
+    assert stages["bisect"]["count"] == served["last_bisect"]["rounds"]
+    device = sum(stages[k]["sum_s"] for k in DEVICE_STAGES)
+    assert 0.8 * stages["dispatch"]["sum_s"] <= device <= stages["dispatch"]["sum_s"]
+    if stack == "served_port":  # the port's supervisor: three device calls, queued
+        assert stages["dispatch_wait"]["count"] == 3
+
+
 def test_supervisor_mesh_lookups_get_no_mesh(served):
     sup = served["sup"]
     assert sup.mesh_evict(chip=0) is None

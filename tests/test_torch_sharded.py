@@ -111,7 +111,7 @@ def served():
     batches = grouped_batches()
     d = BlsMeshDispatcher(DEVICES, observer=PipelineMetrics())
     v = TorchBlsVerifier(device="cpu", grouped_configs=(CONFIG,), mesh=d,
-                         rng=np.random.default_rng(7))
+                         rng=np.random.default_rng(7), observer=PipelineMetrics())
     single = []
     inner = v._kernels["grouped_raw"]
     v._kernels["grouped_raw"] = lambda *a: single.append(1) or inner(*a)
@@ -122,7 +122,8 @@ def served():
         verdicts[name] = v.verify_signature_sets(sets)
         dispatches[name] = d.snapshot()["dispatches"] - before
     yield dict(batches=batches, dispatcher=d, verifier=v, pool=pool, verdicts=verdicts,
-               dispatches=dispatches, single=single, single_at_setup=len(single))
+               dispatches=dispatches, single=single, single_at_setup=len(single),
+               stages=v.observer.stage_snapshot())
     v.close()
     assert not any(pool.alive())
 
@@ -135,6 +136,19 @@ def test_sharded_grouped_raw_verdict_equals_the_host_tier(served, name):
     assert served["single_at_setup"] == 0  # NOT_SHARDED never taken
     snap = served["dispatcher"].snapshot()
     assert snap["size"] == 2 and snap["compiled"] == ["grouped_raw:2x4@2"]
+
+
+def test_sharded_verdicts_time_the_first_workers_device_stages(served):
+    """Worker 0's host seconds per device scope come back with its reply
+    and go to the verifier's observer: once per stage per verdict (the
+    raw grouped verdict opens no scalar multiplication), inside the
+    controller's dispatch stage."""
+    stages = served["stages"]
+    assert {k: v["count"] for k, v in stages.items() if k.startswith("bls/")} == {
+        "bls/g2_decompress": 2, "bls/msm_planes": 2, "bls/miller_loop": 2,
+        "bls/product_tree": 2, "bls/final_exp_batch": 2, "bls/plane_subgroup": 2}
+    device = sum(v["sum_s"] for k, v in stages.items() if k.startswith("bls/"))
+    assert 0 < device <= stages["dispatch"]["sum_s"]
 
 
 def test_pool_workers_are_processes_of_their_own(served):
